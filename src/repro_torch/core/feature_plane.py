@@ -21,7 +21,11 @@ CPU tests' configuration); on ``cuda`` it launches the kernel or raises.
 
 Known cost: ``fetch`` returns numpy rows, as the JAX package's does, so
 resident rows travel device → host here and host → device again before the
-forward (graph/batch.py builds the padded batch in numpy).
+forward (graph/batch.py builds the padded batch in numpy).  The fused reads
+avoid it: ``fused_inputs`` (the all-hop fused train step's layer-0 input)
+hands the step the live device table itself, with resident rows encoded
+as slots and only the misses written into a persistent device sideband;
+``gather_aggregate`` resolves and aggregates layer 0 in one kernel.
 
 Reconfiguration: ``resize``/γ-swap mutates the ``FeatureCache`` in place;
 the device plane sees the new ``FeatureCache.version`` and re-syncs —
@@ -66,6 +70,7 @@ class FeaturePlane:
         # the rows those dispatches resolved
         self.gather_dispatches = 0
         self.gather_rows = 0
+        self._fused_table = None        # host fused_inputs' 1-row dummy
 
     # -- reads ---------------------------------------------------------------
     def fetch(self, ids: np.ndarray) -> np.ndarray:
@@ -75,6 +80,46 @@ class FeaturePlane:
         if self.cache is not None:
             return self.cache.fetch(ids)
         return self.graph.features[np.asarray(ids, dtype=np.int64)]
+
+    def gather_aggregate(self, ids: np.ndarray, neigh_idx: np.ndarray,
+                         mode: str = "mean"):
+        """Fused layer-0 read: the input-hop self rows and the masked
+        neighbor aggregate (``mode``: mean or sum) in one call, returning
+        numpy ``(h_dst (n_dst, F), agg (n_dst, F))`` where
+        ``n_dst = neigh_idx.shape[0]`` (dst ids are the prefix of ``ids``).
+
+        Host backend: fetch through the cache (same accounting as
+        ``fetch``) and run the fused op's plain version with an
+        all-sideband encoding, so both backends aggregate identical rows."""
+        ids = np.asarray(ids, dtype=np.int64)
+        rows = self.fetch(ids)           # counts the gather_* traffic
+        enc = -np.arange(1, len(ids) + 1, dtype=np.int32)
+        table = np.zeros((1, self.graph.feat_dim), np.float32)
+        return _run_fused(enc, neigh_idx, torch.from_numpy(table), rows,
+                          mode, torch.device("cpu"))
+
+    def fused_inputs(self, ids: np.ndarray, cap: int):
+        """Encoded layer-0 inputs for the all-hop fused train step
+        (models/gnn.py ``make_train_step_allfused``): ``(enc (cap,) int32,
+        aux (cap, F) float32, table)`` padded to the fixed input-level cap
+        (graph/batch.py ``compute_level_caps``).  Padded enc entries are −1
+        → ``aux[0]``, never referenced by a real dst row.
+
+        Host backend: all-sideband encoding — rows are fetched through the
+        cache (same accounting as ``fetch``), ``enc[i] = -(i+1)`` and the
+        table is a 1-row dummy; the tensors lie on the CPU."""
+        ids = np.asarray(ids, dtype=np.int64)
+        n = len(ids)
+        if n > cap:
+            raise ValueError(f"{n} input ids exceed level cap {cap}")
+        rows = self.fetch(ids)           # counts the gather_* traffic
+        enc = np.full(cap, -1, np.int32)
+        enc[:n] = -np.arange(1, n + 1, dtype=np.int32)
+        aux = np.zeros((cap, self.graph.feat_dim), np.float32)
+        aux[:n] = rows
+        if self._fused_table is None:
+            self._fused_table = torch.zeros((1, self.graph.feat_dim))
+        return torch.from_numpy(enc), torch.from_numpy(aux), self._fused_table
 
     # -- writes (streaming updates) ------------------------------------------
     def subscribe_to(self, store) -> "FeaturePlane":
@@ -129,6 +174,22 @@ class FeaturePlane:
 HostFeaturePlane = FeaturePlane
 
 
+def _run_fused(enc: np.ndarray, neigh_idx: np.ndarray, table: torch.Tensor,
+               aux: np.ndarray, mode: str, device: torch.device):
+    """Run ``gather_aggregate`` on ``device`` against ``table`` (already
+    there) and return numpy ``(h_dst, agg)``.  An empty sideband becomes
+    one zero row (the op needs at least one)."""
+    from repro_torch.kernels.fused_gather_agg.ops import gather_aggregate
+    if len(aux) == 0:
+        aux = np.zeros((1, table.shape[1]), np.float32)
+    h, a = gather_aggregate(
+        torch.from_numpy(np.ascontiguousarray(enc, np.int32)).to(device),
+        torch.from_numpy(np.ascontiguousarray(neigh_idx, np.int32)).to(device),
+        table, torch.from_numpy(np.ascontiguousarray(aux, np.float32)).to(
+            device), mode=mode)
+    return h.cpu().numpy(), a.cpu().numpy()
+
+
 class DeviceFeaturePlane(FeaturePlane):
     """Device-resident gather: slot map + cache table as tensors on
     ``device``, batch lookup through the ``cache_gather`` kernel, miss
@@ -163,6 +224,11 @@ class DeviceFeaturePlane(FeaturePlane):
         self.sync_row_scatters = 0
         self.sync_rows_scattered = 0
         self.sync_bytes_uploaded = 0    # host→device mirror traffic, exact
+        # per-cap persistent sidebands for the all-hop fused path: miss rows
+        # are written into a buffer on ``device`` in place instead of
+        # uploading a (cap, F) tensor per batch, so per-batch feature
+        # traffic is O(misses), never O(cap)
+        self._aux_bufs = {}
         # mode1 batch-gen workers share the plane: a mirror re-upload must
         # never race a gather in another thread, so sync + gather + insert
         # run under one lock
@@ -261,6 +327,75 @@ class DeviceFeaturePlane(FeaturePlane):
         # bumps version → re-sync on the next fetch
         c.account_fetch(~miss, miss_ids)
         return out
+
+    def _encode(self, ids: np.ndarray, c: FeatureCache, n_enc: int):
+        """(enc (n_enc,) int32, hit mask, miss ids): resident rows as cache
+        slots, misses as sideband rows -1, -2, …; entries past len(ids)
+        are -1 padding."""
+        slots = c.device_map[ids]
+        hit = slots >= 0
+        miss_ids = ids[~hit]
+        enc = np.full(n_enc, -1, np.int32)
+        enc[:len(ids)][hit] = slots[hit]
+        enc[:len(ids)][~hit] = -np.arange(1, len(miss_ids) + 1,
+                                          dtype=np.int32)
+        return enc, hit, miss_ids
+
+    def gather_aggregate(self, ids: np.ndarray, neigh_idx: np.ndarray,
+                         mode: str = "mean"):
+        """Fused layer-0 read against the device mirror: resident rows are
+        addressed by cache slot, misses ride a host-gathered sideband, and
+        one ``gather_aggregate`` kernel resolves and aggregates them.  Equal
+        to the host plane's result: both resolve the same row values."""
+        ids = np.asarray(ids, dtype=np.int64)
+        c = self.cache
+        if c is None or not c.capacity:
+            return super().gather_aggregate(ids, neigh_idx, mode=mode)
+        with self._lock:
+            self._ensure_synced()
+            enc, hit, miss_ids = self._encode(ids, c, len(ids))
+            aux = self.graph.features[miss_ids]
+            self.gather_dispatches += 1
+            self.gather_rows += len(ids)
+            out = _run_fused(enc, neigh_idx, self._dev_table, aux, mode,
+                             self.device)
+            c.account_fetch(hit, miss_ids)
+        return out
+
+    def fused_inputs(self, ids: np.ndarray, cap: int):
+        """Device twin of the host ``fused_inputs``: resident rows are
+        encoded as cache-table slots (no feature bytes move for them);
+        misses are written into rows 0..m-1 of a persistent per-cap
+        sideband on ``device``, in place, so per-batch feature traffic is
+        O(miss rows), never O(cap).  The returned ``table`` is the live
+        device mirror itself.
+
+        The consuming train step must be serialized (the trainer reads the
+        loss every step): the next batch writes into the same sideband."""
+        ids = np.asarray(ids, dtype=np.int64)
+        c = self.cache
+        if c is None or not c.capacity:
+            enc, aux, table = super().fused_inputs(ids, cap)
+            return enc.to(self.device), aux.to(self.device), \
+                table.to(self.device)
+        n = len(ids)
+        if n > cap:
+            raise ValueError(f"{n} input ids exceed level cap {cap}")
+        with self._lock:
+            self._ensure_synced()
+            enc, hit, miss_ids = self._encode(ids, c, cap)
+            aux = self._aux_bufs.get(cap)
+            if aux is None:
+                aux = torch.zeros((cap, self.graph.feat_dim),
+                                  device=self.device)
+                self._aux_bufs[cap] = aux
+            m = len(miss_ids)
+            if m:
+                aux[:m].copy_(torch.from_numpy(self.graph.features[miss_ids]))
+            self.gather_dispatches += 1
+            self.gather_rows += n
+            c.account_fetch(hit, miss_ids)
+            return self._upload(enc), aux, self._dev_table
 
     def fill_rows(self, ids: np.ndarray, rows: np.ndarray):
         with self._lock:

@@ -39,8 +39,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     proc = _run(["-c", IMPORT_ALL, str(ROOT / "chip_smoke.py")])
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "repro_torch.kernels.gather.ops" in got["modules"]
-    assert "repro_torch.launch.serve" in got["modules"]
+    for name in ("kernels.gather.ops", "kernels.segment_agg.ops",
+                 "kernels.fused_gather_agg.ops", "launch.serve",
+                 "launch.train"):
+        assert f"repro_torch.{name}" in got["modules"]
     assert got["leaked"] == []
 
 
