@@ -27,7 +27,22 @@ Phases; any failure exits non-zero:
 5. gather_aggregate and neighbor_agg (forward and backward) at the shapes
    of that first batch, plus GAT's weighted shapes and odd widths: held
    against their plain versions and timed as in phase 2, with
-   ``F.embedding_bag`` as the yardstick of ``neighbor_agg``.
+   ``F.embedding_bag`` as the yardstick of ``neighbor_agg``;
+6. flash_attention at the LM slice's shapes (the qwen3-4b prefill, bf16,
+   and odd lengths, f32 and non-causal): held against its plain version
+   (bf16 by an output-scaled bound that must also refuse two faulty
+   outputs, a skipped KV tile and a 3% normaliser error) and timed as in
+   phase 2, with ``F.scaled_dot_product_attention`` as the
+   yardstick (the port never calls it);
+7. the LM serving slice at full width — qwen3-4b with seeded weights on the
+   card: ``Model.prefill`` of ``tokens (2, 4096)`` (36 flash_attention
+   launches, counted), then ``run_lm_serve``'s engine on 16 requests at
+   batch 8, greedy (no flash_attention launch: decode is plain torch),
+   each with the counts zeroed just before and read just after; the device
+   time of a prefill and a decode step by kernel; then at f32 on a
+   64-token prompt, the prefill through the kernel against the prefill
+   through the plain version, and the engine's first token against the
+   prefill's argmax.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels and the
@@ -58,6 +73,17 @@ SPIN_CYCLES = 1_000_000          # ~0.5 ms of device clock ahead of each call
 HBM_BYTES_PER_S = [("H200", 4.8e12), ("H100 NVL", 3.9e12),
                    ("H100 PCIe", 2.0e12), ("H100", 3.35e12)]
 F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 dense tensor cores
+LM_ARCH = "qwen3-4b"
+LM_SERVE_ARGS = ["--arch", LM_ARCH, "--requests", "16", "--batch", "8",
+                 "--max-len", "512", "--prompt-len", "128", "--max-new", "32"]
+PREFILL_SHAPE = (2, 4096)
+# flash_attention against its plain version: f32 to |diff| <= 2e-5; bf16 by
+# ``bf16_excess`` (kernels/flash_attention/ref.py): per element rtol 1e-2
+# plus 2^-8 (P |v|), the bound of rounding P to bf16, and per row 1e-2 of
+# the row's norm
+FLASH_F32_ATOL = 2e-5
+LOGITS_REL_TOL = 1e-4      # f32 prefill, kernel vs plain attention
 
 
 def fail(msg: str):
@@ -291,13 +317,15 @@ def serving_breakdown(torch, eng, served, stamp: str):
 
 
 def _zero_counts():
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.fused_gather_agg.ops import gather_aggregate
     from repro_torch.kernels.gather.ops import cache_gather
     from repro_torch.kernels.segment_agg.ops import (neighbor_agg,
                                                      neighbor_agg_backward)
     fns = {"cache_gather": cache_gather, "gather_aggregate": gather_aggregate,
            "neighbor_agg": neighbor_agg,
-           "neighbor_agg_backward": neighbor_agg_backward}
+           "neighbor_agg_backward": neighbor_agg_backward,
+           "flash_attention": flash_attention}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -343,7 +371,8 @@ def phase_train(torch, stamp: str) -> dict:
     if not all(p.is_cuda for p in leaves(tr.params)):
         fail("trainer parameters are not on cuda")
     want = {"cache_gather": 0, "gather_aggregate": steps,
-            "neighbor_agg": 2 * steps, "neighbor_agg_backward": 2 * steps}
+            "neighbor_agg": 2 * steps, "neighbor_agg_backward": 2 * steps,
+            "flash_attention": 0}
     print(f"[train] {ARCH} fused, full width: {steps} steps, losses "
           f"{st.losses}; {res.throughput_steps_s} steps/s wall clock; "
           f"launches {launches} (expected {want}); run_gnn incl. evaluate "
@@ -393,7 +422,7 @@ def phase_train(torch, stamp: str) -> dict:
         torch.cuda.synchronize()
         got = counts()
         layers = mt.cfg.num_layers
-        want = {"cache_gather": 0,
+        want = {"cache_gather": 0, "flash_attention": 0,
                 "gather_aggregate": 0 if model == "gat" else 1,
                 "neighbor_agg": layers if model == "gat" else layers - 1}
         want["neighbor_agg_backward"] = want["neighbor_agg"]
@@ -459,12 +488,7 @@ def device_breakdown(torch, tr, step_s: float, stamp: str):
             torch.cuda.synchronize()
     finally:
         pipe.shutdown()
-    # device-side events only (kernels, copies, memsets)
-    rows = [(e.key, getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0)),
-             e.count) for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    rows = device_rows(prof)
     if not rows:
         fail("the profiler recorded no device time over 4 fused steps")
     busy_ms = sum(r[1] for r in rows) / 4e3
@@ -474,6 +498,16 @@ def device_breakdown(torch, tr, step_s: float, stamp: str):
           f"(kernels and copies summed), {100 * busy_ms / (step_s * 1e3):.2f}"
           f"% of the {step_s * 1e3:.1f} ms steady step; top: {top}  "
           f"[{stamp}]", flush=True)
+
+
+def device_rows(prof) -> list:
+    """(name, device µs, count) of the device-side events of a profile
+    (kernels, copies, memsets), largest first."""
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0)),
+             e.count) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
 
 
 def _bag_inputs(torch, idx, h):
@@ -636,6 +670,264 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict) -> list:
     return [ga, na]
 
 
+def _bf16_bound_rejects_faults(torch, out, q, k, v):
+    """The bf16 check must refuse the kernel's causal output with one KV
+    tile dropped from the last query block, and with the normaliser of the
+    later rows 3% off; else it could not tell such a kernel from rounding."""
+    from repro_torch.kernels.flash_attention.ref import bf16_excess
+    B, S, H, Dh = q.shape
+    r0, lo = S - 64, S // 2
+    G = H // k.shape[2]
+    kf, vf = (x.float().repeat_interleave(G, dim=2) for x in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q[:, r0:].float(), kf) * Dh ** -0.5
+    key = torch.arange(S, device=q.device)
+    row = torch.arange(r0, S, device=q.device)[:, None]
+    keep = (key <= row) & ((key < lo) | (key >= lo + 64))
+    p = torch.softmax(sc.masked_fill(~keep, -1e30), dim=-1)
+    skipped = out.clone()
+    skipped[:, r0:] = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(out.dtype)
+    renormed = out.clone()
+    renormed[:, S // 2:] = (out[:, S // 2:].float() * 1.03).to(out.dtype)
+    for fault, bad in ((f"keys {lo}..{lo + 63} skipped for rows {r0}.."
+                        f"{S - 1}", skipped),
+                       (f"rows {S // 2}.. scaled by 1.03", renormed)):
+        elem, row_x = bf16_excess(bad, q, k, v, True)
+        print(f"[kernel] flash_attention bf16 bound on a faulty output "
+              f"({fault}): element {elem:.3f}, row {row_x:.3f} of their "
+              f"limits (must exceed 1)", flush=True)
+        if max(elem, row_x) <= 1:
+            fail(f"the bf16 check of flash_attention passes a faulty output "
+                 f"({fault})")
+
+
+def phase_flash(torch, stamp: str) -> dict:
+    """flash_attention at the LM slice's shapes against its plain version,
+    timed at the qwen3-4b prefill; returns the JSON entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (bf16_excess,
+                                                         flash_attention_ref)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    B, S = PREFILL_SHAPE
+    # (label, B, S, H, Hkv, Dh, dtype, causal, timed)
+    cases = [("qwen3_prefill", B, S, 32, 8, 128, torch.bfloat16, True, True),
+             ("s37_f32", 1, 37, 32, 8, 128, torch.float32, True, False),
+             ("s1000_f32", 1, 1000, 32, 8, 128, torch.float32, True, True),
+             ("s256_full_f32", 1, 256, 32, 32, 128, torch.float32, False,
+              False),
+             ("s256_full_bf16", 1, 256, 32, 32, 128, torch.bfloat16, False,
+              False)]
+    max_err, entry = 0.0, None
+    for label, b, s, h, hkv, dh, dtype, causal, timed in cases:
+        q = torch.randn((b, s, h, dh), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((b, s, hkv, dh), generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        out = flash_attention(q, k, v, causal)
+        ref = flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        max_err = max(max_err, err)
+        if dtype == torch.bfloat16:
+            elem, row = bf16_excess(out, q, k, v, causal)
+            ok = max(elem, row) <= 1
+            how = (f"bf16 bound: element {elem:.3f}, row {row:.3f} of their "
+                   f"limits")
+        else:
+            ok = err <= FLASH_F32_ATOL
+            how = f"tolerance {FLASH_F32_ATOL}"
+        print(f"[kernel] flash_attention {label} q ({b}, {s}, {h}, {dh}) kv "
+              f"heads {hkv} {dtype} causal={causal}: max_abs_err={err} "
+              f"({how})", flush=True)
+        if not (ok and bool(torch.isfinite(out).all())):
+            fail(f"flash_attention disagrees with its plain version at "
+                 f"{label}")
+        if label == "qwen3_prefill":
+            _bf16_bound_rejects_faults(torch, out, q, k, v)
+        if not timed:
+            continue
+        pairs = s * (s + 1) // 2 if causal else s * s
+        flops = 4 * b * h * dh * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+        t_f, t_b = flops / peak * 1e3, nbytes / rate * 1e3
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, S, Dh)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal, enable_gqa=hkv != h)
+        lib_err = float((lib().transpose(1, 2).float() - ref.float()).abs().max())
+        t = {"ms": time_ms(torch, lambda: flash_attention(q, k, v, causal),
+                           flush),
+             "plain_ms": time_ms(torch, lambda: flash_attention_ref(
+                 q, k, v, causal), flush),
+             "library_ms": time_ms(torch, lib, flush),
+             "bound_ms": max(t_f, t_b),
+             "bound_by": "operations" if t_f >= t_b else "bytes"}
+        print(f"[time] flash_attention {label}: kernel {t['ms']} ms "
+              f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{t['plain_ms']} ms, scaled_dot_product_attention "
+              f"{t['library_ms']} ms (max diff {lib_err}); bound "
+              f"{t['bound_ms']} ms by {t['bound_by']}: {flops} FLOP at "
+              f"{peak / 1e12} TFLOP/s = {t_f} ms, {nbytes} B at "
+              f"{rate / 1e12} TB/s = {t_b} ms  [{stamp}]", flush=True)
+        if label == "qwen3_prefill":
+            entry = t
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:60",
+            "max_abs_err": max_err, **entry}
+
+
+def _profile(torch, fn, stamp: str, label: str):
+    """Device time of one call of ``fn`` by kernel (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        fail(f"the profiler recorded no device time over {label}")
+    busy = sum(r[1] for r in rows) / 1e3
+    top = "; ".join(f"{k[:60]} {t / 1e3:.3f} ms ({c})" for k, t, c in rows[:8])
+    print(f"[profile] {label}: device busy {busy:.3f} ms; top: {top}  "
+          f"[{stamp}]", flush=True)
+
+
+def phase_lm(torch, stamp: str) -> dict:
+    """The LM serving slice at full width; returns the launch counts of the
+    prefill and of the serving run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.serve import build_parser, run_lm_serve
+    from repro_torch.models import layers
+    from repro_torch.models.api import build, compute_params
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import Engine, Request
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    model = build(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(model.decls, gen, dev)
+    cparams = compute_params(params, cfg)
+    torch.cuda.synchronize()
+    print(f"[lm] {LM_ARCH} full width, {cfg.num_layers} layers: "
+          f"{cfg.param_count()} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s (f32 masters and a bf16 copy); "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated  "
+          f"[{stamp}]", flush=True)
+
+    B, S = PREFILL_SHAPE
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device=dev)}
+    with torch.no_grad():
+        model.prefill(cparams, batch)                 # warm-up, not counted
+        torch.cuda.synchronize()
+        counts = _zero_counts()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(cparams, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        prefill_launches = counts()
+    want = {"cache_gather": 0, "gather_aggregate": 0, "neighbor_agg": 0,
+            "neighbor_agg_backward": 0, "flash_attention": cfg.num_layers}
+    print(f"[lm] prefill tokens ({B}, {S}): {dt * 1e3:.1f} ms, "
+          f"{B * S / dt:.0f} tokens/s; launches {prefill_launches} (expected "
+          f"{want})  [{stamp}]", flush=True)
+    if prefill_launches != want:
+        fail(f"prefill launches {prefill_launches}, expected {want}")
+    kv_shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
+    if not (logits.shape == (B, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all())
+            and tuple(caches["k"].shape) == kv_shape):
+        fail(f"prefill logits {tuple(logits.shape)} (finite: "
+             f"{bool(torch.isfinite(logits).all())}), caches "
+             f"{tuple(caches['k'].shape)}")
+    del caches, logits
+    with torch.no_grad():
+        _profile(torch, lambda: model.prefill(cparams, batch), stamp,
+                 f"one prefill of ({B}, {S})")
+    del cparams
+
+    args = build_parser().parse_args(LM_SERVE_ARGS)
+    buf = io.StringIO()
+    counts = _zero_counts()
+    with contextlib.redirect_stdout(buf):
+        rep = run_lm_serve(args, params=params)
+    torch.cuda.synchronize()
+    serve_launches = counts()
+    for line in buf.getvalue().splitlines():
+        print(f"{line}  [{stamp}]", flush=True)
+    eng, st = rep["engine"], rep["stats"]
+    done = eng.completed
+    if not (st["completed"] == args.requests == len(done)
+            and all(r.status == "done" and len(r.out_tokens) == args.max_new
+                    and all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+                    for r in done)):
+        fail(f"{st['completed']}/{args.requests} requests completed")
+    if any(serve_launches.values()):
+        fail(f"serving launched {serve_launches}: decode is plain torch")
+    # one decode step with every slot busy at position max_len / 2
+    step = {"token": torch.ones(args.batch, dtype=torch.int32, device=dev),
+            "pos": torch.full((args.batch,), args.max_len // 2,
+                              dtype=torch.int32, device=dev)}
+    times = []
+    with torch.no_grad():
+        for _ in range(20):
+            t0 = time.perf_counter()
+            lg, _ = eng.model.decode(eng._cparams, eng.kv.caches, step)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(lg).all()):
+            fail("decode-step logits are not finite")
+        _profile(torch, lambda: eng.model.decode(eng._cparams, eng.kv.caches,
+                                                 step), stamp,
+                 f"one decode step at batch {args.batch}")
+    print(f"[lm] serving {args.requests} requests at batch {args.batch}: "
+          f"{st['tokens']} tokens in {st['seconds']:.2f} s, "
+          f"{st['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+          f"{st['ttft_p50_ms']:.1f} ms p99 {st['ttft_p99_ms']:.1f} ms; "
+          f"decode step (batch {args.batch}, position {args.max_len // 2}) "
+          f"median of 20 {float(np.median(times)):.2f} ms; launches "
+          f"{serve_launches}  [{stamp}]", flush=True)
+    del eng, rep
+
+    # f32 on a 64-token prompt: the kernel's prefill against the plain
+    # version's, and the engine's first greedy token against its argmax
+    cfg32 = cfg.replace(compute_dtype="float32")
+    m32 = build(cfg32)
+    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, 64
+                                               ).astype(np.int32)
+    toks = {"tokens": torch.from_numpy(prompt)[None].to(dev)}
+    with torch.no_grad():
+        got, _ = m32.prefill(params, toks)
+        kernel = layers.flash_attention
+        layers.flash_attention = flash_attention_ref
+        try:
+            want_logits, _ = m32.prefill(params, toks)
+        finally:
+            layers.flash_attention = kernel
+    rel = float((got - want_logits).abs().max() / want_logits.abs().max())
+    eng = Engine(cfg32, params=params, batch=1, max_len=128, device=dev)
+    eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=1))
+    eng.run_to_completion()
+    first, top = eng.completed[0].out_tokens[0], int(got[0].argmax())
+    print(f"[check] f32 prefill of 64 tokens: kernel vs plain attention max "
+          f"|diff| / max |logit| = {rel:.2e} (tolerance "
+          f"{LOGITS_REL_TOL}); engine first token {first}, prefill argmax "
+          f"{top}", flush=True)
+    if not (rel <= LOGITS_REL_TOL and bool(torch.isfinite(got).all())):
+        fail("the f32 prefill through the kernel differs from the plain one")
+    if first != top:
+        fail("the engine's first token is not the prefill's argmax")
+    return {"prefill": prefill_launches, "serve": serve_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -655,6 +947,11 @@ def main() -> int:
     train = phase_train(torch, stamp)
     entries = [entry] + phase_agg(torch, stamp, train["batch"],
                                   train["launches"])
+    flash = phase_flash(torch, stamp)
+    lm = phase_lm(torch, stamp)
+    flash["launches"] = lm["prefill"]["flash_attention"]
+    flash["decode_launches"] = lm["serve"]["flash_attention"]
+    entries.append(flash)
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")

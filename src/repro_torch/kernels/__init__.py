@@ -11,7 +11,9 @@ plain version, used for CPU tensors and as the oracle).
                      backward kernel (``neighbor_agg``)
   fused_gather_agg/  encoded-slot resolve + self rows + neighbour mean or
                      sum for layer 0 of the fused step (``gather_aggregate``)
+  flash_attention/   blockwise causal / full self-attention forward of the
+                     LM block prefill (``flash_attention``)
 
-The other two TPU kernels (reservoir, flash_attention) are not ported yet;
-ROADMAP.md lists the slice of each.
+The fifth TPU kernel (reservoir) is not ported yet; no path of the JAX
+package calls it (ROADMAP.md).
 """

@@ -1,0 +1,101 @@
+"""``flash_attention``: the self-attention of the LM block prefill.
+
+Replaces the TPU kernel
+``src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas`` with
+the hand-written CUDA kernels of ``kernels/csrc/flash_attention.cu``.
+
+Contract: the JAX wrapper's (``src/repro/kernels/flash_attention/ops.py``)
+``(B, S, H, Dh)`` layout and ``Dh ** -0.5`` scale, widened to what the
+model's ``_repeat_kv`` + ``_attend`` compute:
+  * any S ≥ 1 (the ragged last tile is masked; the JAX wrapper asserts
+    ``S % block == 0``);
+  * k/v may carry Hkv heads with ``H % Hkv == 0``: head h reads kv head
+    ``h // (H // Hkv)``, with no repeated copy;
+  * float32 or bfloat16 (q, k and v of one type); the output has q's type.
+On the card Dh is 16, 32, 64 or 128 and the inputs are contiguous.
+
+Bound: operations (``4·B·H·Dh·S(S+1)/2`` FLOP causal) at the prefill's
+shapes; see the note in the CUDA source for the two kernels' designs.
+
+A tensor on the CPU takes the plain version (``ref.py``); a CUDA tensor
+launches the kernel or raises.  ``flash_attention.launches`` counts kernel
+launches, and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (16, 32, 64, 128)
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from repro_torch.kernels.build import load
+        fn = load("flash_attention").flash_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"want q (B, S, H, Dh) and k/v (B, S, Hkv, Dh); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, Dh = q.shape
+    if k.shape != v.shape or (k.shape[0], k.shape[1], k.shape[3]) != (B, S, Dh):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+                         f"(B, S, Hkv, Dh) of q {tuple(q.shape)}")
+    if S < 1 or k.shape[2] < 1 or H % k.shape[2] != 0:
+        raise ValueError(f"need S >= 1 and H ({H}) divisible by Hkv "
+                         f"({k.shape[2]})")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share float32 or bfloat16; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention inputs lie on different devices")
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q (B, S, H, Dh), k/v (B, S, Hkv, Dh) → (B, S, H, Dh) in q's dtype."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    B, S, H, Dh = q.shape
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention on cuda takes Dh in {HEAD_DIMS}, "
+                         f"not {Dh}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention needs contiguous q, k and v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention needs 16-byte aligned q, k and v")
+    if B * H > 65535:
+        raise ValueError(f"flash_attention takes B·H <= 65535, not {B * H}")
+    out = torch.empty_like(q)
+    scale_log2 = Dh ** -0.5 * math.log2(math.e)
+    with torch.cuda.device(q.device):         # the launch targets this card
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B, S, H, k.shape[2], Dh,
+                        int(q.dtype == torch.bfloat16), int(causal),
+                        scale_log2, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

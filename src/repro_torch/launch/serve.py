@@ -1,14 +1,22 @@
-"""Serving entry point of the port: online GNN node inference over the
-training-side FeaturePlane.  Trains briefly to warm the parameters and the
-γ/Θ cache, serves node queries, then applies a streamed feature update
-mid-serving and queries the node again:
+"""Serving entry point of the port — two engines behind one CLI.
+
+LM token decode (continuous batching over prompts, the dense LMs):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --smoke \
+      --requests 16 --batch 4 --max-new 12
+
+Online GNN node inference over the training-side FeaturePlane (trains
+briefly to warm the parameters and the γ/Θ cache, serves node queries,
+then applies a streamed feature update mid-serving and queries the node
+again):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn \
       --arch graphsage-products --sampling-device device --queries 64 --batch 4
 
 Everything runs on ``--device`` (default ``cuda``); ``--device cpu`` runs
-the plain versions of the kernels on the host.  LM token decode and the
-partition-routed fabric (``--partitions`` > 1) are not ported yet.
+the plain versions of the kernels on the host.  The LM families other than
+dense and the partition-routed fabric (``--partitions`` > 1) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +26,37 @@ from typing import Dict
 import numpy as np
 
 NOT_PORTED = "not ported yet — see ROADMAP.md"
+
+
+def run_lm_serve(args, params=None) -> Dict:
+    """Serve ``args.requests`` random prompts through the decode engine.
+    ``params`` (f32 masters on ``args.device``) default to the engine's
+    seeded ones.  Prints one result line; returns the engine and the drain
+    summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import Engine, Request
+
+    try:
+        cfg = get_config(args.arch, smoke=args.smoke)
+    except KeyError:        # the other LM families are not registered yet
+        cfg = None
+    if getattr(cfg, "family", None) != "dense":
+        raise SystemExit(f"LM serving of --arch {args.arch}: {NOT_PORTED}")
+    eng = Engine(cfg, params=params, batch=args.batch, max_len=args.max_len,
+                 temperature=args.temperature, seed=args.seed,
+                 device=args.device)
+    rng = np.random.default_rng(args.seed)
+    for rid in range(args.requests):
+        plen = int(rng.integers(2, args.prompt_len + 1))
+        prompt = rng.integers(1, cfg.vocab_size, plen).astype(np.int32)
+        eng.submit(Request(rid=rid, prompt=prompt,
+                           max_new_tokens=args.max_new))
+    stats = eng.run_to_completion()
+    print(f"[result] {stats['completed']} requests, {stats['tokens']} tokens "
+          f"in {stats['seconds']:.2f}s → {stats['tokens_per_s']:.1f} tok/s; "
+          f"TTFT p50 {stats['ttft_p50_ms']:.1f} ms "
+          f"p99 {stats['ttft_p99_ms']:.1f} ms (device={eng.device})")
+    return {"engine": eng, "stats": stats}
 
 
 def run_gnn_serve(args) -> Dict:
@@ -109,9 +148,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="where parameters, the forward and a device "
-                         "plane's cache table live")
+                    help="where parameters, the forward, the KV cache and "
+                         "a device plane's cache table live")
     ap.add_argument("--batch", type=int, default=4)
+    # LM decode knobs
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--gnn", action="store_true",
                     help="serve online GNN node predictions through the "
                          "training-side FeaturePlane (serve/gnn_engine.py); "
@@ -133,9 +178,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if not (args.gnn or args.arch.startswith("graphsage")):
-        raise SystemExit(f"LM token-decode serving: {NOT_PORTED}")
-    run_gnn_serve(args)
+    if args.gnn or args.arch.startswith("graphsage"):
+        run_gnn_serve(args)
+    else:
+        run_lm_serve(args)
     return 0
 
 

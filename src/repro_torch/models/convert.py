@@ -1,28 +1,29 @@
-"""Carry GNN parameters between the JAX package and the port.
+"""Carry parameters between the JAX package and the port.
 
-Both keep ``{"layers": [{name: array}]}`` with ``(din, dout)`` weights, so
-the mapping is by name and nothing is transposed.  The JAX side is handed
-over as numpy arrays (``np.asarray`` of each leaf); this module never
-imports JAX.
+Both packages keep the same trees with the same layouts: the GNN's
+``{"layers": [{name: array}]}`` with ``(din, dout)`` weights, and the LM's
+nested dicts (``embed.tok``, ``layers.{ln1,ln2}.scale``,
+``layers.attn.{wq,wk,wv,wo,q_norm.scale,k_norm.scale}``,
+``layers.mlp.{w_gate,w_up,w_down}``, ``ln_f.scale``) stacked on a leading
+layer axis.  So the mapping is by name and nothing is transposed.  The JAX
+side is handed over as numpy arrays (``np.asarray`` of each leaf); this
+module never imports JAX.
 """
 from __future__ import annotations
-
-from typing import Dict
 
 import numpy as np
 import torch
 
-
-def params_from_jax(tree: Dict, device="cuda") -> Dict:
-    """``{"layers": [{name: array-like}]}`` → the port's tensors on
-    ``device``, in each array's own dtype."""
-    return {"layers": [{k: torch.from_numpy(np.array(v)).to(device)
-                        for k, v in layer.items()}
-                       for layer in tree["layers"]]}
+from repro_torch.models.params import tree_map
 
 
-def params_to_numpy(params: Dict) -> Dict:
-    """The port's parameters → ``{"layers": [{name: np.ndarray}]}``, the
-    form the JAX package's functions accept."""
-    return {"layers": [{k: v.detach().cpu().numpy() for k, v in layer.items()}
-                       for layer in params["layers"]]}
+def params_from_jax(tree, device="cuda"):
+    """A tree of dicts and lists of array-likes → the same tree of the
+    port's tensors on ``device``, in each array's own dtype."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def params_to_numpy(params):
+    """The port's parameters → the same tree of ``np.ndarray``, the form
+    the JAX package's functions accept."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)

@@ -2,7 +2,9 @@
 
 A model declares its parameters once as a tree (dicts and lists) of
 :class:`ParamDecl`; ``init_params`` materializes it from a
-``torch.Generator`` and ``param_bytes`` sizes it.  The JAX package draws
+``torch.Generator`` and ``param_bytes`` sizes it.  ``stack_decls`` adds
+the leading layer axis of the LM's layer stack.  Unlike the JAX package's
+declarations, the port's carry no sharding axes.  The JAX package draws
 its initial values from ``jax.random`` threefry, which torch cannot
 replay: parity tests load those values through ``models/convert.py``
 instead, and standalone runs use this initializer.
@@ -37,6 +39,24 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def tree_map(fn, tree) -> Any:
+    """``fn`` applied to every leaf of nested dicts and lists, keeping the
+    structure (tuples become lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def stack_decls(decls, n: int):
+    """Add a leading layer axis of size ``n`` to every decl in the subtree.
+    A ``scaled`` init then reads its fan-in from the stacked shape, as the
+    JAX package's does."""
+    return tree_map(lambda d: ParamDecl((n,) + d.shape, d.dtype, d.init,
+                                        d.scale), decls)
+
+
 def unflatten(tree, flat) -> Any:
     """Rebuild ``tree``'s structure from ``flat`` (the order of ``leaves``)."""
     it = iter(flat)
@@ -51,22 +71,25 @@ def unflatten(tree, flat) -> Any:
 
 
 def init_params(decls, generator: torch.Generator, device="cuda"):
-    """Materialize parameters on ``device``.  Values are drawn on the CPU
-    from ``generator`` (one stream, leaves in ``leaves`` order), so a seed
-    gives the same weights on every device."""
+    """Materialize parameters on ``device``.  Random values are drawn on the
+    generator's device from its one stream, leaves in ``leaves`` order: a
+    CPU generator gives the same weights on every device, a CUDA generator
+    draws a full-width LM on the card."""
+    gdev = generator.device
+
     def one(d: ParamDecl) -> torch.Tensor:
         if d.init == "zeros":
-            t = torch.zeros(d.shape)
-        elif d.init == "ones":
-            t = torch.ones(d.shape)
-        elif d.init == "normal":
-            t = torch.randn(d.shape, generator=generator) * d.scale
+            return torch.zeros(d.shape, dtype=d.dtype, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=d.dtype, device=device)
+        if d.init == "normal":
+            std = d.scale
         elif d.init == "scaled":        # fan-in scaled normal
             fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-            t = torch.randn(d.shape, generator=generator) \
-                * (d.scale / math.sqrt(max(fan_in, 1)))
+            std = d.scale / math.sqrt(max(fan_in, 1))
         else:
             raise ValueError(f"unknown init {d.init!r}")
+        t = torch.randn(d.shape, generator=generator, device=gdev).mul_(std)
         return t.to(device=device, dtype=d.dtype)
     return unflatten(decls, [one(d) for d in leaves(decls)])
 

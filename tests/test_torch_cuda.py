@@ -226,3 +226,108 @@ def test_fused_train_step_on_card_matches_cpu(card):
     rh = on_cpu.run_epochs(1, max_steps_per_epoch=2)
     assert neighbor_agg.launches - launches == 2 * cfg.num_layers
     np.testing.assert_allclose(rc.stats.losses, rh.stats.losses, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and the LM serving slice
+# ---------------------------------------------------------------------------
+
+# (B, S, H, Hkv, Dh, causal): the qwen3-4b prefill, odd lengths, a
+# non-causal tile, the smoke head width and the JAX kernel test's shapes
+FLASH_SHAPES = [(2, 4096, 32, 8, 128, True), (1, 37, 4, 2, 128, True),
+                (1, 1000, 4, 1, 64, True), (1, 256, 2, 2, 128, False),
+                (2, 130, 4, 2, 16, True), (2, 128, 3, 3, 32, False),
+                (1, 1, 2, 2, 64, True)]
+# f32: the JAX kernel test's tolerance.  bf16 is held to ``bf16_excess``
+# (ref.py): per element rtol 1e-2 plus the bound of rounding P to bf16,
+# 2^-8 (P |v|), and per row 1e-2 of the row's norm; a fixed atol would
+# exceed the outputs of long rows (|out| ~ S^-1/2)
+F32_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def _flash_inputs(B, S, H, Hkv, Dh, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(device, dtype)
+            for shape in ((B, S, H, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_kernel_matches_plain(card, shape, dtype):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (bf16_excess,
+                                                         flash_attention_ref)
+    *dims, causal = shape
+    q, k, v = _flash_inputs(*dims, dtype, card)
+    launches = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    if dtype == torch.bfloat16:
+        assert max(bf16_excess(out, q, k, v, causal)) <= 1
+    else:
+        ref = flash_attention_ref(q, k, v, causal=causal)
+        torch.testing.assert_close(out, ref, **F32_TOL)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    q, k, v = _flash_inputs(1, 64, 2, 2, 64, torch.float32, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    q, k, v = _flash_inputs(1, 64, 2, 2, 48, torch.float32, card)
+    with pytest.raises(ValueError, match="Dh"):
+        flash_attention(q, k, v)
+    q, k, v = _flash_inputs(1, 64, 2, 2, 64, torch.float16, card)
+    with pytest.raises(TypeError):
+        flash_attention(q, k, v)
+
+
+def test_cuda_tensors_never_reach_attention_ref(card, monkeypatch):
+    import repro_torch.kernels.flash_attention.ops as fa
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build, compute_params
+    from repro_torch.models.params import init_params
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(fa, "flash_attention_ref", refuse)
+    cfg = get_config("qwen3-4b", smoke=True)
+    model = build(cfg)
+    params = init_params(model.decls, torch.Generator().manual_seed(0), card)
+    launches = fa.flash_attention.launches
+    logits, caches = model.prefill(compute_params(params, cfg), {
+        "tokens": torch.randint(0, cfg.vocab_size, (2, 40), device=card)})
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - launches == cfg.num_layers
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "llama3.2-3b"])
+def test_lm_prefill_and_engine_on_card_match_cpu(card, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import Engine, Request
+    cfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+    model = build(cfg)
+    params = {dev: init_params(model.decls, torch.Generator().manual_seed(0),
+                               dev) for dev in ("cpu", card)}
+    toks = torch.randint(0, cfg.vocab_size, (2, 70),
+                         generator=torch.Generator().manual_seed(1))
+    got, _ = model.prefill(params[card], {"tokens": toks.to(card)})
+    want, _ = model.prefill(params["cpu"], {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    streams = []
+    for dev in ("cpu", card):
+        eng = Engine(cfg, params=params[dev], batch=2, max_len=32, device=dev)
+        rng = np.random.default_rng(0)
+        for rid in range(4):
+            eng.submit(Request(rid=rid, prompt=rng.integers(
+                1, cfg.vocab_size, 6).astype(np.int32), max_new_tokens=4))
+        eng.run_to_completion()
+        streams.append({r.rid: r.out_tokens for r in eng.completed})
+    assert streams[0] == streams[1]

@@ -121,7 +121,7 @@ def test_launch_serve_runs_the_slice_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--arch", "qwen3-4b"],
+    ["--arch", "mamba2-1.3b"],        # an LM family the port does not serve
     ["--gnn", "--arch", "graphsage-products", "--smoke", "--device", "cpu",
      "--partitions", "2"],
 ])
