@@ -42,7 +42,21 @@ Phases; any failure exits non-zero:
    time of a prefill and a decode step by kernel; then at f32 on a
    64-token prompt, the prefill through the kernel against the prefill
    through the plain version, and the engine's first token against the
-   prefill's argmax.
+   prefill's argmax;
+8. reservoir_topm at the sampler's shapes — every padded-width bucket of
+   hops 2 and 3 of phase 4's first batch, formed as
+   ``NeighborSampler._sample_one_hop`` forms them (γ-bias weights, seeded
+   float32 uniforms, ``mask = col < size``), one launch each, the counts
+   zeroed before each hop and read after it; held
+   bit-exact (idx, and keys bit for bit) against its plain version with
+   the hub row and odd shapes; inclusion frequencies of 2^20 rows against
+   the exact probabilities (5 standard errors); each bucket timed as in
+   phase 2 with ``torch.topk`` over precomputed keys as the yardstick of
+   the selection alone and the bytes bound over valid lanes (w and u read
+   where the mask is set; the padded-lane figure printed beside it), and
+   each hop's sum beside the host numpy time of
+   its ``_sample_one_hop``.  Phases 3, 4 and 7 launch it 0 times: no path
+   of the port, as none of the JAX package, selects on the card.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels and the
@@ -214,20 +228,21 @@ def phase_slice(torch, stamp: str) -> dict:
 
     from repro_torch.core.sampling import NeighborSampler
     from repro_torch.graph.batch import generate_batch, inference_arrays
-    from repro_torch.kernels.gather.ops import cache_gather
     from repro_torch.launch.serve import build_parser, run_gnn_serve
     from repro_torch.models.gnn import gnn_forward
     from repro_torch.models.params import leaves
 
     args = build_parser().parse_args(SERVE_ARGS)
     buf = io.StringIO()
-    cache_gather.launches = 0
+    counts = _zero_counts()
     with contextlib.redirect_stdout(buf):
         rep = run_gnn_serve(args)
     torch.cuda.synchronize()
-    launches = {"cache_gather": cache_gather.launches}
+    launches = counts()
     for line in buf.getvalue().splitlines():
         print(f"{line}  [{stamp}]", flush=True)
+    if launches["reservoir_topm"] != 0:       # no serving path selects on it
+        fail(f"serving launched {launches}")
 
     tr, eng = rep["trainer"], rep["engine"]
     if not all(p.is_cuda for p in leaves(tr.params)):
@@ -320,12 +335,14 @@ def _zero_counts():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.fused_gather_agg.ops import gather_aggregate
     from repro_torch.kernels.gather.ops import cache_gather
+    from repro_torch.kernels.reservoir.ops import reservoir_topm
     from repro_torch.kernels.segment_agg.ops import (neighbor_agg,
                                                      neighbor_agg_backward)
     fns = {"cache_gather": cache_gather, "gather_aggregate": gather_aggregate,
            "neighbor_agg": neighbor_agg,
            "neighbor_agg_backward": neighbor_agg_backward,
-           "flash_attention": flash_attention}
+           "flash_attention": flash_attention,
+           "reservoir_topm": reservoir_topm}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -372,7 +389,7 @@ def phase_train(torch, stamp: str) -> dict:
         fail("trainer parameters are not on cuda")
     want = {"cache_gather": 0, "gather_aggregate": steps,
             "neighbor_agg": 2 * steps, "neighbor_agg_backward": 2 * steps,
-            "flash_attention": 0}
+            "flash_attention": 0, "reservoir_topm": 0}
     print(f"[train] {ARCH} fused, full width: {steps} steps, losses "
           f"{st.losses}; {res.throughput_steps_s} steps/s wall clock; "
           f"launches {launches} (expected {want}); run_gnn incl. evaluate "
@@ -422,7 +439,7 @@ def phase_train(torch, stamp: str) -> dict:
         torch.cuda.synchronize()
         got = counts()
         layers = mt.cfg.num_layers
-        want = {"cache_gather": 0, "flash_attention": 0,
+        want = {"cache_gather": 0, "flash_attention": 0, "reservoir_topm": 0,
                 "gather_aggregate": 0 if model == "gat" else 1,
                 "neighbor_agg": layers if model == "gat" else layers - 1}
         want["neighbor_agg_backward"] = want["neighbor_agg"]
@@ -471,7 +488,8 @@ def phase_train(torch, stamp: str) -> dict:
         fail("the first step on the card differs from the CPU beyond 1e-4")
     batch["input_ids"] = len(mb.input_ids)
     batch["real_rows"] = [len(b.dst_ids) for b in mb.blocks]
-    return {"launches": launches, "batch": batch}
+    return {"launches": launches, "batch": batch, "graph": g, "mb": mb,
+            "weight_fn": tr.weight_fn, "fanout": cfg.fanout}
 
 
 def device_breakdown(torch, tr, step_s: float, stamp: str):
@@ -670,6 +688,231 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict) -> list:
     return [ga, na]
 
 
+def hop_buckets(graph, dst_ids, fanout: int, weight_fn, rng) -> list:
+    """The rows that ``NeighborSampler._sample_one_hop`` hands to top-m
+    selection for ``dst_ids``, in its own buckets (``topm_buckets``): a list
+    of ``(width, w, u, mask)``, ``w`` the bias weights of each row's
+    neighbours and ``u`` uniforms from ``rng``, both (R, width) float32,
+    ``mask`` (R, width) bool (``col < size``)."""
+    import numpy as np
+
+    from repro_torch.core.sampling import hop_edges, topm_buckets
+    indptr, indices = graph.adj()
+    nb_all, row_start, sizes = hop_edges(indptr, indices, dst_ids)
+    w_all = weight_fn(nb_all)
+    return [(src.shape[1], w_all[src].astype(np.float32),
+             rng.random(valid.shape, dtype=np.float32), valid)
+            for _, src, valid in topm_buckets(sizes, row_start, fanout)]
+
+
+def inclusion_probability(w):
+    """Exact inclusion probability of each lane in a weighted sample of 2
+    without replacement: p_i = w_i/W + Σ_{j≠i} (w_j/W)·w_i/(W − w_j)."""
+    W = sum(w)
+    return [wi / W + sum(wj / W * wi / (W - wj)
+                         for j, wj in enumerate(w) if j != i)
+            for i, wi in enumerate(w)]
+
+
+def _reservoir_odd_cases(torch, dev, g, weight_fn, rng) -> list:
+    """(label, m, w, u, mask) on the card: the hub row unpadded (m = 5, 10
+    and 40, the last past the per-thread list of 32), N = 37, m > N,
+    all-masked rows and a wide row with fewer valid lanes than m, exact
+    ties from duplicated u, u = 0 lanes and int32 masks."""
+    import numpy as np
+    indptr, indices = g.adj()
+    hub = int(np.argmax(np.diff(indptr)))
+    nb = indices[indptr[hub]:indptr[hub + 1]]
+
+    def rand(R, N, density=0.8, mask_dtype=bool):
+        w = rng.uniform(0.5, 4.0, (R, N)).astype(np.float32)
+        u = rng.random((R, N), dtype=np.float32)
+        return w, u, (rng.random((R, N)) < density).astype(mask_dtype)
+
+    def ties(R, N):
+        w = np.where(rng.random((R, N)) < 0.5, 1.0, 4.0).astype(np.float32)
+        u = np.array([0.0, 0.2, 0.5, 0.7, 0.9], np.float32)[
+            rng.integers(0, 5, (R, N))]
+        return w, u, rng.random((R, N)) < 0.9
+
+    hub_in = (weight_fn(nb)[None].astype(np.float32),
+              rng.random((1, len(nb)), dtype=np.float32),
+              np.ones((1, len(nb)), bool))
+    cases = [(f"hub_n{len(nb)}_m{m}", m, *hub_in) for m in (5, 10, 40)]
+    cases += [("n37", 5, *rand(13, 37)), ("m_gt_n", 9, *rand(4, 5)),
+              ("n1", 3, *rand(6, 1)),
+              ("sparse_wide_m40", 40, *rand(3, 4096, density=0.005)),
+              ("ties", 10, *ties(64, 256)), ("ties_wide", 15, *ties(4, 8192)),
+              ("int32_mask", 10, *rand(13, 100, mask_dtype=np.int32)),
+              ("int32_mask_wide", 15, *rand(5, 1500, mask_dtype=np.int32))]
+    w, u, mask = rand(8, 64)
+    mask[3] = False
+    cases.append(("all_masked_row", 5, w, u, mask))
+    w, u, mask = rand(3, 2048)
+    mask[1] = False
+    cases.append(("all_masked_row_wide", 10, w, u, mask))
+    w, u, mask = rand(32, 128)
+    u[rng.random(u.shape) < 0.3] = 0.0
+    cases.append(("u_zero", 10, w, u, mask))
+    return [(label, m, *(torch.from_numpy(x).to(dev) for x in xs))
+            for label, m, *xs in cases]
+
+
+def phase_reservoir(torch, stamp: str, train: dict) -> dict:
+    """reservoir_topm at the sampler's hop shapes: every bucket of hops 2
+    and 3 of the first full-width batch (each hop's launches counted), the
+    hub row and odd shapes, each bit-exact against the plain version on the
+    card; the inclusion frequencies of 2^20 rows against the exact
+    probabilities; each bucket timed as in phase 2 and each hop's sum
+    beside the host numpy time of that hop's ``_sample_one_hop``.  Returns
+    the JSON entry."""
+    import numpy as np
+
+    from repro_torch.core.sampling import NeighborSampler
+    from repro_torch.kernels.reservoir.ops import reservoir_topm
+    from repro_torch.kernels.reservoir.ref import NEG, reservoir_topm_ref
+    dev = torch.device("cuda")
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    g, mb, weight_fn = train["graph"], train["mb"], train["weight_fn"]
+    rng = np.random.default_rng(0)
+    hops = {}
+    for hop in (2, 3):                      # hop 1 is nearest the output
+        m = train["fanout"][hop - 1]
+        dst = mb.blocks[-hop].dst_ids
+        cases = [(f"hop{hop}_w{width}", m,
+                  *(torch.from_numpy(x).to(dev) for x in (w, u, mask)))
+                 for width, w, u, mask in hop_buckets(g, dst, m, weight_fn,
+                                                      rng)]
+        hops[hop] = {"m": m, "dst": dst, "cases": cases}
+
+    # the counted runs: one launch per bucket, as a GPU sampler would issue,
+    # each hop counted on its own
+    outs, hop_launches = {}, {}
+    for hop, h in hops.items():
+        torch.cuda.synchronize()
+        counts = _zero_counts()
+        outs[hop] = [reservoir_topm(w, u, mask, m)
+                     for _, m, w, u, mask in h["cases"]]
+        torch.cuda.synchronize()
+        launches = counts()
+        want = {k: 0 for k in launches}
+        want["reservoir_topm"] = len(h["cases"])
+        print(f"[reservoir] hop {hop} of the first batch: {len(h['cases'])} "
+              f"buckets, launches {launches} (expected {want})", flush=True)
+        if launches != want:
+            fail(f"reservoir hop {hop} launches {launches}, expected {want}")
+        hop_launches[hop] = launches["reservoir_topm"]
+
+    max_err = 0.0
+
+    def check(label, m, w, u, mask, got):
+        nonlocal max_err
+        idx, keys = got
+        r_idx, r_keys = reservoir_topm_ref(w, u, mask, m)
+        torch.cuda.synchronize()
+        exact = (torch.equal(idx, r_idx)
+                 and torch.equal(keys.view(torch.int32),
+                                 r_keys.view(torch.int32)))
+        err = float((keys - r_keys).abs().max())
+        max_err = max(max_err, err)
+        spent = int((idx == w.shape[1]).sum())
+        print(f"[kernel] reservoir_topm {label} ({w.shape[0]}, {w.shape[1]}) "
+              f"m={m} mask {mask.dtype}: bit-exact={exact} (idx equal, keys "
+              f"equal bit for bit), max_abs_err={err}, {spent} exhausted "
+              f"slots", flush=True)
+        if not exact or not bool((keys[idx == w.shape[1]] == NEG).all()):
+            fail(f"reservoir_topm disagrees with its plain version at {label}")
+
+    for hop, h in hops.items():
+        for case, got in zip(h["cases"], outs[hop]):
+            check(*case, got)
+    for case in _reservoir_odd_cases(torch, dev, g, weight_fn, rng):
+        check(*case, reservoir_topm(*case[2:], case[1]))
+
+    # inclusion frequencies of w = [4, 4, 1, 1, 1, 1, 1, 1], m = 2
+    T = 1 << 20
+    wd = [4.0, 4.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx, _ = reservoir_topm(
+        torch.tensor(wd, device=dev).expand(T, 8).contiguous(),
+        torch.rand((T, 8), generator=gen, device=dev),
+        torch.ones((T, 8), dtype=torch.bool, device=dev), 2)
+    freq = (torch.bincount(idx.flatten().long(), minlength=9).cpu().numpy()
+            / T)
+    p = np.array(inclusion_probability(wd))
+    z = np.abs(freq[:8] - p) / np.sqrt(p * (1 - p) / T)
+    print(f"[kernel] reservoir_topm distribution over {T} rows of {wd}, "
+          f"m=2: frequency {freq[:8].round(5).tolist()} against exact "
+          f"{p.round(5).tolist()}, largest |z| {z.max():.2f} (tolerance 5)",
+          flush=True)
+    if z.max() > 5 or freq[8] != 0:
+        fail("reservoir_topm inclusion frequencies differ from the exact "
+             "probabilities")
+
+    totals = {}
+    for hop, h in hops.items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+               "padded_bound_ms": 0.0}
+        rows = lanes = 0
+        for label, m, w, u, mask in h["cases"]:
+            R, N = w.shape
+            km = (torch.log(u.clamp(min=1e-30)) / w.clamp(min=1e-9)
+                  ).masked_fill(~mask, NEG)
+            # the mask is read whole; w and u only where it is set (a masked
+            # lane's key is thrown away); idx and keys written once
+            valid = int(mask.sum())
+            nbytes = R * N * mask.element_size() + 8 * valid + 8 * R * m
+            padded = R * N * (8 + mask.element_size()) + 8 * R * m
+            t = {"ms": time_ms(torch, lambda: reservoir_topm(w, u, mask, m),
+                               flush),
+                 "plain_ms": time_ms(torch, lambda: reservoir_topm_ref(
+                     w, u, mask, m), flush),
+                 "library_ms": time_ms(torch, lambda: torch.topk(km, m, dim=1),
+                                       flush),
+                 "bound_ms": nbytes / rate * 1e3,
+                 "padded_bound_ms": padded / rate * 1e3}
+            for k in tot:
+                tot[k] += t[k]
+            rows, lanes = rows + R, lanes + R * N
+            print(f"[time] reservoir_topm {label} ({R}, {N}) m={m}: kernel "
+                  f"{t['ms']} ms, plain {t['plain_ms']} ms, torch.topk over "
+                  f"precomputed keys (selection only) {t['library_ms']} ms, "
+                  f"bytes bound {t['bound_ms']} ms ({nbytes} B, {valid} "
+                  f"valid lanes, at {rate / 1e12} TB/s; {t['padded_bound_ms']}"
+                  f" ms counting w and u of every padded lane)  [{stamp}]",
+                  flush=True)
+        sampler = NeighborSampler(g, train["fanout"], weight_fn=weight_fn,
+                                  seed=0)
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sampler._sample_one_hop(h["dst"], h["m"])
+            host.append((time.perf_counter() - t0) * 1e3)
+        tot["host_numpy_ms"] = float(np.median(host))
+        tot["launches"] = hop_launches[hop]
+        totals[hop] = tot
+        print(f"[time] reservoir_topm hop {hop} (m={h['m']}), sum over "
+              f"{len(h['cases'])} buckets ({rows} rows, {lanes} lanes): "
+              f"kernel {tot['ms']} ms, plain {tot['plain_ms']} ms, "
+              f"torch.topk (selection only) {tot['library_ms']} ms, bytes "
+              f"bound {tot['bound_ms']} ms (valid lanes; "
+              f"{tot['padded_bound_ms']} ms padded), launches "
+              f"{tot['launches']}; host numpy time of the hop's "
+              f"_sample_one_hop on the same {len(h['dst'])} rows (keys, "
+              f"buckets and selection), median of 5: {tot['host_numpy_ms']} "
+              f"ms  [{stamp}]", flush=True)
+    t3 = totals[3]
+    return {"name": "reservoir_topm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/reservoir.cu",
+            "replaces": "src/repro/kernels/reservoir/kernel.py:45",
+            "launches": t3["launches"], "max_abs_err": max_err,
+            "ms": t3["ms"], "plain_ms": t3["plain_ms"],
+            "bound_ms": t3["bound_ms"], "bound_by": "bytes",
+            "library_ms": t3["library_ms"],
+            "host_numpy_ms": t3["host_numpy_ms"], "hop2": totals[2]}
+
+
 def _bf16_bound_rejects_faults(torch, out, q, k, v):
     """The bf16 check must refuse the kernel's causal output with one KV
     tile dropped from the last query block, and with the normaliser of the
@@ -835,7 +1078,8 @@ def phase_lm(torch, stamp: str) -> dict:
         dt = time.perf_counter() - t0
         prefill_launches = counts()
     want = {"cache_gather": 0, "gather_aggregate": 0, "neighbor_agg": 0,
-            "neighbor_agg_backward": 0, "flash_attention": cfg.num_layers}
+            "neighbor_agg_backward": 0, "flash_attention": cfg.num_layers,
+            "reservoir_topm": 0}
     print(f"[lm] prefill tokens ({B}, {S}): {dt * 1e3:.1f} ms, "
           f"{B * S / dt:.0f} tokens/s; launches {prefill_launches} (expected "
           f"{want})  [{stamp}]", flush=True)
@@ -949,9 +1193,15 @@ def main() -> int:
                                   train["launches"])
     flash = phase_flash(torch, stamp)
     lm = phase_lm(torch, stamp)
+    reservoir = phase_reservoir(torch, stamp, train)
     flash["launches"] = lm["prefill"]["flash_attention"]
     flash["decode_launches"] = lm["serve"]["flash_attention"]
-    entries.append(flash)
+    reservoir["path_launches"] = {
+        "gnn_serve": launches["reservoir_topm"],
+        "train": train["launches"]["reservoir_topm"],
+        "lm_prefill": lm["prefill"]["reservoir_topm"],
+        "lm_serve": lm["serve"]["reservoir_topm"]}
+    entries += [flash, reservoir]
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")

@@ -54,6 +54,38 @@ def es_sample(neighbors: np.ndarray, weights: np.ndarray, m: int,
     return neighbors[top]
 
 
+def hop_edges(indptr: np.ndarray, indices: np.ndarray, dst_ids: np.ndarray):
+    """The neighbours of ``dst_ids`` laid end to end: ``(nb_all, row_start,
+    sizes)``, row ``i``'s being ``nb_all[row_start[i]:][:sizes[i]]``."""
+    starts = indptr[dst_ids]
+    sizes = (indptr[dst_ids + 1] - starts).astype(np.int64)
+    total = int(sizes.sum())
+    row_start = np.cumsum(sizes) - sizes
+    offs = np.repeat(starts, sizes) + (np.arange(total)
+                                       - np.repeat(row_start, sizes))
+    return indices[offs], row_start, sizes
+
+
+def topm_buckets(sizes: np.ndarray, row_start: np.ndarray,
+                 fanout: int) -> list:
+    """The rows with more than ``fanout`` neighbours (those that go to top-m
+    selection), bucketed by power-of-two padded width, narrowest first: a
+    list of ``(rs, src, valid)``, ``rs`` the bucket's row numbers, ``src``
+    (len(rs), width) positions in ``nb_all`` (a row's last neighbour
+    repeated past its end) and ``valid`` the mask ``col < size``."""
+    rows = np.where(sizes > fanout)[0]
+    widths = 1 << np.ceil(np.log2(sizes[rows])).astype(int)
+    out = []
+    for w in np.unique(widths):
+        rs = rows[widths == w]
+        col = np.arange(w)
+        valid = col[None, :] < sizes[rs, None]
+        src = row_start[rs, None] + np.minimum(col[None, :],
+                                               sizes[rs, None] - 1)
+        out.append((rs, src, valid))
+    return out
+
+
 @dataclass
 class Block:
     """One hop: bipartite (src → dst) with fixed-fanout padding.
@@ -121,16 +153,9 @@ class NeighborSampler:
         # BUCKETED batched top-m (rows grouped by padded width) — all work is
         # large numpy ops that release the GIL, so sampler threads scale
         # (the host-side twin of the kernels/reservoir TPU formulation).
-        starts = indptr[dst_ids]
-        ends = indptr[dst_ids + 1]
-        sizes = (ends - starts).astype(np.int64)
-        total = int(sizes.sum())
-        if total == 0:
+        nb_all, row_start, sizes = hop_edges(indptr, indices, dst_ids)
+        if len(nb_all) == 0:
             return out
-        row_start = np.cumsum(sizes) - sizes
-        offs = np.repeat(starts, sizes) + (np.arange(total)
-                                           - np.repeat(row_start, sizes))
-        nb_all = indices[offs]
 
         # rows with ≤ fanout neighbors: take everything (no keys needed)
         small = sizes <= fanout
@@ -147,19 +172,12 @@ class NeighborSampler:
                 col_idx = np.broadcast_to(col[None, :], valid.shape)
                 out[row_idx[valid], col_idx[valid]] = block[valid]
 
-        big = ~small & (sizes > 0)
-        if big.any():
-            w_all = (np.ones(total) if self.weight_fn is None
+        buckets = topm_buckets(sizes, row_start, fanout)
+        if buckets:
+            w_all = (np.ones(len(nb_all)) if self.weight_fn is None
                      else self.weight_fn(nb_all))
             keys = es_keys(w_all, self.rng)
-            rows = np.where(big)[0]
-            widths = 1 << np.ceil(np.log2(sizes[rows])).astype(int)
-            for w in np.unique(widths):
-                rs = rows[widths == w]
-                col = np.arange(w)
-                valid = col[None, :] < sizes[rs, None]
-                src = row_start[rs, None] + np.minimum(col[None, :],
-                                                       sizes[rs, None] - 1)
+            for rs, src, valid in buckets:
                 km = np.where(valid, keys[src], -np.inf)
                 top = np.argpartition(-km, fanout - 1, axis=1)[:, :fanout]
                 out[rs[:, None], np.arange(fanout)[None, :]] = (

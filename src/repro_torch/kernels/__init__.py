@@ -13,7 +13,8 @@ plain version, used for CPU tensors and as the oracle).
                      sum for layer 0 of the fused step (``gather_aggregate``)
   flash_attention/   blockwise causal / full self-attention forward of the
                      LM block prefill (``flash_attention``)
-
-The fifth TPU kernel (reservoir) is not ported yet; no path of the JAX
-package calls it (ROADMAP.md).
+  reservoir/         Efraimidis–Spirakis weighted top-m of neighbour rows
+                     (``reservoir_topm``); an op of its own, as in the JAX
+                     package, where no path calls it: the sampler selects in
+                     numpy
 """

@@ -331,3 +331,103 @@ def test_lm_prefill_and_engine_on_card_match_cpu(card, arch):
         eng.run_to_completion()
         streams.append({r.rid: r.out_tokens for r in eng.completed})
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# reservoir_topm
+# ---------------------------------------------------------------------------
+
+# the padded widths the sampler buckets a full-width graphsage-products hop
+# into, and fanouts around and past the per-thread list of 32
+RESERVOIR_WIDTHS = [8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192,
+                    16384, 32768, 65536, 131072]
+RESERVOIR_MS = [2, 5, 10, 15, 25, 40]
+TIE_U = np.array([0.0, 0.2, 0.5, 0.7, 0.9], np.float32)
+
+
+def _reservoir_inputs(R, N, device, kind="sampler", seed=0):
+    """w, u (R, N) float32 and mask (R, N) bool.  ``sampler``: each row's
+    first size lanes valid, size in (N/2, N], a few holes; ``ties``: u from
+    five values and w from two, so keys tie exactly; ``u_zero``: 30% of u
+    is 0; ``all_masked_row``: row R // 2 has no valid lane; ``sparse``: 1
+    lane in 200 valid, so wide rows run out before m."""
+    rng = np.random.default_rng(seed)
+    w = np.where(rng.random((R, N)) < 0.3, 4.0, 1.0).astype(np.float32)
+    u = rng.random((R, N), dtype=np.float32)
+    size = rng.integers(N // 2 + 1, N + 1, (R, 1))
+    mask = (np.arange(N) < size) & (rng.random((R, N)) < 0.97)
+    if kind == "ties":
+        u = TIE_U[rng.integers(0, len(TIE_U), (R, N))]
+    elif kind == "u_zero":
+        u[rng.random((R, N)) < 0.3] = 0.0
+    elif kind == "all_masked_row":
+        mask[R // 2] = False
+    elif kind == "sparse":
+        mask = rng.random((R, N)) < 0.005
+    return [torch.from_numpy(x).to(device) for x in (w, u, mask)]
+
+
+def _assert_reservoir_bit_exact(w, u, mask, m):
+    from repro_torch.kernels.reservoir.ops import reservoir_topm
+    from repro_torch.kernels.reservoir.ref import NEG, reservoir_topm_ref
+    launches = reservoir_topm.launches
+    idx, keys = reservoir_topm(w, u, mask, m)
+    r_idx, r_keys = reservoir_topm_ref(w, u, mask.bool(), m)
+    torch.cuda.synchronize()
+    assert reservoir_topm.launches == launches + 1
+    assert idx.dtype == torch.int32 and keys.dtype == torch.float32
+    assert torch.equal(idx, r_idx)
+    assert torch.equal(keys.view(torch.int32), r_keys.view(torch.int32))
+    assert bool((keys[idx == w.shape[1]] == NEG).all())
+
+
+@pytest.mark.parametrize("m", RESERVOIR_MS)
+@pytest.mark.parametrize("N", RESERVOIR_WIDTHS)
+def test_reservoir_kernel_matches_plain_bit_exact(card, N, m):
+    R = max(2, min(256, 2**18 // N))
+    _assert_reservoir_bit_exact(*_reservoir_inputs(R, N, card), m)
+
+
+@pytest.mark.parametrize("kind", ["ties", "u_zero", "all_masked_row",
+                                  "sparse"])
+@pytest.mark.parametrize("R,N,m", [(13, 37, 5), (4, 5, 9), (6, 1, 3),
+                                   (40, 256, 10), (3, 4096, 40),
+                                   (1, 70217, 10)])
+def test_reservoir_kernel_edge_cases_bit_exact(card, R, N, m, kind):
+    _assert_reservoir_bit_exact(*_reservoir_inputs(R, N, card, kind), m)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint8, torch.int8,
+                                   torch.int64])
+@pytest.mark.parametrize("N", [100, 3000])
+def test_reservoir_kernel_takes_integer_masks(card, N, dtype):
+    w, u, mask = _reservoir_inputs(9, N, card)
+    _assert_reservoir_bit_exact(w, u, mask.to(dtype) * 3, 12)
+
+
+def test_reservoir_routes_and_counts(card, monkeypatch):
+    import repro_torch.kernels.reservoir.ops as ops
+    from repro_torch.kernels.reservoir.ref import reservoir_topm_ref
+    w, u, mask = _reservoir_inputs(8, 300, card)
+    launches = ops.reservoir_topm.launches
+    got = ops.reservoir_topm(w.cpu(), u.cpu(), mask.cpu(), 7)   # plain
+    want = reservoir_topm_ref(w.cpu(), u.cpu(), mask.cpu(), 7)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ops.reservoir_topm.launches == launches
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.reservoir_topm(w.t().contiguous().t(), u, mask, 7)
+    with pytest.raises(TypeError):
+        ops.reservoir_topm(w, u, mask.float(), 7)
+    with pytest.raises(TypeError):
+        ops.reservoir_topm(w.to(torch.complex64), u, mask, 7)
+    with pytest.raises(ValueError):
+        ops.reservoir_topm(w, u.cpu(), mask, 7)
+    assert ops.reservoir_topm.launches == launches
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(ops, "reservoir_topm_ref", refuse)
+    idx, _ = ops.reservoir_topm(w, u, mask, 7)
+    torch.cuda.synchronize()
+    assert ops.reservoir_topm.launches == launches + 1
+    assert idx.shape == (8, 7) and idx.is_cuda

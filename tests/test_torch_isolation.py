@@ -42,7 +42,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     for name in ("kernels.gather.ops", "kernels.segment_agg.ops",
                  "kernels.fused_gather_agg.ops", "launch.serve",
                  "launch.train", "models.transformer", "models.api",
-                 "serve.engine", "kernels.flash_attention.ops"):
+                 "serve.engine", "kernels.flash_attention.ops",
+                 "kernels.reservoir.ops"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["leaked"] == []
 
