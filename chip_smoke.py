@@ -6,7 +6,13 @@
 Phases; any failure exits non-zero:
 
 1. build — compile every CUDA source of the port (one ``nvcc`` each, all
-   started together) and print the seconds it took;
+   started together) and print the seconds it took; then, for each
+   ``flash_attention`` kernel, ``ptxas``'s registers and spills and the
+   dynamic shared memory its launch grants, and the count of ``HGMMA``
+   instructions in each kernel's SASS (``cuobjdump -sass`` of the built
+   library).  Fails if the bf16 kernel at Dh=128 has no ``HGMMA`` or if a
+   bf16 kernel spills; a machine with no ``cuobjdump`` gets a line saying
+   so;
 2. cache_gather — call the wrapper at the shapes the serving path gives
    it, hold the result bit-exact against its plain PyTorch version, then
    time kernel, plain version and the library yardstick with CUDA events
@@ -28,12 +34,14 @@ Phases; any failure exits non-zero:
    of that first batch, plus GAT's weighted shapes and odd widths: held
    against their plain versions and timed as in phase 2, with
    ``F.embedding_bag`` as the yardstick of ``neighbor_agg``;
-6. flash_attention at the LM slice's shapes (the qwen3-4b prefill, bf16,
-   and odd lengths, f32 and non-causal): held against its plain version
-   (bf16 by an output-scaled bound that must also refuse two faulty
-   outputs, a skipped KV tile and a 3% normaliser error) and timed as in
-   phase 2, with ``F.scaled_dot_product_attention`` as the
-   yardstick (the port never calls it);
+6. flash_attention at the LM slice's shapes (the qwen3-4b prefill, bf16;
+   the edges of its 128-row tiles, S = 127, 129 and 4097; Dh=64 at
+   S=1000; odd lengths, f32 and non-causal): held against its plain
+   version (bf16 by an output-scaled bound that must also refuse two
+   faulty outputs, a skipped KV tile and a 3% normaliser error), and the
+   qwen3-4b and llama3.2-3b prefills timed as in phase 2 with
+   ``F.scaled_dot_product_attention`` as the yardstick (the port never
+   calls it), each with its TFLOP/s and share of the bound;
 7. the LM serving slice at full width — qwen3-4b with seeded weights on the
    card: ``Model.prefill`` of ``tokens (2, 4096)`` (36 flash_attention
    launches, counted), then ``run_lm_serve``'s engine on 16 requests at
@@ -66,9 +74,12 @@ of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -158,6 +169,91 @@ def phase_build(stamp: str):
     built = build(sources())
     print(f"[build] {sources()} (compiled {built}) in "
           f"{time.perf_counter() - t0:.2f} s  [{stamp}]", flush=True)
+    flash_report()
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_wgmma<128>`` for the mangled name of that instance."""
+    m = re.search(r"(flash_fwd_\w+?)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
+def _cuobjdump():
+    for cand in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if cand and Path(cand).exists():
+            return cand
+    spec = importlib.util.find_spec("triton")
+    for loc in (spec.submodule_search_locations or []) if spec else []:
+        cand = Path(loc) / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if cand.exists():
+            return str(cand)
+    return None
+
+
+def flash_report():
+    """ptxas's registers and spills, the granted shared memory and the
+    HGMMA count of each flash_attention kernel; fails if the bf16 kernel
+    at Dh=128 has no HGMMA or a bf16 kernel spills."""
+    import ctypes
+
+    from repro_torch.kernels.build import BUILD_DIR, build_log, load
+    smem = load("flash_attention").flash_attention_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    log = build_log("flash_attention")
+    ptxas, name = {}, None
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            ptxas.setdefault(name, {})
+        elif "C7512" in line:      # wgmma serialised: names its function
+            m = re.search(r"function '(\S+)'", line)
+            ptxas.setdefault(_kernel_name(m.group(1) if m else ""), {})[
+                "warning"] = line.split(":", 1)[1].strip()
+        elif name and "spill stores" in line:
+            ptxas[name]["spills"] = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            ptxas[name]["used"] = line.split(":", 1)[1].strip()
+    if not ptxas:
+        print(f"[build] no ptxas report in {log} (the library was not "
+              f"rebuilt in this run)", flush=True)
+    tool = _cuobjdump()
+    hgmma, top_reg = {}, {}
+    if tool is None:
+        print("[build] no cuobjdump on this machine (toolkit or triton): "
+              "the HGMMA check of flash_attention was not made", flush=True)
+    else:
+        sass = subprocess.run([tool, "-sass", str(BUILD_DIR /
+                                                  "libflash_attention.so")],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = _kernel_name(m.group(1))
+                hgmma[name], top_reg[name] = 0, -1
+            elif name in hgmma:
+                hgmma[name] += "HGMMA" in line
+                regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+                top_reg[name] = max([top_reg[name], *regs])
+    for name in sorted(n for n in set(ptxas) | set(hgmma) if "<" in n):
+        dh = int(re.search(r"<(\d+)>", name).group(1))
+        bf16 = "wgmma" in name
+        info = ptxas.get(name, {})
+        print(f"[build] {name} ({'bf16' if bf16 else 'f32'}): ptxas "
+              f"{info.get('used', 'not reported')}; "
+              f"{info.get('spills', 'spills not reported')}; dynamic shared "
+              f"memory {smem(dh, int(bf16))} B; SASS: HGMMA "
+              f"{hgmma.get(name, 'not counted')}, highest register "
+              f"R{top_reg.get(name, '?')}"
+              + (f"; {info['warning']}" if "warning" in info else ""),
+              flush=True)
+        spilled = re.search(r"(\d+) bytes spill stores", info.get("spills", ""))
+        if bf16 and spilled and int(spilled.group(1)) > 0:
+            fail(f"{name} spills registers: {info['spills']}")
+    if tool is not None and not hgmma.get("flash_fwd_wgmma<128>"):
+        fail("the bf16 flash_attention kernel at Dh=128 has no HGMMA in its "
+             "SASS")
 
 
 def phase_kernels(torch, stamp: str) -> dict:
@@ -183,7 +279,7 @@ def phase_kernels(torch, stamp: str) -> dict:
              ("f37_bf16", 37, 1000, 37, torch.bfloat16, False)]  # 2-byte words
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > L2
     rate = hbm_rate(torch.cuda.get_device_name(0))
-    max_err, entry = 0.0, None
+    max_err, timed_at = 0.0, {}
     for label, n, C, F, dtype, timed in cases:
         slots, cache = inputs(n, C, F, dtype)
         out, miss = cache_gather(slots, cache)
@@ -945,7 +1041,8 @@ def _bf16_bound_rejects_faults(torch, out, q, k, v):
 
 def phase_flash(torch, stamp: str) -> dict:
     """flash_attention at the LM slice's shapes against its plain version,
-    timed at the qwen3-4b prefill; returns the JSON entry."""
+    timed at the qwen3-4b and llama3.2-3b prefills; returns the JSON entry
+    (the qwen3-4b prefill's numbers, the llama3.2-3b one's beside them)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -956,15 +1053,24 @@ def phase_flash(torch, stamp: str) -> dict:
     rate = hbm_rate(torch.cuda.get_device_name(0))
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     B, S = PREFILL_SHAPE
-    # (label, B, S, H, Hkv, Dh, dtype, causal, timed)
-    cases = [("qwen3_prefill", B, S, 32, 8, 128, torch.bfloat16, True, True),
+    # (label, B, S, H, Hkv, Dh, dtype, causal, timed): the two prefills;
+    # the edges of the bf16 kernel's 128-row tiles (a partial diagonal, one
+    # row past a tile, a partial last KV tile) and its Dh=64 instance; odd
+    # lengths, f32 and non-causal
+    bf16 = torch.bfloat16
+    cases = [("qwen3_prefill", B, S, 32, 8, 128, bf16, True, True),
+             ("llama3_prefill", B, S, 24, 8, 128, bf16, True, True),
+             ("s127_bf16", 1, 127, 32, 8, 128, bf16, True, False),
+             ("s129_bf16", 1, 129, 32, 8, 128, bf16, True, False),
+             ("s4097_bf16", 1, 4097, 32, 8, 128, bf16, True, False),
+             ("s1000_dh64_bf16", 1, 1000, 32, 8, 64, bf16, True, False),
              ("s37_f32", 1, 37, 32, 8, 128, torch.float32, True, False),
              ("s1000_f32", 1, 1000, 32, 8, 128, torch.float32, True, True),
              ("s256_full_f32", 1, 256, 32, 32, 128, torch.float32, False,
               False),
              ("s256_full_bf16", 1, 256, 32, 32, 128, torch.bfloat16, False,
               False)]
-    max_err, entry = 0.0, None
+    max_err, timed_at = 0.0, {}
     for label, b, s, h, hkv, dh, dtype, causal, timed in cases:
         q = torch.randn((b, s, h, dh), generator=g, device=dev).to(dtype)
         k, v = (torch.randn((b, s, hkv, dh), generator=g, device=dev).to(dtype)
@@ -1008,19 +1114,25 @@ def phase_flash(torch, stamp: str) -> dict:
              "library_ms": time_ms(torch, lib, flush),
              "bound_ms": max(t_f, t_b),
              "bound_by": "operations" if t_f >= t_b else "bytes"}
-        print(f"[time] flash_attention {label}: kernel {t['ms']} ms "
-              f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain "
+        print(f"[time] flash_attention {label} q ({b}, {s}, {h}, {dh}) kv "
+              f"heads {hkv} {dtype}: kernel {t['ms']} ms "
+              f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{t['bound_ms'] / t['ms']:.1%} of the bound), plain "
               f"{t['plain_ms']} ms, scaled_dot_product_attention "
-              f"{t['library_ms']} ms (max diff {lib_err}); bound "
-              f"{t['bound_ms']} ms by {t['bound_by']}: {flops} FLOP at "
-              f"{peak / 1e12} TFLOP/s = {t_f} ms, {nbytes} B at "
-              f"{rate / 1e12} TB/s = {t_b} ms  [{stamp}]", flush=True)
-        if label == "qwen3_prefill":
-            entry = t
+              f"{t['library_ms']} ms ({flops / t['library_ms'] / 1e9:.1f} "
+              f"TFLOP/s, {t['bound_ms'] / t['library_ms']:.1%} of the bound; "
+              f"max diff {lib_err}); bound {t['bound_ms']} ms by "
+              f"{t['bound_by']}: {flops} FLOP at {peak / 1e12} TFLOP/s = "
+              f"{t_f} ms, {nbytes} B at {rate / 1e12} TB/s = {t_b} ms  "
+              f"[{stamp}]", flush=True)
+        timed_at[label] = t
+    llama = timed_at["llama3_prefill"]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:60",
-            "max_abs_err": max_err, **entry}
+            "max_abs_err": max_err, **timed_at["qwen3_prefill"],
+            "llama3_2_3b_prefill": {k: llama[k] for k in (
+                "ms", "library_ms", "bound_ms")}}
 
 
 def _profile(torch, fn, stamp: str, label: str):

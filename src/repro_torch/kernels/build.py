@@ -4,6 +4,8 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, and loaded with ``ctypes``.  The build
 runs at first use, into ``build/repro_torch/`` at the root of the checkout
 (listed in ``.gitignore``); a library newer than its source is reused.
+``ptxas``'s report of each kernel (registers, shared memory, spills) is
+kept beside the library as ``lib<name>.log``.
 Nothing here runs when the module is imported: the CPU tests import every
 module and have no ``nvcc``.
 """
@@ -20,7 +22,7 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -40,6 +42,11 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
+
+
+def build_log(name: str) -> Path:
+    """The compiler's output of the last build of ``csrc/<name>.cu``."""
+    return BUILD_DIR / f"lib{name}.log"
 
 
 def _stale(name: str) -> bool:
@@ -70,6 +77,7 @@ def build(names: Iterable[str]) -> List[str]:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
+            build_log(name).write_text(out)
             os.replace(tmp, _target(name))   # atomic: readers never see half
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

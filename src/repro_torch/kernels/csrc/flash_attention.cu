@@ -1,7 +1,7 @@
 // flash_attention: blockwise self-attention forward with an online softmax,
 // for the block prefill of the dense LMs.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
+// Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:60,
 // flash_attention_pallas (_flash_kernel).
 //
 //   q (B, S, H, Dh), k/v (B, S, Hkv, Dh), H % Hkv == 0, row-major
@@ -11,47 +11,123 @@
 // Bound: operations.  The causal prefill does 4 Dh S(S+1)/2 FLOP per
 // (batch, head) and reads each input once: at the qwen3-4b prefill
 // (B=2, S=4096, H=32, Hkv=8, Dh=128, bf16) that is 275 GFLOP against
-// 168 MB, some 1,600 FLOP per byte, far above the card's ~295.
+// 168 MB, some 1,600 FLOP per byte, far above the card's ~295.  Only the
+// tensor cores through wgmma reach the card's bf16 rate, and the exp2 of
+// the softmax (16 per clock per SM) costs half as much again as the two
+// products of a tile: the design keeps both units fed.
 //
-// Design, shared by both kernels.  One thread block owns one (batch, head)
-// and a tile of 64 query rows, and walks the key/value tiles of its kv head
-// in order, so the Pallas kernel's sequential KV loop stays a loop inside
-// the block.  Heads index the (B, S, H, Dh) strides directly: no transposes
-// and no repeated kv (the G q-heads of one kv head read the same tiles,
-// which L2 serves).  The running max, sum and accumulator stay in f32
-// registers; the scores are scaled into the log2 domain and exponentiated
-// with exp2f.  Masked scores are set to -1e30, the value of the JAX kernel,
-// so a row that no key reaches stays finite, as in the plain version.  Causal
-// tiles past the block's last row are skipped by the loop bound; the
-// diagonal tile and a ragged last tile (keys >= S, rows >= S) are masked,
-// and rows >= S are never stored.  Query blocks are issued heaviest first.
-// The output is divided by max(l, 1e-30) and written once.
+// Which kernel runs where: bf16 at every head width (16, 32, 64, 128) is
+// the Hopper kernel below (namespace wg); f32 is the SIMT kernel (namespace
+// simt), which is off the prefill's path (no tensor-core type keeps f32).
 //
-//   bf16 inputs: tensor cores through mma.sync m16n8k16 (bf16 in, f32
-//     accumulate).  4 warps x 16 query rows; K/V tiles of 64 keys staged
-//     in shared memory with 16-byte loads (rows padded by 8 elements so the
-//     fragment loads meet 32 distinct banks).  Q fragments stay in
-//     registers for the whole loop; the probabilities go from the score
-//     accumulators to the A fragments of P.V without shared memory, rounded
-//     to bf16 as the JAX model rounds them before its P.V product.  52 KB
-//     of shared memory at Dh=128.
-//   f32 inputs: per-thread f32 FMA (no tensor-core type keeps f32
-//     exactly).  256 threads, each owning 4 query rows x 2 keys of a
-//     64 x 32 score tile and 4 rows x Dh/16 columns of the output; Q, K, V
-//     and P staged in shared memory as f32 (rows padded by 4 floats), read
-//     as float4.  77 KB of shared memory at Dh=128.
+// Shared by both.  A block (in the bf16 kernel, each work item of a
+// persistent block) owns one (batch, head) and a tile of query rows, and
+// walks the key/value tiles of its kv head in order: the Pallas
+// kernel's sequential KV loop stays a loop inside the block.  Heads are
+// indexed through the (B, S, H, Dh) strides: no transposes and no repeated
+// kv (the G q-heads of one kv head read the same tiles, which L2 serves).
+// The running max, sum and accumulator stay in f32 registers; scores are
+// exponentiated in the log2 domain.  Masked scores are -1e30, the value of
+// the JAX kernel, so a row that no key reaches stays finite, as in the plain
+// version.  Causal tiles past the tile's last query row are skipped by the
+// loop bound; only the diagonal tile and a ragged last tile are masked, and
+// rows >= S are never stored.  The output is divided by max(l, 1e-30).
 //
-// No cp.async, TMA or wgmma yet: the loads of a tile and its products do not
-// overlap.  Making the kernel fast is later work.
+// bf16, Hopper (sm_90a): TMA ring, wgmma, warp-specialised consumers.
+//   Work item: one (batch, head) and a tile of 128 query rows.  The grid
+//   is persistent, one block of 3 warpgroups (384 threads) per SM walking
+//   its share of the items.  Warpgroup 0 is the producer: after setmaxnreg
+//   gives its registers to the consumers (40 left, 232 each for the
+//   others), one thread issues TMA loads of each item's Q tile, then of
+//   its K and V tiles of 128 keys into a ring of 2 stages.
+//   Q and each K and V slot have a full and an empty mbarrier: the copies
+//   complete the full barriers by their byte count (expect_tx), and the 256
+//   consumer threads arrive on an empty barrier once the products that
+//   read the slot have completed, which lets the producer refill it.  Q's
+//   slot is released after an item's last S, so the next item's Q and first
+//   K/V tiles load during this item's last P.V and its stores.
+//   Warpgroups 1 and 2 are the consumers, 64 query rows each.  Per tile:
+//     S = Q.K^T by wgmma m64n128k16 with both operands in shared memory
+//       (SS), Dh/16 k-steps;
+//     the online softmax on the accumulators in registers: row max across
+//       the 4 lanes of a quad, p = exp2(s * scale_log2 - m * scale_log2) by
+//       ex2.approx, the row sums kept per thread and reduced once at the end;
+//     P rounded to bf16 in registers (as the JAX model rounds it before
+//       P.V): the m64nN accumulator layout is the A-fragment layout of
+//       m64nNk16, so the scores of keys 16s..16s+15 are A of k-step s;
+//     O += P.V by wgmma m64nDhk16 with A from registers (RS) and V read
+//       from shared memory through the descriptor's transpose bit: V stays
+//       (keys, Dh) as it lies in memory, with no scalar loads.
+//   Scheduling (FA3's two overlaps).  Within a consumer, S(t) and
+//   P(t-1).V(t-1) are issued back to back and the softmax of S(t) runs
+//   while P(t-1).V(t-1) is still on the tensor cores (wait_group 1, then
+//   0), so a K slot is released after S(t) and a V slot after P.V.
+//   Between the consumers, two named barriers hand the right to issue
+//   products back and forth (ping-pong): one consumer exponentiates while
+//   the other's products run.  Schedule: items ordered heaviest first
+//   (causal: the last q-tile, with the most KV tiles, first), dealt in
+//   rounds of one per block, each odd round in mirror order (a snake), so
+//   that every block's sum of tiles comes out near the mean; a persistent
+//   block also hides each item's loads and stores behind its neighbours'.
+//   Shared memory: Q 128 x Dh, and per stage K and V 128 x Dh, bf16: 160 KB
+//   at Dh = 128, granted once per width above the 48 KB default.
+//
+// Where this kernel can go wrong, and what it does about it:
+//   1. cuTensorMapEncodeTiled is a driver-API function and the build links
+//      the runtime only: it is fetched once through the runtime's
+//      cudaGetDriverEntryPoint(ByVersion).  The four maps are encoded on
+//      the host at every call (a few microseconds); a failed encode returns
+//      kEncodeError + its CUresult, which the wrapper raises.
+//   2. TMA: the maps are 4-D, (Dh, heads, S, B) innermost first, over the
+//      tensors' own strides (Dh*2, heads*Dh*2, S*heads*Dh*2 bytes: each a
+//      multiple of 16 at every width taken); boxes of min(Dh, 64) columns x
+//      1 head x 128 rows x 1 batch, so a box row is exactly the swizzle
+//      span: 128-byte swizzle at Dh 64 and 128 (two boxes per row at 128),
+//      64-byte at Dh 32, 32-byte at Dh 16.  The global address is 16-byte
+//      aligned (the wrapper checks).  Rows >= S are zero-filled by TMA,
+//      which counts them in the transaction bytes.
+//   3. wgmma descriptors must describe exactly the layout TMA wrote, or the
+//      numbers are wrong without a fault.  Q and K are K-major: rows of
+//      (swizzle span) bytes, 8-row groups SBO = 8 x span apart, the k-step
+//      advancing the start address by 32 bytes inside a swizzled row and by
+//      one box (128 x span bytes) across boxes.  V is MN-major (transpose
+//      bit): 8-key groups SBO = 8 x span apart, the next span-wide column
+//      block LBO = one box apart, the k-step advancing 16 key rows.  Every
+//      tile starts 1024-byte aligned, so the swizzle phase (base offset) is
+//      0 everywhere.
+//   4. Fences: wgmma.fence before each batch of products (P and the
+//      rescaled O are written by ordinary instructions in between);
+//      commit_group, then wait_group 1 before the softmax reads S and
+//      wait_group 0 before P is rewritten or a V slot released; the
+//      accumulators and P are pinned in registers around each wait so that
+//      the compiler moves no read or reuse across it.
+//   5. Registers: O (Dh/2 f32), S (64 f32) and P (32 x 32-bit) are live
+//      together, ~180 at Dh = 128, above the 168 that 384 threads leave.
+//      setmaxnreg gives the consumers 232, and ptxas allocates up to it in
+//      the consumers' arm of the role if/else.  One __trap in the mbarrier
+//      wait (a bound on its polls, since removed) made ptxas ignore it: the
+//      kernel was capped at 168 registers, spilled and serialised its
+//      wgmma.  chip_smoke.py phase 1 prints ptxas's registers and
+//      spills and fails on a spill.
+//   6. Ragged edges at 128-row tiles: S = 1 (one row, 127 padding rows),
+//      127 and 129 (a partial diagonal, one row past a tile), 1000 and 4097
+//      (a partial last KV tile) are held against the plain version.
+//
+// f32 (SIMT): per-thread f32 FMA.  256 threads, a tile of 64 query rows,
+// each thread owning 4 query rows x 2 keys of a 64 x 32 score tile and
+// 4 rows x Dh/16 columns of the output; Q, K, V and P staged in shared
+// memory as f32 (rows padded by 4 floats), read as float4.  77 KB of shared
+// memory at Dh=128.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kBQ = 64;   // query rows per block (both kernels)
+constexpr int kBQ = 64;   // query rows per block of the f32 kernel
 
 __device__ __forceinline__ int tile_count(int S, int q0, int bk, int causal) {
   const int n = (S + bk - 1) / bk;
@@ -61,21 +137,119 @@ __device__ __forceinline__ int tile_count(int S, int q0, int bk, int causal) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync on the tensor cores
+// bf16: TMA, mbarriers and wgmma (sm_90a)
 // ---------------------------------------------------------------------------
 
-namespace tc {
+namespace wg {
 
-constexpr int kBK = 64;
-constexpr int kThreads = 128;
+constexpr int kBM = 128;        // query rows per block: 2 consumers x 64
+constexpr int kBN = 128;        // keys per KV tile
+constexpr int kStages = 2;      // KV ring depth
+constexpr int kThreads = 384;   // producer + 2 consumer warpgroups
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
+template <int DH>
+struct Tile {
+  static constexpr int SPAN = DH * 2 < 128 ? DH * 2 : 128;  // swizzle span = box row, bytes
+  static constexpr int BOX_COLS = SPAN / 2;
+  static constexpr int BOX = kBN * SPAN;                     // bytes of one 128-row box
+  static constexpr int BYTES = DH / BOX_COLS * BOX;          // a 128 x DH tile
+  static constexpr uint32_t LAYOUT = SPAN == 128 ? 1 : SPAN == 64 ? 2 : 3;  // descriptor swizzle
+  static constexpr int BARS = 2 + 4 * kStages;               // Q, K, V full and empty
+  static constexpr int SMEM = (1 + 2 * kStages) * BYTES + 8 * BARS + 1024;  // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// waits for the phase of `parity` to complete.  The polls are unbounded: a
+// __trap after a bound, here, made ptxas ignore the consumers' setmaxnreg
+// (168 registers, spills, serialised wgmma; note 5 above)
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D map, coordinates innermost first, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// shared-memory matrix descriptor: start, leading and stride byte offsets
+// (16-byte units), swizzle mode in bits 62-63; base offset 0
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void mma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// named barriers 1 and 2 pace the two consumers' turns (0 is __syncthreads)
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// pins registers that an asynchronous product reads or writes: no
+// instruction that uses them moves across this point
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -83,171 +257,444 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// D (64 x 128, f32) (+)= A (64 x 16) . B (16 x 128), both from shared memory,
+// both K-major.
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                            uint32_t accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// D (64 x 16, f32) += A (64 x 16, bf16 registers) . B (16 x 16), B MN-major
+// in shared memory (the transpose bit).
+__device__ __forceinline__ void mma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1u));
 }
 
-template <int DH>
-constexpr int smem_bytes() { return (kBQ + 2 * kBK) * (DH + 8) * 2; }
-
-// rows [s0, s0 + rows) of one head into a tile of stride LD; rows >= S zero
-template <int DH>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t row_stride, int s0, int rows, int S) {
-  constexpr int LD = DH + 8, VEC = DH / 8;
-  for (int e = threadIdx.x; e < rows * VEC; e += kThreads) {
-    const int r = e / VEC, c = e % VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (s0 + r) * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
+// D (64 x 32, f32) += A (64 x 16, bf16 registers) . B (16 x 32), B MN-major
+// in shared memory (the transpose bit).
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1u));
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               int S, int H, int Hkv, int causal, float scale_log2) {
-  constexpr int LD = DH + 8;     // smem row stride (elements): 16-byte rows, bank skew
-  constexpr int KS = DH / 16;    // k-steps of Q.K^T
-  constexpr int NT = kBK / 8;    // 8-key n-tiles of the score tile
-  constexpr int DT = DH / 8;     // 8-column n-tiles of the output
-  extern __shared__ uint4 smem_tc[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_tc);
-  __nv_bfloat16* Ks = Qs + kBQ * LD;
-  __nv_bfloat16* Vs = Ks + kBK * LD;
+// D (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64), B MN-major
+// in shared memory (the transpose bit).
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1u));
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / (H / Hkv);
-  const int64_t q_stride = static_cast<int64_t>(H) * DH;
-  const int64_t kv_stride = static_cast<int64_t>(Hkv) * DH;
-  const __nv_bfloat16* qb = q + static_cast<int64_t>(b) * S * q_stride + h * DH;
-  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * S * kv_stride + hk * DH;
-  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * S * kv_stride + hk * DH;
-  __nv_bfloat16* ob = o + static_cast<int64_t>(b) * S * q_stride + h * DH;
+// D (64 x 128, f32) += A (64 x 16, bf16 registers) . B (16 x 128), B MN-major
+// in shared memory (the transpose bit).
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1u));
+}
 
-  load_tile<DH>(Qs, qb, q_stride, q0, kBQ, S);
-  __syncthreads();
-  const int r0 = warp * 16 + g;   // this thread's rows in the tile: r0, r0 + 8
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const __nv_bfloat16* p = Qs + r0 * LD + kk * 16 + 2 * tq;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * LD);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * LD + 8);
-  }
-  const int row0 = q0 + r0, row1 = row0 + 8;
+// The online-softmax state of a thread's two rows a and b: running max (raw
+// score units), this thread's partial sums, and the factor by which the
+// last tile shrank the earlier terms.
+struct Rows {
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f, alpha_a = 1.f, alpha_b = 1.f;
+};
 
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+// S (raw scores) of one tile, in place: the mask where the tile needs one,
+// the running max, p = exp2(s * scale_log2 - m * scale_log2) and the
+// partial row sums.  sc[4j + e] is row (e < 2 ? a : b), key
+// k0 + key0 + 8j + (e & 1), key0 = 2 (lane % 4).
 
-  const int n_tiles = tile_count(S, q0, kBK, causal);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();               // the previous tile is consumed
-    load_tile<DH>(Ks, kb, kv_stride, k0, kBK, S);
-    load_tile<DH>(Vs, vb, kv_stride, k0, kBK, S);
-    __syncthreads();
-
-    float sc[NT][4];
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2], Rows& r, bool masked, int k0,
+                                             int key0, int row_a, int row_b, int S, int causal,
+                                             float scale_log2) {
+  if (masked) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const __nv_bfloat16* p = Ks + (j * 8 + g) * LD + kk * 16 + 2 * tq;
-        mma(sc[j], qf[kk], ld32(p), ld32(p + 8));
-      }
-    }
-    // scale, mask, row max (the 4 lanes of a group hold one row pair)
-    float mx0 = kNeg, mx1 = kNeg;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * tq + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        const bool ok = key < S && (!causal || key <= row);
-        sc[j][e] = ok ? sc[j][e] * scale_log2 : kNeg;
+        const int key = k0 + key0 + 8 * j + (e & 1);
+        const int row = e < 2 ? row_a : row_b;
+        if (!(key < S && (!causal || key <= row))) sc[4 * j + e] = kNeg;
       }
-      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      sc[j][0] = exp2f(sc[j][0] - mn0);
-      sc[j][1] = exp2f(sc[j][1] - mn0);
-      sc[j][2] = exp2f(sc[j][2] - mn1);
-      sc[j][3] = exp2f(sc[j][3] - mn1);
-      s0 += sc[j][0] + sc[j][1];
-      s1 += sc[j][2] + sc[j][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    }
-    l0 = l0 * a0 + s0;
-    l1 = l1 * a1 + s1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      acc[d][0] *= a0;
-      acc[d][1] *= a0;
-      acc[d][2] *= a1;
-      acc[d][3] *= a1;
-    }
-    // P.V: the score accumulators of n-tiles 2s, 2s+1 are the A fragment of
-    // k-step s; V's B fragments pair two keys of one column
-#pragma unroll
-    for (int s = 0; s < kBK / 16; ++s) {
-      const uint32_t pa[4] = {pack(sc[2 * s][0], sc[2 * s][1]),
-                              pack(sc[2 * s][2], sc[2 * s][3]),
-                              pack(sc[2 * s + 1][0], sc[2 * s + 1][1]),
-                              pack(sc[2 * s + 1][2], sc[2 * s + 1][3])};
-      const __nv_bfloat16* vr = Vs + (s * 16 + 2 * tq) * LD + g;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        const __nv_bfloat16* p = vr + d * 8;
-        mma(acc[d], pa, pack(p[0], p[LD]), pack(p[8 * LD], p[9 * LD]));
-      }
-    }
   }
-  const float i0 = fmaxf(l0, 1e-30f), i1 = fmaxf(l1, 1e-30f);
+  float mx_a = r.m_a, mx_b = r.m_b;
 #pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    const int col = d * 8 + 2 * tq;
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + col) =
-          __floats2bfloat162_rn(acc[d][0] / i0, acc[d][1] / i0);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + col) =
-          __floats2bfloat162_rn(acc[d][2] / i1, acc[d][3] / i1);
+  for (int j = 0; j < kBN / 8; ++j) {
+    mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  r.alpha_a = ex2((r.m_a - mx_a) * scale_log2);
+  r.alpha_b = ex2((r.m_b - mx_b) * scale_log2);
+  r.m_a = mx_a;
+  r.m_b = mx_b;
+  const float ms_a = mx_a * scale_log2, ms_b = mx_b * scale_log2;
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, -ms_a));
+    sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, -ms_a));
+    sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, -ms_b));
+    sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale_log2, -ms_b));
+    sum_a += sc[4 * j] + sc[4 * j + 1];
+    sum_b += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  r.l_a = r.l_a * r.alpha_a + sum_a;
+  r.l_b = r.l_b * r.alpha_b + sum_b;
+}
+
+// P in bf16: n8-chunks 2k, 2k+1 of the scores are the A fragment of k-step k
+__device__ __forceinline__ void to_bf16(uint32_t (&pa)[kBN / 16][4], const float (&sc)[kBN / 2]) {
+#pragma unroll
+  for (int k = 0; k < kBN / 16; ++k) {
+    pa[k][0] = pack(sc[8 * k], sc[8 * k + 1]);
+    pa[k][1] = pack(sc[8 * k + 2], sc[8 * k + 3]);
+    pa[k][2] = pack(sc[8 * k + 4], sc[8 * k + 5]);
+    pa[k][3] = pack(sc[8 * k + 6], sc[8 * k + 7]);
   }
 }
 
-}  // namespace tc
+template <int DH>
+__device__ __forceinline__ void rescale(float (&acc)[DH / 2], const Rows& r) {
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    acc[4 * j] *= r.alpha_a;
+    acc[4 * j + 1] *= r.alpha_a;
+    acc[4 * j + 2] *= r.alpha_b;
+    acc[4 * j + 3] *= r.alpha_b;
+  }
+}
+
+// S = Q.K^T: k-step kk reads columns 16kk.. of box 16kk / BOX_COLS
+template <int DH>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q, uint32_t k) {
+  using T = Tile<DH>;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t off = (kk * 16 / T::BOX_COLS) * T::BOX + (kk * 16 % T::BOX_COLS) * 2;
+    mma_ss_n128(sc, desc(q + off, 16, 8 * T::SPAN, T::LAYOUT),
+                desc(k + off, 16, 8 * T::SPAN, T::LAYOUT), kk > 0);
+  }
+}
+
+// O += P.V: k-step k reads key rows 16k..16k+15 of the V tile
+template <int DH>
+__device__ __forceinline__ void issue_pv(float (&acc)[DH / 2], const uint32_t (&pa)[kBN / 16][4],
+                                         uint32_t v) {
+  using T = Tile<DH>;
+#pragma unroll
+  for (int k = 0; k < kBN / 16; ++k)
+    mma_rs(acc, pa[k], desc(v + 16 * k * T::SPAN, T::BOX, 8 * T::SPAN, T::LAYOUT));
+}
+
+// Shared-memory addresses of one block: Q, the K and V rings, the mbarriers.
+template <int DH>
+struct Smem {
+  uint32_t q, k, v, bars;
+  __device__ explicit Smem(uint32_t base)
+      : q(base), k(base + Tile<DH>::BYTES), v(base + (1 + kStages) * Tile<DH>::BYTES),
+        bars(base + (1 + 2 * kStages) * Tile<DH>::BYTES) {}
+  __device__ uint32_t k_at(int s) const { return k + s * Tile<DH>::BYTES; }
+  __device__ uint32_t v_at(int s) const { return v + s * Tile<DH>::BYTES; }
+  __device__ uint32_t q_full() const { return bars; }
+  __device__ uint32_t k_full(int s) const { return bars + 8 * (1 + s); }
+  __device__ uint32_t v_full(int s) const { return bars + 8 * (1 + kStages + s); }
+  __device__ uint32_t k_empty(int s) const { return bars + 8 * (1 + 2 * kStages + s); }
+  __device__ uint32_t v_empty(int s) const { return bars + 8 * (1 + 3 * kStages + s); }
+  __device__ uint32_t q_empty() const { return bars + 8 * (1 + 4 * kStages); }
+};
+
+// One block's share of the work: rounds of gridDim.x items in the order
+// heaviest first (item i = q-tile nq-1-i/(B*H) of (batch, head) i%(B*H)),
+// the block taking position blockIdx.x of even rounds and the mirror
+// position of odd ones, so the heavy and light ends of each round even out.
+struct Work {
+  int q0, b, h, n_tiles;
+  __device__ bool at(int r, int S, int B, int H, int causal) {
+    const int nq = (S + kBM - 1) / kBM;
+    const int c = (r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    const int i = r * gridDim.x + c;
+    if (i >= nq * B * H) return false;
+    q0 = (nq - 1 - i / (B * H)) * kBM;
+    b = i % (B * H) / H;
+    h = i % H;
+    n_tiles = (S + kBN - 1) / kBN;
+    if (causal) n_tiles = min(n_tiles, (q0 + kBM - 1) / kBN + 1);
+    return true;
+  }
+};
+
+__device__ __forceinline__ int rounds(int S, int B, int H) {
+  const int n = (S + kBM - 1) / kBM * B * H;
+  return (n + gridDim.x - 1) / gridDim.x;
+}
+
+// The producer's one thread, item by item: Q once its slot is free, then K
+// and V of every tile into the ring, each slot refilled once both
+// consumers have released it.
+template <int DH>
+__device__ __forceinline__ void produce(const Smem<DH>& sm, const CUtensorMap* tq,
+                                        const CUtensorMap* tk, const CUtensorMap* tv, int B,
+                                        int S, int H, int Hkv, int causal) {
+  using T = Tile<DH>;
+  constexpr int kBoxes = DH / T::BOX_COLS;
+  int n = 0, done = 0;   // tiles loaded, items loaded
+  Work w;
+  for (int r = 0; r < rounds(S, B, H); ++r) {
+    if (!w.at(r, S, B, H, causal)) continue;
+    const int hk = w.h / (H / Hkv);
+    if (done > 0) bar_wait(sm.q_empty(), (done - 1) & 1);
+    bar_expect(sm.q_full(), T::BYTES);
+#pragma unroll
+    for (int c = 0; c < kBoxes; ++c)
+      tma_load(sm.q + c * T::BOX, tq, sm.q_full(), c * T::BOX_COLS, w.h, w.q0, w.b);
+    for (int t = 0; t < w.n_tiles; ++t, ++n) {
+      const int s = n % kStages;
+      const uint32_t freed = (n / kStages - 1) & 1;   // parity of the slot's last release
+      if (n >= kStages) bar_wait(sm.k_empty(s), freed);
+      bar_expect(sm.k_full(s), T::BYTES);
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c)
+        tma_load(sm.k_at(s) + c * T::BOX, tk, sm.k_full(s), c * T::BOX_COLS, hk, t * kBN, w.b);
+      if (n >= kStages) bar_wait(sm.v_empty(s), freed);
+      bar_expect(sm.v_full(s), T::BYTES);
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c)
+        tma_load(sm.v_at(s) + c * T::BOX, tv, sm.v_full(s), c * T::BOX_COLS, hk, t * kBN, w.b);
+    }
+    ++done;
+  }
+}
+
+// A consumer warpgroup (cw = 0 or 1) owns query rows q0 + 64 cw .. + 63.
+// Per tile t, in this consumer's turn, S(t) = Q.K(t)^T and O += P(t-1).V(t-1)
+// are issued back to back; the softmax of S(t) then runs while P(t-1).V(t-1)
+// is still on the tensor cores, and the other consumer's turn fills the
+// tensor cores while this one exponentiates.
+template <int DH>
+__device__ __forceinline__ void consume_item(const Smem<DH>& sm, __nv_bfloat16* __restrict__ o,
+                                             int cw, int tid, int q0, int b, int h, int n_tiles,
+                                             int S, int H, int causal, float scale_log2,
+                                             int& n, int item) {
+  const int warp = tid >> 5, g = (tid & 31) >> 2, key0 = 2 * (tid & 3);
+  const int wg_row0 = q0 + 64 * cw;
+  const int row_a = wg_row0 + 16 * warp + g, row_b = row_a + 8;   // this thread's rows
+  const uint32_t q_wg = sm.q + 64 * cw * Tile<DH>::SPAN;
+  const int mine = 1 + cw, other = 2 - cw;   // named barriers of the turns
+  auto masked = [&](int k0) { return (causal && k0 + kBN - 1 > wg_row0) || k0 + kBN > S; };
+
+  float acc[DH / 2], sc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+  uint32_t pa[kBN / 16][4];
+  Rows r;
+
+  bar_wait(sm.q_full(), item & 1);
+  bar_wait(sm.k_full(n % kStages), (n / kStages) & 1);
+  turn_wait(mine);
+  mma_fence();
+  issue_qk<DH>(sc, q_wg, sm.k_at(n % kStages));
+  mma_commit();
+  turn_pass(other);
+  mma_wait<0>();
+  pin(sc);
+  bar_arrive(sm.k_empty(n % kStages));
+  softmax_tile(sc, r, masked(0), 0, key0, row_a, row_b, S, causal, scale_log2);
+  to_bf16(pa, sc);
+  ++n;
+
+  for (int t = 1; t < n_tiles; ++t, ++n) {
+    const int s = n % kStages, p = (n - 1) % kStages;
+    bar_wait(sm.k_full(s), (n / kStages) & 1);
+    turn_wait(mine);
+    mma_fence();
+    issue_qk<DH>(sc, q_wg, sm.k_at(s));
+    mma_commit();
+    rescale<DH>(acc, r);
+    bar_wait(sm.v_full(p), ((n - 1) / kStages) & 1);
+    pin(acc);
+    pin(pa);
+    mma_fence();
+    issue_pv<DH>(acc, pa, sm.v_at(p));
+    mma_commit();
+    turn_pass(other);
+    mma_wait<1>();   // S(t) is done, P(t-1).V(t-1) may still run
+    pin(sc);
+    bar_arrive(sm.k_empty(s));
+    softmax_tile(sc, r, masked(t * kBN), t * kBN, key0, row_a, row_b, S, causal, scale_log2);
+    mma_wait<0>();
+    pin(acc);
+    pin(pa);
+    bar_arrive(sm.v_empty(p));
+    to_bf16(pa, sc);
+  }
+  bar_arrive(sm.q_empty());   // every S of this item is done: Q may be refilled
+  const int last = (n - 1) % kStages;
+  rescale<DH>(acc, r);
+  bar_wait(sm.v_full(last), ((n - 1) / kStages) & 1);
+  pin(acc);
+  pin(pa);
+  mma_fence();
+  issue_pv<DH>(acc, pa, sm.v_at(last));
+  mma_commit();
+  mma_wait<0>();
+  pin(acc);
+  bar_arrive(sm.v_empty(last));
+
+  float l_a = r.l_a, l_b = r.l_b;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float d_a = fmaxf(l_a, 1e-30f), d_b = fmaxf(l_b, 1e-30f);
+  const int64_t stride = static_cast<int64_t>(H) * DH;
+  __nv_bfloat16* ob = o + static_cast<int64_t>(b) * S * stride + h * DH + key0;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    if (row_a < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row_a * stride + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j] / d_a, acc[4 * j + 1] / d_a);
+    if (row_b < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row_b * stride + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2] / d_b, acc[4 * j + 3] / d_b);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void consume(const Smem<DH>& sm, __nv_bfloat16* __restrict__ o,
+                                        int cw, int tid, int B, int S, int H, int causal,
+                                        float scale_log2) {
+  if (cw == 1) turn_pass(1);   // consumer 0 takes the first turn
+  int n = 0, item = 0;
+  Work w;
+  for (int r = 0; r < rounds(S, B, H); ++r) {
+    if (!w.at(r, S, B, H, causal)) continue;
+    consume_item<DH>(sm, o, cw, tid, w.q0, w.b, w.h, w.n_tiles, S, H, causal, scale_log2, n,
+                     item);
+    ++item;
+  }
+}
+
+// The two roles are the two arms of one if/else that never rejoin: ptxas
+// then gives each arm its setmaxnreg budget.  Persistent: one block per SM.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int B,
+                int S, int H, int Hkv, int causal, float scale_log2) {
+  extern __shared__ uint8_t smem_wg[];
+  const Smem<DH> sm((smem_u32(smem_wg) + 1023u) & ~1023u);   // swizzle atoms: 1024 B
+  if (threadIdx.x == 0) {
+    bar_init(sm.q_full(), 1);
+    bar_init(sm.q_empty(), 2 * 128);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(sm.k_full(s), 1);
+      bar_init(sm.v_full(s), 1);
+      bar_init(sm.k_empty(s), 2 * 128);
+      bar_init(sm.v_empty(s), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) produce<DH>(sm, &tq, &tk, &tv, B, S, H, Hkv, causal);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    consume<DH>(sm, o, wgi - 1, threadIdx.x - 128 * wgi, B, S, H, causal, scale_log2);
+  }
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // f32: per-thread FMA
@@ -411,40 +858,105 @@ cudaError_t grant(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <typename T, typename Kernel>
-int launch(cudaError_t granted, Kernel kernel, int smem, int threads, const void* q,
-           const void* k, const void* v, void* o, int B, int S, int H, int Hkv, int causal,
-           float scale_log2, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// a failed tensor-map encode returns this plus its CUresult
+constexpr int kEncodeError = 100000;
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's encoder, through the runtime (the build links no libcuda)
+EncodeTiled encoder() {
+  void* fn = nullptr;
+#if CUDART_VERSION >= 12050
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                       &found) != cudaSuccess ||
+      found != cudaDriverEntryPointSuccess)
+    fn = nullptr;
+#else
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault) != cudaSuccess)
+    fn = nullptr;
+#endif
+  return reinterpret_cast<EncodeTiled>(fn);
+}
+
+// (Dh, heads, S, B) over a contiguous (B, S, heads, Dh) bf16 tensor, boxes
+// of min(Dh, 64) columns x 1 head x 128 rows x 1 batch, swizzled by the box
+// row; rows past S read as zeros
+CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int dh, int heads, int S,
+                int B) {
+  const int span = dh * 2 < 128 ? dh * 2 : 128;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * dh * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(dh) * 2, row, row * S};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(span / 2), 1, wg::kBN, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = span == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                 int Hkv, int causal, float scale_log2, cudaStream_t stream) {
+  using T = wg::Tile<DH>;
+  static const cudaError_t granted = grant(wg::flash_fwd_wgmma<DH>, T::SMEM);
+  static const EncodeTiled fn = encoder();
+  if (granted != cudaSuccess) return static_cast<int>(granted);
+  if (fn == nullptr) return kEncodeError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  CUtensorMap tq, tk, tv;
+  CUresult r = encode(fn, &tq, q, DH, H, S, B);
+  if (r == CUDA_SUCCESS) r = encode(fn, &tk, k, DH, Hkv, S, B);
+  if (r == CUDA_SUCCESS) r = encode(fn, &tv, v, DH, Hkv, S, B);
+  if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int items = (S + wg::kBM - 1) / wg::kBM * B * H;
+  const int grid = items < sms ? items : sms;
+  wg::flash_fwd_wgmma<DH><<<grid, wg::kThreads, T::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, Hkv, causal, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+               int Hkv, int causal, float scale_log2, cudaStream_t stream) {
+  constexpr int smem = simt::smem_bytes<DH>();
+  static const cudaError_t granted = grant(simt::flash_fwd_f32<DH>, smem);
   if (granted != cudaSuccess) return static_cast<int>(granted);
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, Hkv, causal, scale_log2);
+  simt::flash_fwd_f32<DH><<<grid, simt::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, H, Hkv, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // one grant per kernel, at its first launch (thread-safe static initialisation)
 template <int DH>
-int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int Hkv, int causal, float scale_log2, cudaStream_t stream) {
-  if (bf16) {
-    static const cudaError_t granted = grant(tc::flash_fwd_bf16<DH>, tc::smem_bytes<DH>());
-    return launch<__nv_bfloat16>(granted, tc::flash_fwd_bf16<DH>, tc::smem_bytes<DH>(),
-                                 tc::kThreads, q, k, v, o, B, S, H, Hkv, causal,
-                                 scale_log2, stream);
-  }
-  static const cudaError_t granted = grant(simt::flash_fwd_f32<DH>, simt::smem_bytes<DH>());
-  return launch<float>(granted, simt::flash_fwd_f32<DH>, simt::smem_bytes<DH>(),
-                       simt::kThreads, q, k, v, o, B, S, H, Hkv, causal, scale_log2,
-                       stream);
+int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o, int B, int S,
+             int H, int Hkv, int causal, float scale_log2, cudaStream_t stream) {
+  return bf16 ? launch_wgmma<DH>(q, k, v, o, B, S, H, Hkv, causal, scale_log2, stream)
+              : launch_f32<DH>(q, k, v, o, B, S, H, Hkv, causal, scale_log2, stream);
 }
 
 }  // namespace
 
-// Returns the CUDA error of the launch (0 = launched).  The caller has
-// checked shapes, types, devices, contiguity and 16-byte alignment;
-// head_dim is 16, 32, 64 or 128 and B * H <= 65535.  scale_log2 is
-// head_dim^-1/2 * log2(e).
+// Returns 0 when the kernel was launched, else the CUDA error of the launch,
+// or kEncodeError (100000) + the CUresult of a failed tensor-map encode.
+// The caller has checked shapes, types, devices, contiguity and 16-byte
+// alignment; head_dim is 16, 32, 64 or 128 and B * H <= 65535.  scale_log2
+// is head_dim^-1/2 * log2(e).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int batch, int seq, int heads, int kv_heads,
                                       int head_dim, int bf16, int causal, float scale_log2,
@@ -456,5 +968,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 64: return dispatch<64>(bf16, q, k, v, o, batch, seq, heads, kv_heads, causal, scale_log2, s);
     case 128: return dispatch<128>(bf16, q, k, v, o, batch, seq, heads, kv_heads, causal, scale_log2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory a launch grants (bytes), 0 for a width not taken;
+// ptxas reports static shared memory only.
+extern "C" int flash_attention_smem_bytes(int head_dim, int bf16) {
+  switch (head_dim) {
+    case 16: return bf16 ? wg::Tile<16>::SMEM : simt::smem_bytes<16>();
+    case 32: return bf16 ? wg::Tile<32>::SMEM : simt::smem_bytes<32>();
+    case 64: return bf16 ? wg::Tile<64>::SMEM : simt::smem_bytes<64>();
+    case 128: return bf16 ? wg::Tile<128>::SMEM : simt::smem_bytes<128>();
+    default: return 0;
   }
 }

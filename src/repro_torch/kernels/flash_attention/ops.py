@@ -15,7 +15,9 @@ model's ``_repeat_kv`` + ``_attend`` compute:
 On the card Dh is 16, 32, 64 or 128 and the inputs are contiguous.
 
 Bound: operations (``4·B·H·Dh·S(S+1)/2`` FLOP causal) at the prefill's
-shapes; see the note in the CUDA source for the two kernels' designs.
+shapes.  bf16 runs the Hopper kernel (TMA ring, ``wgmma``, warp-specialised
+consumers) at every Dh, f32 the SIMT kernel; see the note in the CUDA
+source for both designs.
 
 A tensor on the CPU takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel or raises.  ``flash_attention.launches`` counts kernel
@@ -32,6 +34,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
+ENCODE_ERROR = 100000      # the C function's code: this + a CUresult
 _fn = None
 
 
@@ -92,6 +95,9 @@ def flash_attention(q, k, v, causal: bool = True):
                         out.data_ptr(), B, S, H, k.shape[2], Dh,
                         int(q.dtype == torch.bfloat16), int(causal),
                         scale_log2, stream)
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed: "
+                           f"CUresult {err - ENCODE_ERROR}")
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1

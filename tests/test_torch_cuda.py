@@ -233,11 +233,15 @@ def test_fused_train_step_on_card_matches_cpu(card):
 # ---------------------------------------------------------------------------
 
 # (B, S, H, Hkv, Dh, causal): the qwen3-4b prefill, odd lengths, a
-# non-causal tile, the smoke head width and the JAX kernel test's shapes
+# non-causal tile, the smoke head width and the JAX kernel test's shapes;
+# the edges of the bf16 kernel's 128-row tiles (a partial diagonal, one row
+# past a tile, a partial last KV tile), Dh=64 non-causal and one kv head
 FLASH_SHAPES = [(2, 4096, 32, 8, 128, True), (1, 37, 4, 2, 128, True),
                 (1, 1000, 4, 1, 64, True), (1, 256, 2, 2, 128, False),
                 (2, 130, 4, 2, 16, True), (2, 128, 3, 3, 32, False),
-                (1, 1, 2, 2, 64, True)]
+                (1, 1, 2, 2, 64, True), (1, 127, 4, 2, 128, True),
+                (1, 129, 4, 2, 128, True), (2, 4097, 8, 2, 128, True),
+                (1, 300, 4, 2, 64, False), (1, 513, 8, 1, 128, True)]
 # f32: the JAX kernel test's tolerance.  bf16 is held to ``bf16_excess``
 # (ref.py): per element rtol 1e-2 plus the bound of rounding P to bf16,
 # 2^-8 (P |v|), and per row 1e-2 of the row's norm; a fixed atol would
@@ -271,6 +275,20 @@ def test_flash_attention_kernel_matches_plain(card, shape, dtype):
     else:
         ref = flash_attention_ref(q, k, v, causal=causal)
         torch.testing.assert_close(out, ref, **F32_TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 32, 8, 128, True),
+                                   (1, 1000, 4, 2, 64, False)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_bf16_kernel_is_deterministic(card, shape):
+    # no atomics: every output element is one block's sum in a fixed order
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    *dims, causal = shape
+    q, k, v = _flash_inputs(*dims, torch.bfloat16, card)
+    first = flash_attention(q, k, v, causal=causal)
+    second = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(card):
