@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--parent-source PATH]
 
 Phases; any failure exits non-zero:
 
@@ -10,13 +10,17 @@ Phases; any failure exits non-zero:
    ``flash_attention`` kernel, ``ptxas``'s registers and spills and the
    dynamic shared memory its launch grants, and the count of ``HGMMA``
    instructions in each kernel's SASS (``cuobjdump -sass`` of the built
-   library).  Fails if the bf16 kernel at Dh=128 has no ``HGMMA`` or if a
-   bf16 kernel spills; a machine with no ``cuobjdump`` gets a line saying
-   so;
+   library); ``ptxas``'s registers and spills of every ``neighbor_agg`` and
+   ``cache_gather`` kernel, and the atomics in the SASS of the
+   ``neighbor_agg`` backward's kernels.  Fails if the bf16 kernel at Dh=128
+   has no ``HGMMA``, if a bf16 kernel spills, or if the backward adds a
+   float atomically; a machine with no ``cuobjdump`` gets a line saying so;
 2. cache_gather — call the wrapper at the shapes the serving path gives
-   it, hold the result bit-exact against its plain PyTorch version, then
-   time kernel, plain version and the library yardstick with CUDA events
-   (median of 50 launches, L2 flushed before each) beside the bytes bound;
+   it (its 4,096- and 128-row chunks among them), hold the result bit-exact
+   against its plain PyTorch version, then time kernel, plain version and
+   the library yardstick with CUDA events (median of 50 launches, L2
+   flushed before each) beside the bytes bound, and the same harness's
+   floor (a one-float ``zero_``);
 3. the serving slice at full width — ``repro_torch.launch.serve`` for
    graphsage-products with the device feature plane: 4 warm-up train
    steps, 64 node queries at batch 4, a streamed feature update and a
@@ -29,11 +33,16 @@ Phases; any failure exits non-zero:
    read just after; then one fused step each for gcn, gat and gin on the
    same graph (the sum, weighted-forward and weighted-backward paths).
    The first step's loss and gradients on the card are held against the
-   same step on the CPU, from the same parameters and batch;
+   same step on the CPU, from the same parameters and batch, and two card
+   steps from that state are compared bit for bit (reported, not failed);
 5. gather_aggregate and neighbor_agg (forward and backward) at the shapes
    of that first batch, plus GAT's weighted shapes and odd widths: held
-   against their plain versions and timed as in phase 2, with
-   ``F.embedding_bag`` as the yardstick of ``neighbor_agg``;
+   against their plain versions (the backward's ``dh`` bit-equal to the
+   plain version on the CPU, and two launches bit-equal), each hop's
+   segment lengths printed, and timed as in phase 2, with
+   ``F.embedding_bag`` as the yardstick of ``neighbor_agg`` and the
+   parent commit's backward kernel (``git show HEAD~1``, or
+   ``--parent-source``) built and timed beside it in turns;
 6. flash_attention at the LM slice's shapes (the qwen3-4b prefill, bf16;
    the edges of its 128-row tiles, S = 127, 129 and 4097; Dh=64 at
    S=1000; odd lengths, f32 and non-causal): held against its plain
@@ -93,6 +102,8 @@ SERVE_ARGS = ["--gnn", "--arch", ARCH, "--sampling-device", "device",
 TRAIN_ARGS = ["--arch", ARCH, "--sampling-device", "device",
               "--fused-gather-agg", "--steps", "8"]
 TIMED_LAUNCHES = 50
+PROFILE_CALLS = 20               # calls in a profiled window of a small kernel
+PROFILE_TRIES = 3                # windows before an empty profile fails
 SPIN_CYCLES = 1_000_000          # ~0.5 ms of device clock ahead of each call
 # data-sheet HBM rates (NVIDIA), matched against the card's name in order
 HBM_BYTES_PER_S = [("H200", 4.8e12), ("H100 NVL", 3.9e12),
@@ -164,12 +175,116 @@ def host_us(torch, fn) -> float:
 
 
 def phase_build(stamp: str):
-    from repro_torch.kernels.build import build, sources
+    from repro_torch.kernels.build import BUILD_DIR, build, sources
     t0 = time.perf_counter()
     built = build(sources())
     print(f"[build] {sources()} (compiled {built}) in "
           f"{time.perf_counter() - t0:.2f} s  [{stamp}]", flush=True)
     flash_report()
+    gnn_report("segment_agg")
+    gnn_report("gather")
+    floats = float_atomics(BUILD_DIR / "libsegment_agg.so", "bwd_")
+    if floats is None:
+        print("[build] no cuobjdump on this machine (toolkit or triton): "
+              "the float-atomic check of the neighbor_agg backward was not "
+              "made", flush=True)
+    elif floats:
+        fail(f"the neighbor_agg backward adds floats atomically: {floats}")
+
+
+def _short_name(mangled: str) -> str:
+    """``bwd_short_kernel<4,2>`` / ``cache_gather_kernel<uint4,4>`` for the
+    mangled name of a GNN kernel instance."""
+    m = re.search(r"\d+((?:bwd|agg|cache)_\w+?_kernel)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end():].split("EEv")[0] + "E"
+    word = re.match(r"I(t|j|5uint4)", rest)
+    args = ([{"t": "u16", "j": "u32", "5uint4": "uint4"}[word.group(1)]]
+            if word else [])
+    args += re.findall(r"Li(\d+)E", rest) if rest.startswith("I") else []
+    return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
+
+
+def ptxas_report(lib: str, rename) -> dict:
+    """ptxas's ``Used`` and spill lines of each kernel in the build log of
+    ``csrc/<lib>.cu``, by ``rename(mangled name)``, and its C7512 warnings
+    (wgmma serialised)."""
+    from repro_torch.kernels.build import build_log
+    log = build_log(lib)
+    ptxas, name = {}, None
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = rename(m.group(1))
+            ptxas.setdefault(name, {})
+        elif "C7512" in line:      # wgmma serialised: names its function
+            m = re.search(r"function '(\S+)'", line)
+            ptxas.setdefault(rename(m.group(1) if m else ""), {})[
+                "warning"] = line.split(":", 1)[1].strip()
+        elif name and "spill stores" in line:
+            ptxas[name]["spills"] = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            ptxas[name]["used"] = line.split(":", 1)[1].strip()
+    if not ptxas:
+        print(f"[build] no ptxas report in {log} (the library was not "
+              f"rebuilt in this run)", flush=True)
+    return ptxas
+
+
+def gnn_report(lib: str):
+    """ptxas's registers and spills of each kernel of ``csrc/<lib>.cu``."""
+    for name, info in sorted(ptxas_report(lib, _short_name).items()):
+        print(f"[build] {lib}: {name}: ptxas {info.get('used', 'not reported')}"
+              f"; {info.get('spills', 'spills not reported')}", flush=True)
+
+
+def sass_lines(lib: Path):
+    """(function name, line) over ``cuobjdump -sass`` of a built library;
+    None when no cuobjdump is found."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, name = [], ""
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        else:
+            out.append((name, line))
+    return out
+
+
+# global (REDG, ATOMG), shared (ATOMS) and generic (RED, ATOM) atomics;
+# float ones carry a .F16/.BF16/.F32/.F64 type (REDG.E.ADD.F32.FTZ.RN...)
+FLOAT_ATOMIC = re.compile(r"\b(?:RED|REDG|ATOM|ATOMG|ATOMS)\.[\w.]*?\.B?F(?:16|32|64)")
+ANY_ATOMIC = re.compile(r"\b(?:RED|REDG|ATOM|ATOMG|ATOMS)\.")
+
+
+def float_atomics(lib: Path, prefix: str):
+    """The float atomic instructions (``REDG.E.ADD.F32`` ...) in the SASS of
+    the kernels of ``lib`` whose short name starts with ``prefix``, by
+    kernel, and a line with every kernel's atomic counts; None when no
+    cuobjdump is found."""
+    lines = sass_lines(lib)
+    if lines is None:
+        return None
+    floats, counts = {}, {}
+    for mangled, line in lines:
+        name = _short_name(mangled)
+        if not name.startswith(prefix):
+            continue
+        n_any, n_float = counts.get(name, (0, 0))
+        hit = FLOAT_ATOMIC.search(line)
+        counts[name] = (n_any + bool(ANY_ATOMIC.search(line)),
+                        n_float + bool(hit))
+        if hit:
+            floats.setdefault(name, []).append(hit.group(0))
+    print(f"[build] {lib.name} SASS, kernels {prefix}*: atomics (all, "
+          f"float) {counts}", flush=True)
+    return floats
 
 
 def _kernel_name(mangled: str) -> str:
@@ -196,46 +311,20 @@ def flash_report():
     at Dh=128 has no HGMMA or a bf16 kernel spills."""
     import ctypes
 
-    from repro_torch.kernels.build import BUILD_DIR, build_log, load
+    from repro_torch.kernels.build import BUILD_DIR, load
     smem = load("flash_attention").flash_attention_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    log = build_log("flash_attention")
-    ptxas, name = {}, None
-    for line in (log.read_text() if log.exists() else "").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = _kernel_name(m.group(1))
-            ptxas.setdefault(name, {})
-        elif "C7512" in line:      # wgmma serialised: names its function
-            m = re.search(r"function '(\S+)'", line)
-            ptxas.setdefault(_kernel_name(m.group(1) if m else ""), {})[
-                "warning"] = line.split(":", 1)[1].strip()
-        elif name and "spill stores" in line:
-            ptxas[name]["spills"] = line.strip()
-        elif name and "Used" in line and "registers" in line:
-            ptxas[name]["used"] = line.split(":", 1)[1].strip()
-    if not ptxas:
-        print(f"[build] no ptxas report in {log} (the library was not "
-              f"rebuilt in this run)", flush=True)
-    tool = _cuobjdump()
+    ptxas = ptxas_report("flash_attention", _kernel_name)
+    lines = sass_lines(BUILD_DIR / "libflash_attention.so")
     hgmma, top_reg = {}, {}
-    if tool is None:
+    if lines is None:
         print("[build] no cuobjdump on this machine (toolkit or triton): "
               "the HGMMA check of flash_attention was not made", flush=True)
-    else:
-        sass = subprocess.run([tool, "-sass", str(BUILD_DIR /
-                                                  "libflash_attention.so")],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                name = _kernel_name(m.group(1))
-                hgmma[name], top_reg[name] = 0, -1
-            elif name in hgmma:
-                hgmma[name] += "HGMMA" in line
-                regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
-                top_reg[name] = max([top_reg[name], *regs])
+    for mangled, line in lines or []:
+        name = _kernel_name(mangled)
+        hgmma[name] = hgmma.get(name, 0) + ("HGMMA" in line)
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+        top_reg[name] = max([top_reg.get(name, -1), *regs])
     for name in sorted(n for n in set(ptxas) | set(hgmma) if "<" in n):
         dh = int(re.search(r"<(\d+)>", name).group(1))
         bf16 = "wgmma" in name
@@ -251,7 +340,7 @@ def flash_report():
         spilled = re.search(r"(\d+) bytes spill stores", info.get("spills", ""))
         if bf16 and spilled and int(spilled.group(1)) > 0:
             fail(f"{name} spills registers: {info['spills']}")
-    if tool is not None and not hgmma.get("flash_fwd_wgmma<128>"):
+    if lines is not None and not hgmma.get("flash_fwd_wgmma<128>"):
         fail("the bf16 flash_attention kernel at Dh=128 has no HGMMA in its "
              "SASS")
 
@@ -270,15 +359,20 @@ def phase_kernels(torch, stamp: str) -> dict:
         return slots.to(dev), cache
 
     # (label, n, C, F, dtype, timed): the serving step's input level, one
-    # 4,096-row chunk, a whole training batch, and the F=602 contract
+    # 4,096-row chunk and the 128-row tail chunk of a serving step, a whole
+    # training batch, and the F=602 contract
     cases = [("serve_step", 4224, 98000, 100, torch.float32, True),
              ("chunk", 4096, 98000, 100, torch.float32, True),
+             ("chunk_tail", 128, 98000, 100, torch.float32, True),
              ("train_batch", 75489, 98000, 100, torch.float32, True),
              ("f602_f32", 37, 1000, 602, torch.float32, False),
              ("f602_bf16", 37, 1000, 602, torch.bfloat16, False),
              ("f37_bf16", 37, 1000, 37, torch.bfloat16, False)]  # 2-byte words
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > L2
     rate = hbm_rate(torch.cuda.get_device_name(0))
+    one = torch.zeros(1, device=dev)
+    print(f"[time] harness floor: a one-float zero_ takes "
+          f"{time_ms(torch, one.zero_, flush)} ms here  [{stamp}]", flush=True)
     max_err, timed_at = 0.0, {}
     for label, n, C, F, dtype, timed in cases:
         slots, cache = inputs(n, C, F, dtype)
@@ -305,17 +399,20 @@ def phase_kernels(torch, stamp: str) -> dict:
                  torch, lambda: torch.index_select(cache, 0, clamped), flush),
              "bound_ms": nbytes / rate * 1e3}
         call_us = host_us(torch, lambda: cache_gather(slots, cache))
+        _profile(torch, lambda: cache_gather(slots, cache), stamp,
+                 f"cache_gather {label}", calls=PROFILE_CALLS)
         print(f"[time] cache_gather {label} n={n} F={F}: kernel "
               f"{t['ms']} ms, plain {t['plain_ms']} ms, index_select "
               f"{t['library_ms']} ms, bytes bound {t['bound_ms']} ms "
               f"({nbytes} B at {rate / 1e12} TB/s); wrapper host cost "
               f"{call_us:.1f} us/call  [{stamp}]", flush=True)
-        if label == "chunk":
-            entry = t
+        timed_at[label] = t
     return {"name": "cache_gather", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gather.cu",
             "replaces": "src/repro/kernels/gather/kernel.py:39",
-            "max_abs_err": max_err, "bound_by": "bytes", **entry}
+            "max_abs_err": max_err, "bound_by": "bytes", **timed_at["chunk"],
+            **{f"{k}_ms": timed_at[k]["ms"] for k in ("chunk_tail",
+                                                      "train_batch")}}
 
 
 def phase_slice(torch, stamp: str) -> dict:
@@ -560,8 +657,8 @@ def phase_train(torch, stamp: str) -> dict:
              "neigh_idxs": [torch.from_numpy(i).cuda()
                             for i in arrays["neigh_idxs"]],
              "labels": torch.from_numpy(arrays["labels"]).cuda()}
-    runs = []                                  # (loss, grads): card, CPU
-    for dev in ("cuda", "cpu"):
+    runs = []                          # (loss, grads): card, card, CPU
+    for dev in ("cuda", "cuda", "cpu"):
         params = init_params(tr.decls, torch.Generator().manual_seed(
             args.seed), dev)
         flat = [p.requires_grad_(True) for p in leaves(params)]
@@ -571,7 +668,15 @@ def phase_train(torch, stamp: str) -> dict:
             batch["labels"].to(dev), cfg)
         grads = torch.autograd.grad(loss, flat)
         runs.append((float(loss.detach()), [x.cpu() for x in grads]))
-    (card_loss, card_grads), (cpu_loss, cpu_grads) = runs
+    (card_loss, card_grads), (_, again), (cpu_loss, cpu_grads) = runs
+    names = _leaf_names(tr.params)
+    differ = [n for n, a, b in zip(names, card_grads, again)
+              if not torch.equal(a, b)]
+    print(f"[check] two fused {ARCH} steps on the card from the same "
+          f"parameters and batch: gradients bit-equal={not differ}"
+          + (f" (first differing parameter {differ[0]}, {len(differ)} of "
+             f"{len(names)} differ)" if differ else
+             f" ({len(names)} parameters)"), flush=True)
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     step1_rel = abs(st.losses[0] - cpu_loss) / abs(cpu_loss)
     grad_rel = max(_close(a, b) for a, b in zip(card_grads, cpu_grads))
@@ -586,6 +691,17 @@ def phase_train(torch, stamp: str) -> dict:
     batch["real_rows"] = [len(b.dst_ids) for b in mb.blocks]
     return {"launches": launches, "batch": batch, "graph": g, "mb": mb,
             "weight_fn": tr.weight_fn, "fanout": cfg.fanout}
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Dotted names of ``models.params.leaves(tree)``, in its order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix.rstrip(".")]
 
 
 def device_breakdown(torch, tr, step_s: float, stamp: str):
@@ -632,9 +748,79 @@ def _bag_inputs(torch, idx, h):
     return bag, torch.cat([h, torch.zeros_like(h[:1])])
 
 
-def phase_agg(torch, stamp: str, batch: dict, launches: dict) -> list:
+def parent_backward(torch, source):
+    """The parent commit's ``neighbor_agg`` backward, built from
+    ``csrc/segment_agg.cu`` as ``git show HEAD~1`` gives it (or from the
+    file ``source`` names) into ``build/repro_torch/parent/`` and bound with
+    ctypes: a function ``(idx, dout, h, mode, w) -> (dh, dw)``, or None
+    where neither the history nor ``source`` is at hand.  Its SASS's float
+    atomics are counted, which shows that phase 1's check finds them."""
+    import ctypes
+
+    from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS, _nvcc
+    out = BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib_path = out / "segment_agg.cu", out / "libsegment_agg.so"
+    if source:
+        shutil.copyfile(source, src)
+    else:
+        try:
+            got = subprocess.run(
+                ["git", "-C", str(ROOT), "show",
+                 "HEAD~1:src/repro_torch/kernels/csrc/segment_agg.cu"],
+                capture_output=True, text=True, timeout=60)
+        except FileNotFoundError:
+            got = None
+        if got is None or got.returncode != 0:
+            print("[time] the parent's neighbor_agg backward is not timed: "
+                  "no git history here and no --parent-source", flush=True)
+            return None
+        src.write_text(got.stdout)
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True, text=True, timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.neighbor_agg_bwd_launch
+    # two C interfaces: the atomic kernel's (no scratch), and since the
+    # bucket design one with a scratch buffer sized by the library
+    scratch_bytes = getattr(lib, "neighbor_agg_bwd_scratch_bytes", None)
+    if scratch_bytes is not None:
+        scratch_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_longlong]
+        scratch_bytes.restype = ctypes.c_longlong
+    pointers = 6 if scratch_bytes is None else 7
+    fn.argtypes = ([ctypes.c_void_p] * pointers
+                   + [ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    floats = float_atomics(lib_path, "agg_bwd" if scratch_bytes is None
+                           else "bwd_")
+    print(f"[build] the parent's backward ({src.name}): float atomics in its "
+          f"SASS {None if floats is None else sum(map(len, floats.values()))}",
+          flush=True)
+
+    def run(idx, dout, h, mode, w):
+        (nd, fan), (ns, d) = idx.shape, h.shape
+        dh = torch.empty_like(h)
+        dw = None if w is None else torch.empty_like(w)
+        buf = (None if scratch_bytes is None else torch.empty(
+            scratch_bytes(nd, fan, ns), dtype=torch.uint8, device=h.device))
+        scratch = [] if buf is None else [buf.data_ptr()]
+        err = fn(idx.data_ptr(), dout.data_ptr(), h.data_ptr(),
+                 None if w is None else w.data_ptr(), dh.data_ptr(),
+                 None if dw is None else dw.data_ptr(), *scratch, nd, fan,
+                 ns, d, 2 if w is not None else {"mean": 0, "sum": 1}[mode],
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the parent's neighbor_agg backward: CUDA error {err}")
+        return dh, dw
+    return run
+
+
+def phase_agg(torch, stamp: str, batch: dict, launches: dict,
+              parent_source) -> list:
     """gather_aggregate and neighbor_agg at the first batch's shapes, held
-    against their plain versions and timed; returns the JSON entries."""
+    against their plain versions and timed (the backward beside the
+    parent's); returns the JSON entries."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.fused_gather_agg.ops import gather_aggregate
@@ -710,6 +896,7 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict) -> list:
                         dtype=torch.int32)
     cases += [("odd_602_" + m, odd, 20, 602, m, False)
               for m in ("mean", "sum", "weighted")]
+    parent = parent_backward(torch, parent_source)
     fwd_err, bwd_err, entry = 0.0, 0.0, None
     for label, idx, ns, d, mode, timed in cases:
         h, dout = rnd(ns, d), rnd(idx.shape[0], d)
@@ -718,28 +905,40 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict) -> list:
         m = "sum" if w is not None else mode
         out = neighbor_agg(idx, h, m, w)
         dh, dw = neighbor_agg_backward(idx, dout, h, m, w)
+        dh2, dw2 = neighbor_agg_backward(idx, dout, h, m, w)
         ref = neighbor_agg_ref(idx, h, m, w)
-        dh_r, dw_r = neighbor_agg_bwd_ref(idx, dout, h, m, w)
+        # the backward's oracle: the plain version on the CPU (index_add_ in
+        # ascending entry order), which dh must equal bit for bit
+        dh_c, dw_c = neighbor_agg_bwd_ref(
+            idx.cpu(), dout.cpu(), h.cpu(), m, None if w is None else w.cpu())
         torch.cuda.synchronize()
         err_f = float((out - ref).abs().max())
         ok_f = bool(torch.allclose(out, ref, atol=1e-5, rtol=1e-5))
-        rel_b = _close(dh, dh_r)
-        if w is not None:
-            rel_b = max(rel_b, _close(dw, dw_r))
-        err_b = float((dh - dh_r).abs().max())
+        exact = torch.equal(dh.cpu(), dh_c)
+        again = torch.equal(dh, dh2) and (w is None or torch.equal(dw, dw2))
+        rel_w = _close(dw.cpu(), dw_c) if w is not None else 0.0
+        err_b = float((dh.cpu() - dh_c).abs().max())
         fwd_err, bwd_err = max(fwd_err, err_f), max(bwd_err, err_b)
+        valid = idx >= 0
+        seg = torch.bincount(idx[valid].clamp(max=ns - 1).long(), minlength=ns)
+        seg = seg[seg > 0]
+        over = seg > 32
         print(f"[kernel] neighbor_agg {label} {mode} idx {tuple(idx.shape)} "
               f"h ({ns}, {d}): forward max_abs_err={err_f} (tolerance 1e-5); "
-              f"backward max_abs_err={err_b}, rel {rel_b:.2e} (tolerance "
-              f"rel 1e-5: atomics)", flush=True)
-        if not (ok_f and rel_b <= 1e-5):
+              f"backward dh bit-equal to the CPU plain version={exact} "
+              f"(max_abs_err={err_b}), two launches bit-equal={again}"
+              + (f", dw rel {rel_w:.2e} (tolerance rel 1e-5)" if w is not None
+                 else "") + f"; segments: {seg.numel()}, longest "
+              f"{int(seg.max()) if seg.numel() else 0}, {int(over.sum())} "
+              f"over 32 ({int(seg[over].sum())} of {int(seg.sum())} entries)",
+              flush=True)
+        if not (ok_f and exact and again and rel_w <= 1e-5):
             fail(f"neighbor_agg {label} disagrees with its plain version")
         if not timed:
             continue
         nd, fan = idx.shape
-        valid = idx >= 0
         nv = int(valid.sum())
-        rows = int(torch.unique(idx[valid]).numel())
+        rows = seg.numel()
         wbytes = nd * fan * 4 if w is not None else 0
         fb = rows * d * 4 + nd * d * 4 + nd * fan * 4 + wbytes
         bb = (nd * d * 4 + nd * fan * 4 + ns * d * 4
@@ -758,13 +957,24 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict) -> list:
                   idx, h, m, w), flush),
               "library_ms": time_ms(torch, lib, flush),
               "bound_ms": fwd_b[0], "bound_by": fwd_b[1]}
-        tb = {"ms": time_ms(torch, lambda: neighbor_agg_backward(
-                  idx, dout, h, m, w), flush),
+        # the backward beside the parent's, in turns: parent, kernel,
+        # kernel, parent
+        turns = [time_ms(torch, fn, flush) for fn in (
+            lambda: parent(idx, dout, h, m, w),
+            lambda: neighbor_agg_backward(idx, dout, h, m, w),
+            lambda: neighbor_agg_backward(idx, dout, h, m, w),
+            lambda: parent(idx, dout, h, m, w))] if parent else [
+            None, time_ms(torch, lambda: neighbor_agg_backward(
+                idx, dout, h, m, w), flush), None, None]
+        tb = {"ms": turns[1],
               "plain_ms": time_ms(torch, lambda: neighbor_agg_bwd_ref(
                   idx, dout, h, m, w), flush),
               "library_ms": time_ms(torch, lambda: torch.autograd.grad(
                   lib_out, [hp_g], dout, retain_graph=True), flush),
-              "bound_ms": bwd_b[0], "bound_by": bwd_b[1]}
+              "bound_ms": bwd_b[0], "bound_by": bwd_b[1],
+              "parent_ms": turns[0]}
+        _profile(torch, lambda: neighbor_agg_backward(idx, dout, h, m, w),
+                 stamp, f"neighbor_agg backward {label}", calls=PROFILE_CALLS)
         print(f"[time] neighbor_agg {label} {mode} idx ({nd}, {fan}) h "
               f"({ns}, {d}), {nv} valid entries, {rows} distinct rows: "
               f"forward kernel {tf['ms']} ms, plain {tf['plain_ms']} ms, "
@@ -772,7 +982,8 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict) -> list:
               f"{fwd_b[1]} bound {fwd_b[0]} ms ({fb} B); backward kernel "
               f"{tb['ms']} ms, plain {tb['plain_ms']} ms, embedding_bag "
               f"autograd {tb['library_ms']} ms, {bwd_b[1]} bound "
-              f"{bwd_b[0]} ms ({bb} B)  [{stamp}]", flush=True)
+              f"{bwd_b[0]} ms ({bb} B); turns parent / kernel / kernel / "
+              f"parent {turns} ms  [{stamp}]", flush=True)
         if label == "hop1":
             entry = {**tf, **{f"backward_{k}": v for k, v in tb.items()}}
     na = {"name": "neighbor_agg", "route": "cuda",
@@ -1135,19 +1346,30 @@ def phase_flash(torch, stamp: str) -> dict:
                 "ms", "library_ms", "bound_ms")}}
 
 
-def _profile(torch, fn, stamp: str, label: str):
-    """Device time of one call of ``fn`` by kernel (``torch.profiler``)."""
+def _profile(torch, fn, stamp: str, label: str, calls: int = 1):
+    """Device time per call of ``fn`` by kernel (``torch.profiler``), over a
+    window of ``calls`` calls. A window of a few microseconds of device work
+    now and then comes back with no device events, so an empty window is
+    profiled again, up to ``PROFILE_TRIES`` windows, before the phase fails."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
-    if not rows:
-        fail(f"the profiler recorded no device time over {label}")
-    busy = sum(r[1] for r in rows) / 1e3
-    top = "; ".join(f"{k[:60]} {t / 1e3:.3f} ms ({c})" for k, t, c in rows[:8])
-    print(f"[profile] {label}: device busy {busy:.3f} ms; top: {top}  "
-          f"[{stamp}]", flush=True)
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        if rows:
+            break
+        print(f"[profile] {label}: window {attempt} of {PROFILE_TRIES} "
+              f"recorded no device time", flush=True)
+    else:
+        fail(f"the profiler recorded no device time over {label} in "
+             f"{PROFILE_TRIES} windows")
+    busy = sum(r[1] for r in rows) / 1e3 / calls
+    top = "; ".join(f"{k[:60]} {t / 1e3 / calls:.3f} ms ({c / calls:g})"
+                    for k, t, c in rows[:8])
+    print(f"[profile] {label}: device busy {busy:.3f} ms per call over "
+          f"{calls} call(s); top: {top}  [{stamp}]", flush=True)
 
 
 def phase_lm(torch, stamp: str) -> dict:
@@ -1285,6 +1507,12 @@ def phase_lm(torch, stamp: str) -> dict:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-source", default=None,
+                    help="csrc/segment_agg.cu of the parent commit, where "
+                         "this checkout has no git history")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
@@ -1302,7 +1530,7 @@ def main() -> int:
     entry["launches"] = launches["cache_gather"]
     train = phase_train(torch, stamp)
     entries = [entry] + phase_agg(torch, stamp, train["batch"],
-                                  train["launches"])
+                                  train["launches"], args.parent_source)
     flash = phase_flash(torch, stamp)
     lm = phase_lm(torch, stamp)
     reservoir = phase_reservoir(torch, stamp, train)

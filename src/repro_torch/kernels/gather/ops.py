@@ -9,8 +9,9 @@ int32)`` for any n ≥ 1 and any F, f32 or bf16.  No padding is needed: the
 kernel masks nothing, it walks exactly n rows of exactly F columns.
 
 Bound: bytes — ``(hits + n)·F·itemsize + 8n`` over the card's HBM rate.
-The kernel gives each row to one warp and copies it in 16-byte words where
-the row width and alignment allow (see the note in the CUDA source).
+Each warp reads the slots of a run of 32 rows in one load and issues all
+its row loads before it stores any, in 16-byte words where the row width
+and alignment allow (see the note in the CUDA source).
 
 A tensor on the CPU takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel or raises.  ``cache_gather.launches`` counts kernel

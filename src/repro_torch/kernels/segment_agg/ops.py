@@ -18,10 +18,17 @@ entries are all padding give 0.
 ``neighbor_agg`` is a ``torch.autograd.Function``: gradients reach
 ``h_src`` and ``weights`` through ``neighbor_agg_backward``, a kernel too.
 
-Bound: bytes, both ways (see the note in the CUDA source).  A tensor on the
-CPU takes the plain versions (``ref.py``); a CUDA tensor launches the
-kernel or raises.  ``neighbor_agg.launches`` and
-``neighbor_agg_backward.launches`` count kernel launches, and nothing else.
+Bound: bytes, both ways (see the note in the CUDA source).  The backward
+pulls each ``dh_src`` row from a transposition of ``neigh_idx`` that it
+builds on the card (a bucket of 32 entry ids per source row, longer
+sources apart) and adds in ascending flat entry id, the order of the plain
+version's ``index_add_``: it uses no float atomics, and its ``dh_src`` is
+bit-equal to ``neighbor_agg_bwd_ref`` on the CPU and to itself from run to
+run.  A tensor on the CPU takes the plain versions (``ref.py``); a CUDA
+tensor launches the kernels or raises.  ``neighbor_agg.launches`` and
+``neighbor_agg_backward.launches`` count calls that launched, and nothing
+else: one per call (a backward call queues a memset and three kernels, four
+when weighted).
 """
 from __future__ import annotations
 
@@ -47,10 +54,13 @@ def _kernels():
             [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
             + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
         lib.neighbor_agg_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int]
+            [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
             + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        lib.neighbor_agg_bwd_scratch_bytes.argtypes = [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
         lib.neighbor_agg_fwd_launch.restype = ctypes.c_int
         lib.neighbor_agg_bwd_launch.restype = ctypes.c_int
+        lib.neighbor_agg_bwd_scratch_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -128,13 +138,19 @@ def neighbor_agg_backward(neigh_idx, dout, h_src, mode: str = "mean",
           if weights is not None else None)
     if nd == 0:
         return torch.zeros_like(h_src), dw
+    if nd * fan >= 2**31 or fan > 2**24:
+        raise ValueError(f"neighbor_agg backward takes fewer than 2^31 "
+                         f"entries and a fanout up to 2^24, got {nd} x {fan}")
+    lib = _kernels()
     dh = torch.empty((ns, d), dtype=h_src.dtype, device=h_src.device)
+    scratch = torch.empty(lib.neighbor_agg_bwd_scratch_bytes(nd, fan, ns),
+                          dtype=torch.uint8, device=h_src.device)
     with torch.cuda.device(h_src.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels().neighbor_agg_bwd_launch(
+        err = lib.neighbor_agg_bwd_launch(
             neigh_idx.data_ptr(), dout.data_ptr(), h_src.data_ptr(),
-            _ptr(weights), dh.data_ptr(), _ptr(dw), nd, fan, ns, d,
-            _mode_code(mode, weights), stream)
+            _ptr(weights), dh.data_ptr(), _ptr(dw), scratch.data_ptr(), nd,
+            fan, ns, d, _mode_code(mode, weights), stream)
     if err != 0:
         raise RuntimeError(f"neighbor_agg backward launch failed: CUDA error "
                            f"{err}")

@@ -15,6 +15,7 @@ from repro_torch.core.feature_plane import DeviceFeaturePlane, HostFeaturePlane
 from repro_torch.graph.synthetic import dataset_like
 from repro_torch.kernels.gather.ops import cache_gather
 from repro_torch.kernels.gather.ref import cache_gather_ref
+from repro_torch.kernels.segment_agg.ref import neighbor_agg_bwd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -48,6 +49,29 @@ def test_cache_gather_kernel_matches_plain(card, n, C, F, dtype):
     torch.cuda.synchronize()
     assert cache_gather.launches == launches + 1
     assert torch.equal(out, ref_out) and torch.equal(miss, ref_miss)
+
+
+# runs of 32 rows: one row, a run's edges, the serving path's 128- and
+# 4,096-row chunks and their neighbours, and a whole training batch
+RUN_NS = [1, 31, 32, 33, 128, 4095, 4096, 4097, 75489]
+RUN_ROWS = [(100, torch.float32), (602, torch.float32), (37, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("F,dtype", RUN_ROWS, ids=lambda v: str(v))
+@pytest.mark.parametrize("n", RUN_NS)
+def test_cache_gather_kernel_bit_exact_over_runs(card, n, F, dtype):
+    # misses and slots past C (clamped to C - 1) in every case
+    rng = np.random.default_rng(n)
+    C = 98000 if n > 4097 else 1000
+    cache = torch.from_numpy(rng.normal(0, 1, (C, F)).astype(np.float32))
+    slots = rng.integers(-1, C + 8, n).astype(np.int32)
+    slots[rng.random(n) < 0.25] = -1
+    slots[0] = C + 3 if n > 1 else slots[0]
+    slots, cache = torch.from_numpy(slots).to(card), cache.to(card, dtype)
+    out, miss = cache_gather(slots, cache)
+    ref_out, ref_miss = cache_gather_ref(slots.cpu(), cache.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref_out) and torch.equal(miss.cpu(), ref_miss)
 
 
 def test_cache_gather_kernel_unaligned_table(card):
@@ -107,11 +131,20 @@ def _mode(mode, w):
 
 
 def _close_to(got, want, rel):
-    # |got - want| <= rel * (|want| + max|want|): atomics add in a
-    # run-dependent order, so entries near zero are held to the largest
+    # |got - want| <= rel * (|want| + max|want|): dw is a warp reduction,
+    # summed in another order than the plain version's, so entries near zero
+    # are held to the largest
     bound = rel * (want.abs() + want.abs().max())
     assert bool(((got - want).abs() <= bound).all()), \
         float((got - want).abs().max())
+
+
+def _cpu_bwd(idx, dout, h, m, wt):
+    # the plain backward on CPU copies: index_add_ in ascending entry order,
+    # which the kernel's dh must equal bit for bit
+    from repro_torch.kernels.segment_agg.ref import neighbor_agg_bwd_ref
+    return neighbor_agg_bwd_ref(idx.cpu(), dout.cpu(), h.cpu(), m,
+                                None if wt is None else wt.cpu())
 
 
 @pytest.mark.parametrize("mode", AGG_MODES)
@@ -129,13 +162,14 @@ def test_neighbor_agg_kernels_match_plain(card, shape, mode):
     dh, dw = neighbor_agg_backward(idx, dout, h, m, wt)
     ref = neighbor_agg_ref(idx, h, m, wt)
     dh_r, dw_r = neighbor_agg_bwd_ref(idx, dout, h, m, wt)
+    dh_c, _ = _cpu_bwd(idx, dout, h, m, wt)
     torch.cuda.synchronize()
     assert (neighbor_agg.launches - fwd, neighbor_agg_backward.launches
             - bwd) == (1, 1)
     # forward: sums in index order, as the plain version; 1e-5 for rounding
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
     assert not out[1].any()
-    _close_to(dh, dh_r, 1e-5)
+    assert torch.equal(dh.cpu(), dh_c)
     if wt is None:
         assert dw is None
     else:
@@ -155,9 +189,113 @@ def test_neighbor_agg_autograd_on_card(card, mode):
     grads = torch.autograd.grad(out, [hh] + ([wa] if wa is not None else []),
                                 dout)
     dh_r, dw_r = neighbor_agg_bwd_ref(idx, dout, h, m, wt)
-    _close_to(grads[0], dh_r, 1e-5)
+    assert torch.equal(grads[0].cpu(), _cpu_bwd(idx, dout, h, m, wt)[0])
     if wa is not None:
         _close_to(grads[1], dw_r, 1e-5)
+
+
+@pytest.mark.parametrize("mode", AGG_MODES)
+@pytest.mark.parametrize("shape", [(8192, 90112, 10, 256), (40, 90, 37, 100)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_neighbor_agg_backward_is_deterministic(card, shape, mode):
+    from repro_torch.kernels.segment_agg.ops import neighbor_agg_backward
+    idx, h, w, dout = _agg_inputs(*shape, card, seed=5)
+    m, wt = _mode(mode, w)
+    first = neighbor_agg_backward(idx, dout, h, m, wt)
+    second = neighbor_agg_backward(idx, dout, h, m, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    if wt is not None:
+        assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("mode", AGG_MODES)
+def test_neighbor_agg_backward_subnormal_gradients_bit_equal(card, mode):
+    # output gradients near 2^-135 (subnormal): the mean divides them with
+    # __fdiv_rn, not with its double product; every eighth row near 2^-95
+    from repro_torch.kernels.segment_agg.ops import neighbor_agg_backward
+    idx, h, w, dout = _agg_inputs(64, 400, 12, 37, "cpu", seed=6)
+    dout = dout * 2.0 ** -135
+    dout[::8] *= 2.0 ** 40
+    idx[:, 0] = 3                                # a source longer than 32
+    m, wt = _mode(mode, w)
+    dh_c, _ = neighbor_agg_bwd_ref(idx, dout, h, m, wt)
+    dh, _ = neighbor_agg_backward(idx.to(card), dout.to(card), h.to(card), m,
+                                  None if wt is None else wt.to(card))
+    torch.cuda.synchronize()
+    assert bool(((dh_c != 0) & (dh_c.abs() < 2.0 ** -126)).any())
+    assert torch.equal(dh.cpu(), dh_c)
+
+
+def test_neighbor_agg_backward_refuses_a_fanout_past_2_24(card):
+    # the mean's division is a double product, exact for counts <= 2^24
+    from repro_torch.kernels.segment_agg.ops import neighbor_agg_backward
+    idx = torch.zeros((1, 2**24 + 1), dtype=torch.int32, device=card)
+    h, dout = torch.ones((2, 3), device=card), torch.ones((1, 3), device=card)
+    launches = neighbor_agg_backward.launches
+    with pytest.raises(ValueError, match="2\\^24"):
+        neighbor_agg_backward(idx, dout, h, "mean")
+    assert neighbor_agg_backward.launches == launches
+
+
+def _skewed(kind, seed=0):
+    """(idx (Nd, fan) int32, Ns, D) whose transposed segments are skewed:
+    one source in every slot (a segment of 81,920), segments of exactly
+    31, 32, 33, 63, 64, 65 and 1,025 entries (the edges of one and of two
+    ids a lane, and a long source), indices past Ns (clamped), fan = 0, and
+    rows of all padding."""
+    rng = np.random.default_rng(seed)
+    if kind == "one_source":
+        return np.full((8192, 10), 7, np.int32), 50, 40
+    if kind == "runs_31_to_65_and_1025":
+        idx = rng.integers(20, 3000, (300, 8)).astype(np.int32)
+        idx[rng.random(idx.shape) < 0.1] = -1
+        flat = idx.reshape(-1)
+        pos = rng.permutation(flat.size)
+        at = 0
+        for src, length in ((10, 31), (11, 32), (12, 33), (13, 1025),
+                            (14, 63), (15, 64), (16, 65)):
+            flat[pos[at:at + length]] = src
+            at += length
+        return idx, 3000, 37
+    if kind == "clamped":
+        return rng.integers(-1, 70, (64, 12)).astype(np.int32), 40, 64
+    if kind == "fan0":
+        return np.zeros((16, 0), np.int32), 9, 24
+    idx = rng.integers(-1, 30, (50, 6)).astype(np.int32)      # padding_rows
+    idx[[0, 1, 49]] = -1
+    return idx, 30, 602
+
+
+SKEWED = ["one_source", "runs_31_to_65_and_1025", "clamped", "fan0",
+          "padding_rows"]
+
+
+@pytest.mark.parametrize("mode", AGG_MODES)
+@pytest.mark.parametrize("kind", SKEWED)
+def test_neighbor_agg_backward_skewed_segments_bit_equal(card, kind, mode):
+    from repro_torch.kernels.segment_agg.ops import neighbor_agg_backward
+    from repro_torch.kernels.segment_agg.ref import neighbor_agg_bwd_ref
+    idx, ns, d = _skewed(kind)
+    rng = np.random.default_rng(1)
+    h, dout = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+               for s in ((ns, d), (idx.shape[0], d)))
+    w = torch.from_numpy(rng.uniform(0, 1, idx.shape).astype(np.float32))
+    idx = torch.from_numpy(idx)
+    m, wt = _mode(mode, w)
+    dh_c, dw_c = neighbor_agg_bwd_ref(idx, dout, h, m, wt)
+    args = [x.to(card) for x in (idx, dout, h)]
+    wg = None if wt is None else wt.to(card)
+    launches = neighbor_agg_backward.launches
+    dh, dw = neighbor_agg_backward(*args, m, wg)
+    again, _ = neighbor_agg_backward(*args, m, wg)
+    torch.cuda.synchronize()
+    assert neighbor_agg_backward.launches == launches + 2
+    assert torch.equal(dh.cpu(), dh_c) and torch.equal(again, dh)
+    if wt is not None:
+        assert dw.shape == dw_c.shape
+        if dw_c.numel():
+            _close_to(dw.cpu(), dw_c, 1e-5)
 
 
 @pytest.mark.parametrize("mode", ["mean", "sum"])

@@ -7,7 +7,8 @@ plain versions (``ref.py``) and its ``torch.autograd.Function`` on CPU
 tensors, which takes those plain versions.
 
 Tolerance: atol = rtol = 1e-5 (f32 sums of at most ten terms taken in
-another order)."""
+another order).  The order contract of the CUDA backward (ascending flat
+entry id per source row) is held bit-equal to the plain version here."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +21,7 @@ from repro_torch.kernels.segment_agg.ops import (neighbor_agg,
                                                  neighbor_mean)
 from repro_torch.kernels.segment_agg.ref import (neighbor_agg_bwd_ref,
                                                  neighbor_agg_ref)
+from test_torch_cuda import SKEWED, _skewed
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 # (Nd, Ns, fanout, D): a hop of the smoke model, the JAX contract's odd
@@ -126,3 +128,70 @@ def test_shape_and_dtype_checks():
         neighbor_agg(idx, h, "sum", w[:, :2])
     with pytest.raises(ValueError, match="Ns >= 1"):
         neighbor_agg(idx, h[:0])
+
+
+# ---------------------------------------------------------------------------
+# the order contract of the CUDA backward
+# ---------------------------------------------------------------------------
+
+def _scaled_rows(idx, dout, mode, w):
+    """(source of each valid entry, g of each) in ascending flat entry id e,
+    rounded as the plain version rounds g."""
+    mask = idx >= 0
+    r, f = np.nonzero(mask)                       # row-major: ascending e
+    cnt = np.maximum(mask.sum(1), 1).astype(np.float32)
+    if mode == "mean":
+        g = dout[r] / cnt[r, None]
+    elif w is not None:
+        g = dout[r] * w[r, f][:, None]
+    else:
+        g = dout[r]
+    return idx[r, f], g.astype(np.float32)
+
+
+def _pull_by_source(src, g, ns):
+    """dh pulled per source row, as the CUDA backward orders it: the entries
+    grouped by source, each source's in ascending e, added one at a time
+    from 0 (np.add.at applies them in the order given)."""
+    dh = np.zeros((ns, g.shape[1]), np.float32)
+    order = np.argsort(src, kind="stable")        # by source, then by e
+    np.add.at(dh, src[order], g[order])
+    return dh
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", SKEWED)
+def test_backward_order_contract(kind, mode):
+    # the plain version's index_add_ adds in ascending flat entry id, so an
+    # np.add.at of g in that order, and a pull per source row in that order
+    # (the CUDA kernels' order), are bit-equal to it; both are within 1e-5
+    # of jax.vjp of the JAX oracle
+    idx, ns, d = _skewed(kind)
+    rng = np.random.default_rng(1)
+    h = rng.normal(0, 1, (ns, d)).astype(np.float32)
+    dout = rng.normal(0, 1, (idx.shape[0], d)).astype(np.float32)
+    w = rng.uniform(0, 1, idx.shape).astype(np.float32)
+    m, wj = _call_args(mode, w)
+    wt = None if wj is None else torch.from_numpy(wj)
+    dh_r, _ = neighbor_agg_bwd_ref(torch.from_numpy(idx), torch.from_numpy(dout),
+                                   torch.from_numpy(h), m, wt)
+    src, g = _scaled_rows(idx, dout, m, wj)
+    src = np.minimum(src, ns - 1)
+    at = np.zeros((ns, d), np.float32)
+    np.add.at(at, src, g)
+    pulled = _pull_by_source(src, g, ns)
+    assert np.array_equal(at.view(np.int32), dh_r.numpy().view(np.int32))
+    assert np.array_equal(pulled.view(np.int32), dh_r.numpy().view(np.int32))
+    # JAX's forward reads row Ns - 1 for an index past Ns, but its vjp (a
+    # scatter) drops that entry; the port's backward is the gradient of the
+    # clamped forward, so the oracle is given the clamped indices
+    jidx = jnp.asarray(np.where(idx >= 0, np.minimum(idx, ns - 1), idx))
+    if wj is None:
+        _, vjp = jax.vjp(lambda hh: jx_neighbor_agg(
+            jidx, hh, mode=m, use_pallas=False), jnp.asarray(h))
+    else:
+        _, vjp = jax.vjp(lambda hh: jx_neighbor_agg(
+            jidx, hh, mode=m, weights=jnp.asarray(wj), use_pallas=False),
+            jnp.asarray(h))
+    (dh_j,) = vjp(jnp.asarray(dout))
+    np.testing.assert_allclose(dh_r.numpy(), np.asarray(dh_j), **TOL)
