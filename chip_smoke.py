@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-  python3 chip_smoke.py [--parent-source PATH]
+  python3 chip_smoke.py [--parent-source PATH [PATH]]
 
 Phases; any failure exits non-zero:
 
@@ -10,11 +10,12 @@ Phases; any failure exits non-zero:
    ``flash_attention`` kernel, ``ptxas``'s registers and spills and the
    dynamic shared memory its launch grants, and the count of ``HGMMA``
    instructions in each kernel's SASS (``cuobjdump -sass`` of the built
-   library); ``ptxas``'s registers and spills of every ``neighbor_agg`` and
-   ``cache_gather`` kernel, and the atomics in the SASS of the
-   ``neighbor_agg`` backward's kernels.  Fails if the bf16 kernel at Dh=128
-   has no ``HGMMA``, if a bf16 kernel spills, or if the backward adds a
-   float atomically; a machine with no ``cuobjdump`` gets a line saying so;
+   library); ``ptxas``'s registers, spills and shared memory of every
+   ``neighbor_agg``, ``gather_aggregate`` and ``cache_gather`` kernel, and
+   the atomics in the SASS of the ``neighbor_agg`` backward's kernels.
+   Fails if the bf16 kernel at Dh=128 has no ``HGMMA``, if a bf16 kernel
+   spills, or if the backward adds a float atomically; a machine with no
+   ``cuobjdump`` gets a line saying so;
 2. cache_gather — call the wrapper at the shapes the serving path gives
    it (its 4,096- and 128-row chunks among them), hold the result bit-exact
    against its plain PyTorch version, then time kernel, plain version and
@@ -36,13 +37,19 @@ Phases; any failure exits non-zero:
    same step on the CPU, from the same parameters and batch, and two card
    steps from that state are compared bit for bit (reported, not failed);
 5. gather_aggregate and neighbor_agg (forward and backward) at the shapes
-   of that first batch, plus GAT's weighted shapes and odd widths: held
-   against their plain versions (the backward's ``dh`` bit-equal to the
-   plain version on the CPU, and two launches bit-equal), each hop's
-   segment lengths printed, and timed as in phase 2, with
-   ``F.embedding_bag`` as the yardstick of ``neighbor_agg`` and the
-   parent commit's backward kernel (``git show HEAD~1``, or
-   ``--parent-source``) built and timed beside it in turns;
+   of that first batch, plus GAT's weighted shapes, odd widths and the
+   fused read's miss path (the batch's ``enc`` re-encoded so that half its
+   distinct rows come from the sideband): held against their plain
+   versions (``h_dst`` and the backward's ``dh`` bit-equal, the backward
+   against the plain version on the CPU, two launches bit-equal), the
+   forwards' means and sums bit-equal to the reference order written out,
+   and every output bit-equal to the parent commit's kernels (built from
+   ``git show HEAD~1``, or from ``--parent-source``: a directory holding
+   its ``segment_agg.cu`` and ``fused_gather_agg.cu``, or the two files);
+   each hop's segment lengths printed; each timed as in phase 2, with
+   ``F.embedding_bag`` as the yardstick of ``neighbor_agg``, in turns
+   with the parent's kernel (parent, kernel, kernel, parent), and each
+   profiled over ``PROFILE_CALLS`` calls for its own device time;
 6. flash_attention at the LM slice's shapes (the qwen3-4b prefill, bf16;
    the edges of its 128-row tiles, S = 127, 129 and 4097; Dh=64 at
    S=1000; odd lengths, f32 and non-causal): held against its plain
@@ -182,6 +189,7 @@ def phase_build(stamp: str):
           f"{time.perf_counter() - t0:.2f} s  [{stamp}]", flush=True)
     flash_report()
     gnn_report("segment_agg")
+    gnn_report("fused_gather_agg")
     gnn_report("gather")
     floats = float_atomics(BUILD_DIR / "libsegment_agg.so", "bwd_")
     if floats is None:
@@ -195,7 +203,7 @@ def phase_build(stamp: str):
 def _short_name(mangled: str) -> str:
     """``bwd_short_kernel<4,2>`` / ``cache_gather_kernel<uint4,4>`` for the
     mangled name of a GNN kernel instance."""
-    m = re.search(r"\d+((?:bwd|agg|cache)_\w+?_kernel)", mangled)
+    m = re.search(r"\d+((?:bwd|agg|cache|gather)_\w+?_kernel)", mangled)
     if not m:
         return mangled
     rest = mangled[m.end():].split("EEv")[0] + "E"
@@ -748,83 +756,201 @@ def _bag_inputs(torch, idx, h):
     return bag, torch.cat([h, torch.zeros_like(h[:1])])
 
 
-def parent_backward(torch, source):
-    """The parent commit's ``neighbor_agg`` backward, built from
-    ``csrc/segment_agg.cu`` as ``git show HEAD~1`` gives it (or from the
-    file ``source`` names) into ``build/repro_torch/parent/`` and bound with
-    ctypes: a function ``(idx, dout, h, mode, w) -> (dh, dw)``, or None
-    where neither the history nor ``source`` is at hand.  Its SASS's float
-    atomics are counted, which shows that phase 1's check finds them."""
+PARENT_SOURCES = ("segment_agg.cu", "fused_gather_agg.cu")
+
+
+def _parent_paths(source: list) -> dict:
+    """The parent's two kernel sources named by ``--parent-source``: a
+    directory that holds them (or a checkout root, with them under
+    ``src/repro_torch/kernels/csrc/``), or the two files themselves."""
+    paths = [Path(x) for x in source]
+    if len(paths) == 1 and paths[0].is_dir():
+        for where in (paths[0], paths[0] / "src/repro_torch/kernels/csrc"):
+            found = {n: where / n for n in PARENT_SOURCES}
+            if all(x.is_file() for x in found.values()):
+                return found
+        fail(f"--parent-source {paths[0]} holds no {' and '.join(PARENT_SOURCES)}")
+    found = {x.name: x for x in paths}
+    if sorted(found) != sorted(PARENT_SOURCES) or not all(
+            x.is_file() for x in found.values()):
+        fail(f"--parent-source names a directory or the two files "
+             f"{' and '.join(PARENT_SOURCES)}, not {source}")
+    return found
+
+
+def parent_kernels(torch, source):
+    """The parent commit's ``neighbor_agg`` (forward and backward) and
+    ``gather_aggregate``, built from ``csrc/segment_agg.cu`` and
+    ``csrc/fused_gather_agg.cu`` as ``git show HEAD~1`` gives them (or as
+    ``source``, the ``--parent-source`` list, names them) into
+    ``build/repro_torch/parent/`` (one ``nvcc`` each, started together) and
+    bound with ctypes.  Returns a namespace of ``forward(idx, h, mode, w)``,
+    ``backward(idx, dout, h, mode, w) -> (dh, dw)`` and
+    ``gather_aggregate(enc, idx, table, aux, mode) -> (h_dst, agg)``, or None
+    where neither the history nor ``source`` is at hand.  The backward's
+    SASS float atomics are counted, which shows that phase 1's check finds
+    them in a kernel that has them."""
     import ctypes
+    import types
 
     from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS, _nvcc
     out = BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
-    src, lib_path = out / "segment_agg.cu", out / "libsegment_agg.so"
     if source:
-        shutil.copyfile(source, src)
+        for name, path in _parent_paths(source).items():
+            shutil.copyfile(path, out / name)
     else:
-        try:
-            got = subprocess.run(
-                ["git", "-C", str(ROOT), "show",
-                 "HEAD~1:src/repro_torch/kernels/csrc/segment_agg.cu"],
-                capture_output=True, text=True, timeout=60)
-        except FileNotFoundError:
-            got = None
-        if got is None or got.returncode != 0:
-            print("[time] the parent's neighbor_agg backward is not timed: "
-                  "no git history here and no --parent-source", flush=True)
-            return None
-        src.write_text(got.stdout)
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)],
-                   check=True, capture_output=True, text=True, timeout=600)
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.neighbor_agg_bwd_launch
-    # two C interfaces: the atomic kernel's (no scratch), and since the
-    # bucket design one with a scratch buffer sized by the library
-    scratch_bytes = getattr(lib, "neighbor_agg_bwd_scratch_bytes", None)
+        for name in PARENT_SOURCES:
+            try:
+                got = subprocess.run(
+                    ["git", "-C", str(ROOT), "show",
+                     f"HEAD~1:src/repro_torch/kernels/csrc/{name}"],
+                    capture_output=True, text=True, timeout=60)
+            except FileNotFoundError:
+                got = None
+            if got is None or got.returncode != 0:
+                print("[time] the parent's kernels are neither timed nor "
+                      "compared: no git history here and no --parent-source",
+                      flush=True)
+                return None
+            (out / name).write_text(got.stdout)
+    procs = [(name, subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(out / f"lib{Path(name).stem}.so"),
+         str(out / name)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for name in PARENT_SOURCES]
+    for name, proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"the parent's {name} does not build:\n{log}")
+    seg = ctypes.CDLL(str(out / "libsegment_agg.so"))
+    ga_fn = ctypes.CDLL(str(out / "libfused_gather_agg.so")).gather_aggregate_launch
+    ga_fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+                      + [ctypes.c_int] + [ctypes.c_longlong] * 3
+                      + [ctypes.c_int, ctypes.c_void_p])
+    fwd_fn = seg.neighbor_agg_fwd_launch
+    fwd_fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    bwd_fn = seg.neighbor_agg_bwd_launch
+    # two backward interfaces: the atomic kernel's (no scratch), and since
+    # the bucket design one with a scratch buffer sized by the library
+    scratch_bytes = getattr(seg, "neighbor_agg_bwd_scratch_bytes", None)
     if scratch_bytes is not None:
         scratch_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int,
                                   ctypes.c_longlong]
         scratch_bytes.restype = ctypes.c_longlong
     pointers = 6 if scratch_bytes is None else 7
-    fn.argtypes = ([ctypes.c_void_p] * pointers
-                   + [ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    floats = float_atomics(lib_path, "agg_bwd" if scratch_bytes is None
-                           else "bwd_")
-    print(f"[build] the parent's backward ({src.name}): float atomics in its "
-          f"SASS {None if floats is None else sum(map(len, floats.values()))}",
+    bwd_fn.argtypes = ([ctypes.c_void_p] * pointers
+                       + [ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    for fn in (ga_fn, fwd_fn, bwd_fn):
+        fn.restype = ctypes.c_int
+    floats = float_atomics(out / "libsegment_agg.so",
+                           "agg_bwd" if scratch_bytes is None else "bwd_")
+    print(f"[build] the parent's kernels ({', '.join(PARENT_SOURCES)}): float "
+          f"atomics in its backward's SASS "
+          f"{None if floats is None else sum(map(len, floats.values()))}",
           flush=True)
 
-    def run(idx, dout, h, mode, w):
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def code(mode, w):
+        return 2 if w is not None else {"mean": 0, "sum": 1}[mode]
+
+    def forward(idx, h, mode, w):
+        (nd, fan), (ns, d) = idx.shape, h.shape
+        out_ = torch.empty((nd, d), dtype=h.dtype, device=h.device)
+        err = fwd_fn(ptr(idx), ptr(h), ptr(w), ptr(out_), nd, fan, ns, d,
+                     code(mode, w), stream())
+        if err:
+            fail(f"the parent's neighbor_agg forward: CUDA error {err}")
+        return out_
+
+    def backward(idx, dout, h, mode, w):
         (nd, fan), (ns, d) = idx.shape, h.shape
         dh = torch.empty_like(h)
         dw = None if w is None else torch.empty_like(w)
         buf = (None if scratch_bytes is None else torch.empty(
             scratch_bytes(nd, fan, ns), dtype=torch.uint8, device=h.device))
         scratch = [] if buf is None else [buf.data_ptr()]
-        err = fn(idx.data_ptr(), dout.data_ptr(), h.data_ptr(),
-                 None if w is None else w.data_ptr(), dh.data_ptr(),
-                 None if dw is None else dw.data_ptr(), *scratch, nd, fan,
-                 ns, d, 2 if w is not None else {"mean": 0, "sum": 1}[mode],
-                 torch.cuda.current_stream().cuda_stream)
+        err = bwd_fn(ptr(idx), ptr(dout), ptr(h), ptr(w), ptr(dh), ptr(dw),
+                     *scratch, nd, fan, ns, d, code(mode, w), stream())
         if err:
             fail(f"the parent's neighbor_agg backward: CUDA error {err}")
         return dh, dw
-    return run
+
+    def gather_aggregate(enc, idx, table, aux, mode):
+        (nd, fan), (c, f) = idx.shape, table.shape
+        h_dst = torch.empty((nd, f), dtype=table.dtype, device=table.device)
+        agg = torch.empty((nd, f), dtype=table.dtype, device=table.device)
+        err = ga_fn(ptr(enc), ptr(idx), ptr(table), ptr(aux), ptr(h_dst),
+                    ptr(agg), enc.shape[0], nd, fan, c, aux.shape[0], f,
+                    {"mean": 0, "sum": 1}[mode], stream())
+        if err:
+            fail(f"the parent's gather_aggregate: CUDA error {err}")
+        return h_dst, agg
+    return types.SimpleNamespace(forward=forward, backward=backward,
+                                 gather_aggregate=gather_aggregate)
+
+
+def _in_order(torch, rows, idx, mode: str):
+    """The reference order written out, on the card: from +0, acc = acc +
+    where(valid_f, row_f, 0) over ascending f, then / max(cnt, 1) for the
+    mean; f32, one rounding per operation.  Indices past the rows clamp."""
+    valid = idx >= 0
+    safe = idx.clamp(0, rows.shape[0] - 1).long()
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    acc = torch.zeros((idx.shape[0], rows.shape[1]), dtype=rows.dtype,
+                      device=rows.device)
+    for f in range(idx.shape[1]):
+        acc = acc + torch.where(valid[:, f, None], rows[safe[:, f]], zero)
+    if mode == "mean":
+        acc = acc / valid.sum(1, keepdim=True).clamp(min=1).to(rows.dtype)
+    return acc
+
+
+def _half_from_sideband(torch, enc, table, aux):
+    """``enc`` re-encoded so that every other distinct slot it names is read
+    from the sideband instead: ``(enc', aux')``, ``aux'`` being ``aux``
+    followed by those slots' rows.  Every id resolves to the same row as
+    before (entries already in the sideband, padding among them, keep their
+    rows)."""
+    slots = torch.unique(enc[enc >= 0])
+    moved = slots[::2]
+    where = torch.full((table.shape[0],), -1, dtype=torch.int64,
+                       device=enc.device)
+    where[moved] = torch.arange(moved.numel(), device=enc.device)
+    at = where[enc.clamp(min=0).long()]
+    enc2 = torch.where((enc >= 0) & (at >= 0),
+                       (-(aux.shape[0] + at) - 1).to(enc.dtype), enc)
+    return enc2.contiguous(), torch.cat([aux, table[moved]]).contiguous()
+
+
+def _turns(torch, new, old, flush) -> list:
+    """``old`` / ``new`` / ``new`` / ``old``, each timed as in phase 2;
+    None in the parent's slots where there is no parent."""
+    if old is None:
+        return [None, time_ms(torch, new, flush), time_ms(torch, new, flush),
+                None]
+    return [time_ms(torch, fn, flush) for fn in (old, new, new, old)]
 
 
 def phase_agg(torch, stamp: str, batch: dict, launches: dict,
               parent_source) -> list:
-    """gather_aggregate and neighbor_agg at the first batch's shapes, held
-    against their plain versions and timed (the backward beside the
-    parent's); returns the JSON entries."""
+    """gather_aggregate and neighbor_agg at the first batch's shapes (and a
+    re-encoding of the batch with half its rows in the sideband), held
+    against their plain versions, against the reference order written out
+    and bit for bit against the parent commit's kernels, and timed (the
+    forwards and the backward in turns with the parent's); returns the JSON
+    entries."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.fused_gather_agg.ops import gather_aggregate
-    from repro_torch.kernels.fused_gather_agg.ref import gather_aggregate_ref
+    from repro_torch.kernels.fused_gather_agg.ref import (gather_aggregate_ref,
+                                                          resolve_rows_ref)
     from repro_torch.kernels.segment_agg.ops import (neighbor_agg,
                                                      neighbor_agg_backward)
     from repro_torch.kernels.segment_agg.ref import (neighbor_agg_bwd_ref,
@@ -835,51 +961,77 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict,
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     enc, aux, table = batch["enc"], batch["aux"], batch["table"]
     idxs = batch["neigh_idxs"]
+    parent = parent_kernels(torch, parent_source)
 
     def bound(nbytes, flops):
         t_b, t_f = nbytes / rate * 1e3, flops / F32_FLOP_PER_S * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
-    # -- gather_aggregate: layer 0 (mean: graphsage/gcn; sum: gin) ----------
+    # -- gather_aggregate: layer 0 (mean: graphsage/gcn; sum: gin), with
+    # every row resident (as the trainer runs it) and with half the
+    # distinct rows re-encoded into the sideband (the miss path) ----------
     idx0 = idxs[0]
     nd, fan = idx0.shape
     f = table.shape[1]
-    ga_err, ga = 0.0, None
-    for mode in ("mean", "sum"):
-        h, a = gather_aggregate(enc, idx0, table, aux, mode=mode)
-        h_r, a_r = gather_aggregate_ref(enc, idx0, table, aux, mode=mode)
-        torch.cuda.synchronize()
-        exact = torch.equal(h, h_r)
-        err = float((a - a_r).abs().max())
-        ok = bool(torch.allclose(a, a_r, atol=1e-5, rtol=1e-5))
-        ga_err = max(ga_err, err)
-        print(f"[kernel] gather_aggregate {mode} enc ({enc.shape[0]},) idx "
-              f"{tuple(idx0.shape)} table {tuple(table.shape)} aux "
-              f"{tuple(aux.shape)}: h_dst bit-exact={exact}, agg "
-              f"max_abs_err={err} (tolerance 1e-5)", flush=True)
-        if not (exact and ok):
-            fail(f"gather_aggregate {mode} disagrees with its plain version")
-    # bytes the call needs: the distinct rows it resolves, the enc entries
-    # it reads, the indices, and the two outputs
-    valid = idx0 >= 0
-    refs = torch.cat([torch.arange(nd, device=dev), idx0[valid].long()])
-    pos = torch.unique(refs)
-    rows = int(torch.unique(enc[pos]).numel())
-    nbytes = rows * f * 4 + pos.numel() * 4 + nd * fan * 4 + 2 * nd * f * 4
-    b_ms, b_by = bound(nbytes, int(valid.sum()) * f)
-    t = {"ms": time_ms(torch, lambda: gather_aggregate(enc, idx0, table, aux),
-                       flush),
-         "plain_ms": time_ms(torch, lambda: gather_aggregate_ref(
-             enc, idx0, table, aux), flush)}
-    print(f"[time] gather_aggregate mean idx {tuple(idx0.shape)} F={f}: "
-          f"kernel {t['ms']} ms, plain {t['plain_ms']} ms, no library call, "
-          f"{b_by} bound {b_ms} ms ({nbytes} B: {rows} distinct rows) "
-          f"[{stamp}]", flush=True)
+    enc_m, aux_m = _half_from_sideband(torch, enc, table, aux)
+    ga_cases = {"resident": (enc, aux), "half_sideband": (enc_m, aux_m)}
+    ga_err, timed_ga = 0.0, {}
+    for label, (e, x) in ga_cases.items():
+        for mode in ("mean", "sum"):
+            h, a = gather_aggregate(e, idx0, table, x, mode=mode)
+            h_r, a_r = gather_aggregate_ref(e, idx0, table, x, mode=mode)
+            order = _in_order(torch, resolve_rows_ref(e, table, x), idx0, mode)
+            old = (None if parent is None
+                   else parent.gather_aggregate(e, idx0, table, x, mode))
+            torch.cuda.synchronize()
+            exact = torch.equal(h, h_r)
+            err = float((a - a_r).abs().max())
+            ok = bool(torch.allclose(a, a_r, atol=1e-5, rtol=1e-5))
+            same_order = torch.equal(a, order)
+            same_parent = old is None or (torch.equal(h, old[0])
+                                          and torch.equal(a, old[1]))
+            ga_err = max(ga_err, err)
+            print(f"[kernel] gather_aggregate {label} {mode} enc "
+                  f"({e.shape[0]},) ({int((e < 0).sum())} from the sideband) "
+                  f"idx {tuple(idx0.shape)} table {tuple(table.shape)} aux "
+                  f"{tuple(x.shape)}: h_dst bit-exact={exact}, agg "
+                  f"max_abs_err={err} (tolerance 1e-5), agg bit-equal to the "
+                  f"reference order={same_order}, both outputs bit-equal to "
+                  f"the parent's kernel="
+                  f"{'not compared' if old is None else same_parent}",
+                  flush=True)
+            if not (exact and ok and same_order and same_parent):
+                fail(f"gather_aggregate {label} {mode} disagrees")
+        # bytes the call needs: the distinct rows it resolves, the enc
+        # entries it reads, the indices, and the two outputs
+        valid = idx0 >= 0
+        refs = torch.cat([torch.arange(nd, device=dev), idx0[valid].long()])
+        pos = torch.unique(refs)
+        rows = int(torch.unique(e[pos]).numel())
+        nbytes = rows * f * 4 + pos.numel() * 4 + nd * fan * 4 + 2 * nd * f * 4
+        b_ms, b_by = bound(nbytes, int(valid.sum()) * f)
+        t = _turns(torch, lambda: gather_aggregate(e, idx0, table, x),
+                   None if parent is None else
+                   lambda: parent.gather_aggregate(e, idx0, table, x, "mean"),
+                   flush)
+        plain = time_ms(torch, lambda: gather_aggregate_ref(e, idx0, table, x),
+                        flush)
+        _profile(torch, lambda: gather_aggregate(e, idx0, table, x), stamp,
+                 f"gather_aggregate {label} mean", calls=PROFILE_CALLS)
+        print(f"[time] gather_aggregate {label} mean idx {tuple(idx0.shape)} "
+              f"F={f}: kernel {t[1]} ms, plain {plain} ms, no library call, "
+              f"{b_by} bound {b_ms} ms ({nbytes} B: {rows} distinct rows); "
+              f"turns parent / kernel / kernel / parent {t} ms  [{stamp}]",
+              flush=True)
+        timed_ga[label] = {"ms": t[1], "plain_ms": plain, "bound_ms": b_ms,
+                           "bound_by": b_by, "parent_ms": t[0]}
     ga = {"name": "gather_aggregate", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/fused_gather_agg.cu",
           "replaces": "src/repro/kernels/fused_gather_agg/kernel.py:63",
           "launches": launches["gather_aggregate"], "max_abs_err": ga_err,
-          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **t}
+          "library_ms": None, **timed_ga["resident"],
+          "half_sideband_ms": timed_ga["half_sideband"]["ms"],
+          "half_sideband_parent_ms": timed_ga["half_sideband"]["parent_ms"]}
 
     # -- neighbor_agg, forward and backward ---------------------------------
     # (label, idx, Ns, D, mode, timed): the graphsage hops at their level
@@ -896,8 +1048,7 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict,
                         dtype=torch.int32)
     cases += [("odd_602_" + m, odd, 20, 602, m, False)
               for m in ("mean", "sum", "weighted")]
-    parent = parent_backward(torch, parent_source)
-    fwd_err, bwd_err, entry = 0.0, 0.0, None
+    fwd_err, bwd_err, entry = 0.0, 0.0, {}
     for label, idx, ns, d, mode, timed in cases:
         h, dout = rnd(ns, d), rnd(idx.shape[0], d)
         w = (torch.rand(idx.shape, generator=g, device=dev)
@@ -907,6 +1058,11 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict,
         dh, dw = neighbor_agg_backward(idx, dout, h, m, w)
         dh2, dw2 = neighbor_agg_backward(idx, dout, h, m, w)
         ref = neighbor_agg_ref(idx, h, m, w)
+        # the forward's oracles: the reference order written out (mean and
+        # sum; the weighted multiply-add is one fma in the kernels, two
+        # roundings in torch) and the parent's kernel, bit for bit
+        order = _in_order(torch, h, idx, m) if w is None else None
+        old = None if parent is None else parent.forward(idx, h, m, w)
         # the backward's oracle: the plain version on the CPU (index_add_ in
         # ascending entry order), which dh must equal bit for bit
         dh_c, dw_c = neighbor_agg_bwd_ref(
@@ -914,6 +1070,8 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict,
         torch.cuda.synchronize()
         err_f = float((out - ref).abs().max())
         ok_f = bool(torch.allclose(out, ref, atol=1e-5, rtol=1e-5))
+        same_order = order is None or torch.equal(out, order)
+        same_parent = old is None or torch.equal(out, old)
         exact = torch.equal(dh.cpu(), dh_c)
         again = torch.equal(dh, dh2) and (w is None or torch.equal(dw, dw2))
         rel_w = _close(dw.cpu(), dw_c) if w is not None else 0.0
@@ -924,7 +1082,11 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict,
         seg = seg[seg > 0]
         over = seg > 32
         print(f"[kernel] neighbor_agg {label} {mode} idx {tuple(idx.shape)} "
-              f"h ({ns}, {d}): forward max_abs_err={err_f} (tolerance 1e-5); "
+              f"h ({ns}, {d}): forward max_abs_err={err_f} (tolerance 1e-5), "
+              f"bit-equal to the reference order="
+              f"{'weighted: not compared' if order is None else same_order}, "
+              f"to the parent's kernel="
+              f"{'not compared' if old is None else same_parent}; "
               f"backward dh bit-equal to the CPU plain version={exact} "
               f"(max_abs_err={err_b}), two launches bit-equal={again}"
               + (f", dw rel {rel_w:.2e} (tolerance rel 1e-5)" if w is not None
@@ -932,8 +1094,9 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict,
               f"{int(seg.max()) if seg.numel() else 0}, {int(over.sum())} "
               f"over 32 ({int(seg[over].sum())} of {int(seg.sum())} entries)",
               flush=True)
-        if not (ok_f and exact and again and rel_w <= 1e-5):
-            fail(f"neighbor_agg {label} disagrees with its plain version")
+        if not (ok_f and same_order and same_parent and exact and again
+                and rel_w <= 1e-5):
+            fail(f"neighbor_agg {label} disagrees")
         if not timed:
             continue
         nd, fan = idx.shape
@@ -952,40 +1115,47 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict,
         hp_g = hp.detach().requires_grad_(True)
         lib_out = F.embedding_bag(bag, hp_g, mode=m, per_sample_weights=w,
                                   padding_idx=ns)
-        tf = {"ms": time_ms(torch, lambda: neighbor_agg(idx, h, m, w), flush),
+        # each direction beside the parent's kernel, in turns: parent,
+        # kernel, kernel, parent
+        f_turns = _turns(torch, lambda: neighbor_agg(idx, h, m, w),
+                         None if parent is None else
+                         lambda: parent.forward(idx, h, m, w), flush)
+        tf = {"ms": f_turns[1],
               "plain_ms": time_ms(torch, lambda: neighbor_agg_ref(
                   idx, h, m, w), flush),
               "library_ms": time_ms(torch, lib, flush),
-              "bound_ms": fwd_b[0], "bound_by": fwd_b[1]}
-        # the backward beside the parent's, in turns: parent, kernel,
-        # kernel, parent
-        turns = [time_ms(torch, fn, flush) for fn in (
-            lambda: parent(idx, dout, h, m, w),
-            lambda: neighbor_agg_backward(idx, dout, h, m, w),
-            lambda: neighbor_agg_backward(idx, dout, h, m, w),
-            lambda: parent(idx, dout, h, m, w))] if parent else [
-            None, time_ms(torch, lambda: neighbor_agg_backward(
-                idx, dout, h, m, w), flush), None, None]
-        tb = {"ms": turns[1],
+              "bound_ms": fwd_b[0], "bound_by": fwd_b[1],
+              "parent_ms": f_turns[0]}
+        b_turns = _turns(torch, lambda: neighbor_agg_backward(
+            idx, dout, h, m, w), None if parent is None else
+            lambda: parent.backward(idx, dout, h, m, w), flush)
+        tb = {"ms": b_turns[1],
               "plain_ms": time_ms(torch, lambda: neighbor_agg_bwd_ref(
                   idx, dout, h, m, w), flush),
               "library_ms": time_ms(torch, lambda: torch.autograd.grad(
                   lib_out, [hp_g], dout, retain_graph=True), flush),
               "bound_ms": bwd_b[0], "bound_by": bwd_b[1],
-              "parent_ms": turns[0]}
+              "parent_ms": b_turns[0]}
+        _profile(torch, lambda: neighbor_agg(idx, h, m, w), stamp,
+                 f"neighbor_agg forward {label}", calls=PROFILE_CALLS)
         _profile(torch, lambda: neighbor_agg_backward(idx, dout, h, m, w),
                  stamp, f"neighbor_agg backward {label}", calls=PROFILE_CALLS)
         print(f"[time] neighbor_agg {label} {mode} idx ({nd}, {fan}) h "
               f"({ns}, {d}), {nv} valid entries, {rows} distinct rows: "
               f"forward kernel {tf['ms']} ms, plain {tf['plain_ms']} ms, "
               f"embedding_bag {tf['library_ms']} ms (max diff {lib_err}), "
-              f"{fwd_b[1]} bound {fwd_b[0]} ms ({fb} B); backward kernel "
+              f"{fwd_b[1]} bound {fwd_b[0]} ms ({fb} B), turns parent / "
+              f"kernel / kernel / parent {f_turns} ms; backward kernel "
               f"{tb['ms']} ms, plain {tb['plain_ms']} ms, embedding_bag "
               f"autograd {tb['library_ms']} ms, {bwd_b[1]} bound "
-              f"{bwd_b[0]} ms ({bb} B); turns parent / kernel / kernel / "
-              f"parent {turns} ms  [{stamp}]", flush=True)
+              f"{bwd_b[0]} ms ({bb} B), turns parent / kernel / kernel / "
+              f"parent {b_turns} ms  [{stamp}]", flush=True)
         if label == "hop1":
-            entry = {**tf, **{f"backward_{k}": v for k, v in tb.items()}}
+            entry.update(tf)
+            entry.update({f"backward_{k}": v for k, v in tb.items()})
+        else:
+            entry.update({f"{label}_{k}": v for k, v in tf.items()
+                          if k in ("ms", "bound_ms", "parent_ms")})
     na = {"name": "neighbor_agg", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/segment_agg.cu",
           "replaces": "src/repro/kernels/segment_agg/kernel.py:56",
@@ -1509,9 +1679,12 @@ def phase_lm(torch, stamp: str) -> dict:
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent-source", default=None,
-                    help="csrc/segment_agg.cu of the parent commit, where "
-                         "this checkout has no git history")
+    ap.add_argument("--parent-source", default=None, nargs="+",
+                    metavar="PATH",
+                    help="the parent commit's csrc/segment_agg.cu and "
+                         "csrc/fused_gather_agg.cu, or a directory that "
+                         "holds them (or its checkout root), where this "
+                         "checkout has no git history")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():

@@ -13,19 +13,40 @@
 //
 // Bound: bytes.  The forward reads each referenced source row, the indices
 // (and weights) once and writes Nd * D floats; it does fan * D adds per row,
-// far below the card's f32 rate.  The Pallas design (8 scalar-prefetched
-// rows per sequential grid step, 256-wide feature blocks in VMEM) does not
-// carry over.  Here one warp owns one dst row and grid-strides over rows.
-// The warp loads the row's fan indices with one coalesced read (one lane
-// each), counts the valid ones with a ballot and walks them in index order,
-// so the sum is taken in the order of the reference.  The index read and
-// the row read are dependent round trips, so the warp starts the reads of
-// kInFlight neighbours before it adds any of them.  Rows are read in the
-// widest word (16, 8 or 4 bytes) that D and every base pointer allow:
-// D = 47 takes the 4-byte path.  Each lane keeps K words of the row in
-// registers, so a column tile is 32 * K words; wider rows take several tiles.
-// Indices at or past Ns clamp to Ns - 1, the out-of-range rule of the JAX
-// gather.
+// far below the card's f32 rate.  At the full-width batch's hop 1 (idx
+// (8192, 10), D = 256) that is 38.7 MB, 0.0116 ms at 3.35 TB/s; at hop 2
+// (512 rows) 5.0 MB.  The Pallas design (8 scalar-prefetched rows per
+// sequential grid step, 256-wide feature blocks in VMEM) does not carry
+// over.  A row's reads wait on its index read, and most rows are mostly
+// padding (the sampler pads each row's tail), so:
+//   - A block owns a tile of consecutive dst rows and stages the tile's
+//     whole index span first: one coalesced read of idx (and w), clamped,
+//     in shared memory; then a warp a row compacts the valid entries to the
+//     row's front, in order, by ballot.  Fanouts past the stage (2,048
+//     entries a tile) are staged in chunks.
+//   - Each thread owns one word (16, 8 or 4 bytes: the widest that D and
+//     every base pointer allow; D = 47 takes 4) of one row of each of the
+//     tile's NP passes, so the lanes of a warp take consecutive words and a
+//     tile writes its rows as one contiguous span, with streaming stores.
+//   - A round reads up to U valid entries of each of the NP rows before it
+//     adds any (predicated loads in inline asm, issued where they stand),
+//     so a round trip carries NP rows' loads whatever the padding of each.
+//     128-thread blocks; NP * U = 8 slots a round
+//     (16 past 12 entries a row) over 4 passes up to 8 entries a row
+//     (GAT's layer 0: fan 5, two thirds of its rows empty), 2 up to 12
+//     (hop 1), else 1 (hop 2); at a small Nd the passes halve until every
+//     SM has four tiles (hop 2: 256 tiles of 2 rows).  A row wider than a
+//     block is cut into column tiles.
+//   - A bulk-copy route (TMA's cp.async.bulk of each valid entry's row into
+//     shared memory, counted by an mbarrier) was slower at every shape
+//     timed on the H100 (scripts/fwd_bulk_route.py; PERF.md), and so, in
+//     development timing, was a persistent grid that loads the next tile's
+//     indices under this tile's rows.
+// The sum is taken in the order of the reference: valid entries in
+// ascending f, into an f32 accumulator that starts at +0, one rounding per
+// add (the weighted multiply-add is one fma); the mean is one IEEE division
+// by max(cnt, 1).  Indices at or past Ns clamp to Ns - 1, the out-of-range
+// rule of the JAX gather.
 //
 // Backward, for the same three modes:
 //   dh[s] = sum over valid (r, f) with idx[r,f] -> s, in ascending e = r*fan + f,
@@ -74,9 +95,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps, one dst row each per grid-stride step
+constexpr int kThreads = 256;   // backward bucket and long kernels
 constexpr int kMaxBlocks = 4096;
-constexpr int kInFlight = 4;    // neighbour rows read before any is added
+constexpr int kInFlight = 4;    // dw: entries' h rows read before any is reduced
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kMean = 0, kSum = 1, kWeighted = 2 };
@@ -86,102 +107,201 @@ struct alignas(4 * V) Pack {
   float v[V];
 };
 
-__device__ __forceinline__ int64_t warp_id() {
-  return (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+// indices at or past Ns read row Ns - 1, the out-of-range rule of the JAX gather
+__device__ __forceinline__ int64_t clamp_src(int32_t s, int64_t ns) {
+  return s < ns ? s : ns - 1;
 }
 
-__device__ __forceinline__ int64_t warp_count() {
-  return (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-}
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
 
-// valid neighbours of one dst row (-1 is padding)
-__device__ __forceinline__ int count_valid(const int32_t* __restrict__ ir, int fan,
-                                           int lane) {
-  int cnt = 0;
-  for (int c0 = 0; c0 < fan; c0 += 32) {
-    const int f = c0 + lane;
-    cnt += __popc(__ballot_sync(kFull, f < fan && ir[f] >= 0));
+constexpr int kFwdThreads = 128;    // most threads of a forward block
+constexpr int kFwdPasses = 4;       // most row passes of one tile
+constexpr int kStage = 2048;        // index entries a tile stages at once
+
+// How a launch cuts the (nd, words) output into tiles.  A tile is
+// rows = per_pass * passes consecutive dst rows by `cols` words of them;
+// thread t < per_pass * cols takes word t % cols of row t / cols of each
+// pass, so the lanes of a warp take consecutive words of one or two rows
+// and a tile's output is one contiguous span where cols == words.
+struct FwdGeom {
+  int cols;          // words of a row one tile takes
+  int col_tiles;     // tiles across a row
+  int per_pass;      // rows a pass takes
+  int passes;        // passes a tile takes
+};
+
+// written once and not read again here: evict first (st.global.cs)
+template <int V>
+__device__ __forceinline__ void store_stream(Pack<V>* p, const Pack<V>& v) {
+  if constexpr (V == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v.v[0], v.v[1], v.v[2], v.v[3]));
+  } else if constexpr (V == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v.v[0], v.v[1]));
+  } else {
+    __stcs(reinterpret_cast<float*>(p), v.v[0]);
   }
-  return cnt;
 }
 
-// V floats per word, K words per lane per column tile
-template <int V, int K>
-__global__ void agg_fwd_kernel(const int32_t* __restrict__ idx,
-                               const float* __restrict__ h,
-                               const float* __restrict__ w,
-                               float* __restrict__ out,
-                               int64_t nd, int fan, int64_t ns, int64_t words,
-                               int mode) {
-  using P = Pack<V>;
-  const P* hv = reinterpret_cast<const P*>(h);
-  P* ov = reinterpret_cast<P*>(out);
+// x = *p where `on`, else +0: a predicated read-only load (ld.global.nc)
+// in inline asm, which the compiler issues where it stands and never sinks
+// into the add that uses it
+template <int V>
+__device__ __forceinline__ Pack<V> load_if(const Pack<V>* p, bool on) {
+  Pack<V> x;
+#pragma unroll
+  for (int j = 0; j < V; ++j) x.v[j] = 0.f;
+  if constexpr (V == 4) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+        "@p ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%5];\n}\n"
+        : "+f"(x.v[0]), "+f"(x.v[1]), "+f"(x.v[2]), "+f"(x.v[3])
+        : "r"(static_cast<int>(on)), "l"(p));
+  } else if constexpr (V == 2) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+        "@p ld.global.nc.v2.f32 {%0, %1}, [%3];\n}\n"
+        : "+f"(x.v[0]), "+f"(x.v[1])
+        : "r"(static_cast<int>(on)), "l"(p));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+        "@p ld.global.nc.f32 %0, [%2];\n}\n"
+        : "+f"(x.v[0])
+        : "r"(static_cast<int>(on)), "l"(p));
+  }
+  return x;
+}
+
+// One add of the reference order: acc + x (mean, sum) or the multiply-add
+// acc + w * x with one rounding (weighted: nvcc contracts the parent
+// kernel's acc += w * x to this fma).  A slot past a row's entries holds
+// x = +0 and w = 0, and acc + 0 and fma(0, 0, acc) are acc: acc is never
+// -0, since it starts at +0 and a sum that cancels rounds to +0.
+template <int V>
+__device__ __forceinline__ void add_entry(float (&acc)[V], const Pack<V>& x, float w,
+                                          bool weighted) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = weighted ? __fmaf_rn(w, x.v[j], acc[j]) : acc[j] + x.v[j];
+}
+
+template <int V>
+__device__ __forceinline__ Pack<V> finish(const float (&acc)[V], int cnt, int mode) {
+  const float denom = static_cast<float>(max(cnt, 1));
+  Pack<V> o;
+#pragma unroll
+  for (int j = 0; j < V; ++j) o.v[j] = mode == kMean ? acc[j] / denom : acc[j];
+  return o;
+}
+
+// Stages entries [f0, f0 + fc) of the tile's rows, then compacts each row's
+// valid ones to its front, in order: s_src holds the clamped source rows
+// (and s_w, weighted, their weights), s_n[r] the count of row r.  The load
+// is one coalesced pass over the tile's span of idx (contiguous when
+// fc == fan); the compaction is a warp a row, by ballot, in place (an
+// entry only moves to a lower slot of its row).
+__device__ __forceinline__ void stage_entries(int32_t* s_src, float* s_w, int* s_n,
+                                              const int32_t* __restrict__ idx,
+                                              const float* __restrict__ w, int64_t r0,
+                                              int nrows, int fan, int f0, int fc, int64_t ns) {
+  for (int e = threadIdx.x; e < nrows * fc; e += blockDim.x) {
+    const int r = e / fc;
+    const int64_t at = (r0 + r) * fan + f0 + (e - r * fc);
+    const int32_t s = idx[at];
+    s_src[e] = s < 0 ? -1 : static_cast<int32_t>(clamp_src(s, ns));
+    if (w != nullptr) s_w[e] = w[at];
+  }
+  __syncthreads();
   const int lane = threadIdx.x & 31;
-  for (int64_t r = warp_id(); r < nd; r += warp_count()) {
-    const int32_t* ir = idx + r * fan;
-    const float* wr = mode == kWeighted ? w + r * fan : nullptr;
-    const float denom = static_cast<float>(max(count_valid(ir, fan, lane), 1));
-    for (int64_t t0 = 0; t0 < words; t0 += 32 * K) {        // column tile
-      float acc[K][V];
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
-      for (int c0 = 0; c0 < fan; c0 += 32) {                // index chunk
-        const int f = c0 + lane;
-        const int32_t mine = f < fan ? ir[f] : -1;
-        const float mine_w = (wr != nullptr && f < fan) ? wr[f] : 1.f;
-        unsigned valid = __ballot_sync(kFull, mine >= 0);
-        while (valid) {                                     // warp-uniform
-          int64_t src[kInFlight];
-          float ws[kInFlight];
-#pragma unroll
-          for (int u = 0; u < kInFlight; ++u) {
-            src[u] = -1;
-            ws[u] = 0.f;
-            if (valid) {
-              const int b = __ffs(valid) - 1;
-              valid &= valid - 1;
-              const int64_t s = __shfl_sync(kFull, mine, b);
-              src[u] = s < ns ? s : ns - 1;
-              ws[u] = __shfl_sync(kFull, mine_w, b);
-            }
-          }
-          P rows[kInFlight][K];
-#pragma unroll
-          for (int u = 0; u < kInFlight; ++u)
-#pragma unroll
-            for (int k = 0; k < K; ++k) {
-              const int64_t p = t0 + k * 32 + lane;
-              if (src[u] >= 0 && p < words) {
-                rows[u][k] = hv[src[u] * words + p];
-              } else {
-#pragma unroll
-                for (int j = 0; j < V; ++j) rows[u][k].v[j] = 0.f;
-              }
-            }
-#pragma unroll
-          for (int u = 0; u < kInFlight; ++u)
-#pragma unroll
-            for (int k = 0; k < K; ++k)
-#pragma unroll
-              for (int j = 0; j < V; ++j)
-                acc[k][j] += mode == kWeighted ? ws[u] * rows[u][k].v[j]
-                                               : rows[u][k].v[j];
-        }
+  for (int r = threadIdx.x >> 5; r < nrows; r += blockDim.x >> 5) {
+    int n = 0;
+    for (int c0 = 0; c0 < fc; c0 += 32) {
+      const int f = c0 + lane;
+      const int32_t s = f < fc ? s_src[r * fc + f] : -1;
+      const float wv = (w != nullptr && f < fc) ? s_w[r * fc + f] : 0.f;
+      const unsigned valid = __ballot_sync(kFull, s >= 0);
+      if (s >= 0) {
+        const int at = r * fc + n + __popc(valid & ((1u << lane) - 1));
+        s_src[at] = s;
+        if (w != nullptr) s_w[at] = wv;
       }
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int64_t p = t0 + k * 32 + lane;
-        if (p < words) {
-          P o;
-#pragma unroll
-          for (int j = 0; j < V; ++j)
-            o.v[j] = mode == kMean ? acc[k][j] / denom : acc[k][j];
-          ov[r * words + p] = o;
-        }
-      }
+      n += __popc(valid);
     }
+    if (lane == 0) s_n[r] = n;
+  }
+  __syncthreads();
+}
+
+// Each thread adds into one word of each of its NP rows (one a pass).  A
+// round reads up to U valid entries of every one of the NP rows before it
+// adds any, so a round trip carries the loads of NP rows at once, whatever
+// the padding of each.  V floats per word.
+template <int V, int NP, int U>
+__global__ void __launch_bounds__(kFwdThreads)
+agg_fwd_kernel(const int32_t* __restrict__ idx, const float* __restrict__ h,
+               const float* __restrict__ w, float* __restrict__ out, int64_t nd, int fan,
+               int64_t ns, int64_t words, FwdGeom g, int mode) {
+  using P = Pack<V>;
+  __shared__ int32_t s_src[kStage];
+  __shared__ float s_w[kStage];
+  __shared__ int s_n[kFwdThreads * kFwdPasses];
+  const P* hv = reinterpret_cast<const P*>(h);
+  const int rows = g.per_pass * NP;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x / g.col_tiles) * rows;
+  const int nrows = static_cast<int>(nd - r0 < rows ? nd - r0 : rows);
+  const int rr = threadIdx.x / g.cols;
+  const int64_t col = static_cast<int64_t>(blockIdx.x % g.col_tiles) * g.cols +
+                      threadIdx.x % g.cols;
+  const bool mine = rr < g.per_pass && col < words;
+  const bool weighted = mode == kWeighted;
+  const int chunk = max(1, min(fan, kStage / rows));
+  float acc[NP][V];
+  int cnt[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    cnt[k] = 0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
+  }
+  for (int f0 = 0; f0 < fan; f0 += chunk) {
+    const int fc = min(chunk, fan - f0);
+    if (f0 > 0) __syncthreads();
+    stage_entries(s_src, s_w, s_n, idx, weighted ? w : nullptr, r0, nrows, fan, f0, fc, ns);
+    if (!mine) continue;
+    int n[NP], most = 0;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int r = rr + k * g.per_pass;
+      n[k] = r < nrows ? s_n[r] : 0;
+      cnt[k] += n[k];
+      most = max(most, n[k]);
+    }
+    for (int q = 0; q < most; q += U) {
+      P x[NP][U];
+      float ws[NP][U];
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        const int at = (rr + k * g.per_pass) * fc + q;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const bool on = q + u < n[k];
+          ws[k][u] = on && weighted ? s_w[at + u] : 0.f;
+          x[k][u] = load_if<V>(hv + (on ? s_src[at + u] * words + col : 0), on);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NP; ++k)
+#pragma unroll
+        for (int u = 0; u < U; ++u) add_entry<V>(acc[k], x[k][u], ws[k][u], weighted);
+    }
+  }
+  if (!mine) return;
+  P* ov = reinterpret_cast<P*>(out);
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const int r = rr + k * g.per_pass;
+    if (r < nrows) store_stream<V>(ov + (r0 + r) * words + col, finish<V>(acc[k], cnt[k], mode));
   }
 }
 
@@ -225,10 +345,6 @@ Layout layout(int64_t nd, int fan, int64_t ns) {
   l.ovf = o;    o = align16(o + (ne + 1) * sizeof(int2));
   l.total = o;
   return l;
-}
-
-__device__ __forceinline__ int64_t clamp_src(int32_t s, int64_t ns) {
-  return s < ns ? s : ns - 1;
 }
 
 // a thread per entry: integer counts (exact, so the same every run) and
@@ -588,13 +704,6 @@ bwd_dw_kernel(const int32_t* __restrict__ idx, const float* __restrict__ dout,
   last_block_waits_for_prior_grid();
 }
 
-int blocks_for(int64_t rows) {
-  const int64_t rows_per_block = kThreads / 32;
-  int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return static_cast<int>(blocks);
-}
-
 // widest float count per word (4, 2 or 1) that d and every pointer allow
 int word_floats(int64_t d, uintptr_t bases) {
   if (d % 4 == 0 && bases % 16 == 0) return 4;
@@ -602,12 +711,53 @@ int word_floats(int64_t d, uintptr_t bases) {
   return 1;
 }
 
-template <int V, int K>
-void launch_fwd(const void* idx, const void* h, const void* w, void* out, int64_t nd,
-                int fan, int64_t ns, int64_t d, int mode, cudaStream_t stream) {
-  agg_fwd_kernel<V, K><<<blocks_for(nd), kThreads, 0, stream>>>(
+int sm_count() {
+  int dev = 0, n = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+template <int V, int NP, int U>
+cudaError_t launch_fwd(const void* idx, const void* h, const void* w, void* out, int64_t nd,
+                       int fan, int64_t ns, int64_t words, int mode, const FwdGeom& g,
+                       cudaStream_t stream) {
+  const int64_t rows = g.per_pass * NP;
+  const int64_t tiles = (nd + rows - 1) / rows * g.col_tiles;
+  agg_fwd_kernel<V, NP, U><<<static_cast<unsigned>(tiles), kFwdThreads, 0, stream>>>(
       static_cast<const int32_t*>(idx), static_cast<const float*>(h),
-      static_cast<const float*>(w), static_cast<float*>(out), nd, fan, ns, d / V, mode);
+      static_cast<const float*>(w), static_cast<float*>(out), nd, fan, ns, words, g, mode);
+  return cudaGetLastError();
+}
+
+// The forward's variants (timed at the full-width batch on the H100,
+// PERF.md): 128-thread blocks; 8 slots a round, 16 past 12 entries a row,
+// over 4 passes up to 8 entries a row (GAT's layer 0: fan 5, mostly
+// padding), 2 up to 12 (hop 1), else 1 (hop 2).  A row fits a block's
+// threads, else it is cut into near-equal column tiles.  Where the tiles
+// would not give every SM four, the passes halve (and the slots of each
+// double) until they do or one pass is left.
+template <int V>
+cudaError_t launch_fwd_plan(const void* idx, const void* h, const void* w, void* out,
+                            int64_t nd, int fan, int64_t ns, int64_t d, int mode,
+                            cudaStream_t stream) {
+  const int64_t words = d / V;
+  FwdGeom g;
+  g.col_tiles = static_cast<int>((words + kFwdThreads - 1) / kFwdThreads);
+  g.cols = static_cast<int>((words + g.col_tiles - 1) / g.col_tiles);
+  g.per_pass = kFwdThreads / g.cols;
+  g.passes = fan <= 8 ? kFwdPasses : fan <= 12 ? 2 : 1;
+  const int64_t want = 4LL * sm_count();
+  while (g.passes > 1 &&
+         (nd + g.per_pass * g.passes - 1) / (g.per_pass * g.passes) * g.col_tiles < want)
+    g.passes /= 2;
+  const int slots = fan > 12 ? 16 : 8;             // NP * U
+  switch (g.passes * 100 + slots / g.passes) {
+    case 402: return launch_fwd<V, 4, 2>(idx, h, w, out, nd, fan, ns, words, mode, g, stream);
+    case 204: return launch_fwd<V, 2, 4>(idx, h, w, out, nd, fan, ns, words, mode, g, stream);
+    case 108: return launch_fwd<V, 1, 8>(idx, h, w, out, nd, fan, ns, words, mode, g, stream);
+    default: return launch_fwd<V, 1, 16>(idx, h, w, out, nd, fan, ns, words, mode, g, stream);
+  }
 }
 
 // one thread per entry, grid-striding
@@ -674,11 +824,10 @@ extern "C" int neighbor_agg_fwd_launch(const void* idx, const void* h, const voi
   const auto s = static_cast<cudaStream_t>(stream);
   const uintptr_t bases = reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(out);
   switch (word_floats(d, bases)) {
-    case 4: launch_fwd<4, 2>(idx, h, w, out, nd, fan, ns, d, mode, s); break;
-    case 2: launch_fwd<2, 4>(idx, h, w, out, nd, fan, ns, d, mode, s); break;
-    default: launch_fwd<1, 8>(idx, h, w, out, nd, fan, ns, d, mode, s); break;
+    case 4: return static_cast<int>(launch_fwd_plan<4>(idx, h, w, out, nd, fan, ns, d, mode, s));
+    case 2: return static_cast<int>(launch_fwd_plan<2>(idx, h, w, out, nd, fan, ns, d, mode, s));
+    default: return static_cast<int>(launch_fwd_plan<1>(idx, h, w, out, nd, fan, ns, d, mode, s));
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Bytes of scratch the backward needs (16-byte aligned base).

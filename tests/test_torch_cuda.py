@@ -325,6 +325,168 @@ def test_gather_aggregate_kernel_matches_plain(card, ns, nd, fan, c, na, f,
     torch.testing.assert_close(a, a_r, atol=1e-5, rtol=1e-5)
 
 
+# ---------------------------------------------------------------------------
+# the forwards' order of adds: bit-equal to the reference order written out
+# ---------------------------------------------------------------------------
+
+def _in_order(rows, idx, mode):
+    """From +0, acc = acc + where(valid_f, row_f, 0) over ascending f, then
+    / max(cnt, 1) for the mean: the order both forward kernels keep (f32,
+    one rounding per operation).  Indices past the rows clamp."""
+    valid = idx >= 0
+    safe = idx.clamp(0, rows.shape[0] - 1).long()
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    acc = torch.zeros((idx.shape[0], rows.shape[1]), dtype=rows.dtype,
+                      device=rows.device)
+    for f in range(idx.shape[1]):
+        acc = acc + torch.where(valid[:, f, None], rows[safe[:, f]], zero)
+    if mode == "mean":
+        acc = acc / valid.sum(1, keepdim=True).clamp(min=1).to(rows.dtype)
+    return acc
+
+
+def _padded_idx(rng, nd, ns, fan):
+    """(nd, fan) int32 as the sampler pads it (each row's valid entries
+    first), with holes, and one index past Ns (clamped to Ns - 1)."""
+    idx = rng.integers(0, ns, (nd, fan)).astype(np.int32)
+    size = rng.integers(0, fan + 1, (nd, 1))
+    idx = np.where(np.arange(fan) < size, idx, -1).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.05] = -1
+    if fan:
+        idx[0, 0] = ns + 3
+    return idx
+
+
+# (nd, ns, fan, D).  The full-width hops 1 and 2, and every variant the
+# launcher picks, at each word size (on an H100's 132 SMs, 128-thread
+# blocks, 2 rows a pass at D = 47, 102 and 256): fanouts up to 8 take 4
+# passes of 2 slots from 4,224 rows (a tile of 8 rows: Nd = 4,999, 5,000,
+# 5,001), 2 passes of 4 from 2,112, else 1 pass of 8; fanouts up to 12 take
+# 2 passes of 4 or 1 of 8 (a tile of 2 rows: Nd = 1, 2, 3); wider ones 1
+# pass of 16.  Fan 0, 1 and 33; D = 602, a row wider than a block (column
+# tiles).  D = 47 reads 4-byte words, 102 and 602 8-byte, 100 and 256 16.
+NEIGHBOR_FWD = [(8192, 90112, 10, 256), (512, 8192, 15, 256),
+                (4999, 6000, 5, 256), (5000, 6000, 5, 256),
+                (5001, 6000, 5, 256), (3000, 6000, 5, 256),
+                (300, 3000, 5, 256), (1, 50, 10, 256), (2, 50, 10, 256),
+                (3, 50, 10, 256), (64, 200, 0, 256), (64, 200, 1, 256),
+                (300, 500, 33, 100), (77, 300, 15, 47), (5000, 6000, 5, 47),
+                (3000, 6000, 5, 47), (300, 3000, 5, 47),
+                (5000, 6000, 5, 102), (3000, 6000, 10, 102),
+                (300, 3000, 5, 102), (300, 900, 33, 602), (9, 20, 4, 602)]
+
+
+@pytest.mark.parametrize("mode", AGG_MODES)
+@pytest.mark.parametrize("shape", NEIGHBOR_FWD,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_neighbor_agg_forward_keeps_the_reference_order(card, shape, mode):
+    from repro_torch.kernels.segment_agg.ops import neighbor_agg
+    from repro_torch.kernels.segment_agg.ref import neighbor_agg_ref
+    nd, ns, fan, d = shape
+    rng = np.random.default_rng(nd * 31 + fan)
+    idx = torch.from_numpy(_padded_idx(rng, nd, ns, fan)).to(card)
+    h = torch.from_numpy(rng.normal(0, 1, (ns, d)).astype(np.float32)).to(card)
+    w = torch.from_numpy(rng.uniform(0, 1, (nd, fan)).astype(np.float32)).to(card)
+    m, wt = _mode(mode, w)
+    launches = neighbor_agg.launches
+    out = neighbor_agg(idx, h, m, wt)
+    torch.cuda.synchronize()
+    assert neighbor_agg.launches == launches + 1
+    if wt is None:
+        assert torch.equal(out, _in_order(h, idx, m))
+    else:
+        # one fma a weighted add in the kernel, two roundings in the plain
+        # version: 1e-5 for rounding
+        torch.testing.assert_close(out, neighbor_agg_ref(idx, h, m, wt),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fan", [5, 10, 15])
+def test_neighbor_agg_forward_off_16_byte_alignment(card, fan):
+    # h 4 bytes into its buffer: the 4-byte words at D = 256
+    from repro_torch.kernels.segment_agg.ops import neighbor_agg
+    rng = np.random.default_rng(fan)
+    idx = torch.from_numpy(_padded_idx(rng, 600, 900, fan)).to(card)
+    h = torch.from_numpy(rng.normal(0, 1, (900, 256)).astype(np.float32))
+    buf = torch.empty(h.numel() + 1, device=card)
+    shifted = buf[1:].view(h.shape)
+    shifted.copy_(h)
+    for m in ("mean", "sum"):
+        out = neighbor_agg(idx, shifted, m)
+        torch.cuda.synchronize()
+        assert torch.equal(out, _in_order(h.to(card), idx, m))
+
+
+def _gather_inputs(ns, nd, fan, c, na, f, miss, seed):
+    """enc with a share ``miss`` of sideband rows, slots past C and rows
+    past Na (clamped), padded entries (-1, aux[0]); idx as the sampler pads
+    it, with indices past Ns; the table and the sideband."""
+    rng = np.random.default_rng(seed)
+    enc = rng.integers(0, c + 8, ns).astype(np.int32)
+    sideband = rng.random(ns) < miss
+    enc[sideband] = -rng.integers(1, na + 4, int(sideband.sum()))
+    enc[-2:] = -1
+    idx = _padded_idx(rng, nd, ns, fan)
+    return [torch.from_numpy(a) for a in (
+        enc, idx, rng.normal(0, 1, (c, f)).astype(np.float32),
+        rng.normal(0, 1, (na, f)).astype(np.float32))]
+
+
+# (ns, nd, fan, C, Na, F, share from the sideband).  Layer 0 at full width,
+# all rows resident and half from the sideband; tile edges (F = 100: a pass
+# of 5 rows on 128 threads, Nd = 1, 4, 5, 6; 4 passes, 20 rows, from 10,560
+# rows on 132 SMs: Nd = 10,559, 10,560, 10,561); fan 0, 1, 3, 10 and 33;
+# 4, 8 and 16 neighbour words a round at F = 100 (16-byte words), 47
+# (4-byte) and 102 (8-byte); F = 602, a row wider than a block
+GATHER_FWD = [(98000, 90112, 5, 98000, 64, 100, 0.0),
+              (98000, 90112, 5, 98000, 49000, 100, 0.5),
+              (12, 1, 5, 30, 4, 100, 0.5), (12, 4, 5, 30, 4, 100, 0.5),
+              (12, 5, 5, 30, 4, 100, 0.5), (12, 6, 5, 30, 4, 100, 0.5),
+              (11000, 10559, 5, 12000, 500, 100, 0.3),
+              (11000, 10560, 5, 12000, 500, 100, 0.3),
+              (11000, 10561, 5, 12000, 500, 100, 0.3),
+              (40, 30, 0, 30, 3, 100, 0.3), (40, 30, 1, 30, 3, 100, 0.3),
+              (40, 30, 3, 30, 3, 100, 0.3), (400, 60, 10, 500, 4, 100, 0.3),
+              (400, 60, 33, 500, 4, 100, 0.3), (300, 100, 3, 200, 10, 47, 0.3),
+              (300, 100, 7, 200, 10, 47, 0.3), (300, 100, 12, 200, 10, 47, 0.3),
+              (300, 100, 3, 200, 10, 102, 0.3), (300, 100, 7, 200, 10, 102, 0.3),
+              (300, 100, 12, 200, 10, 102, 0.3), (40, 9, 4, 30, 3, 602, 0.3)]
+
+
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+@pytest.mark.parametrize("shape", GATHER_FWD,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gather_aggregate_keeps_the_reference_order(card, shape, mode):
+    from repro_torch.kernels.fused_gather_agg.ops import gather_aggregate
+    from repro_torch.kernels.fused_gather_agg.ref import resolve_rows_ref
+    enc, idx, table, aux = (t.to(card) for t in _gather_inputs(
+        *shape, seed=shape[1]))
+    launches = gather_aggregate.launches
+    h, a = gather_aggregate(enc, idx, table, aux, mode=mode)
+    rows = resolve_rows_ref(enc, table, aux)
+    torch.cuda.synchronize()
+    assert gather_aggregate.launches == launches + 1
+    assert torch.equal(h, rows[:idx.shape[0]])
+    assert torch.equal(a, _in_order(rows, idx, mode))
+
+
+def test_gather_aggregate_off_16_byte_alignment(card):
+    # the table 4 bytes into its buffer: the 4-byte words at F = 100
+    from repro_torch.kernels.fused_gather_agg.ops import gather_aggregate
+    from repro_torch.kernels.fused_gather_agg.ref import resolve_rows_ref
+    enc, idx, table, aux = (t.to(card) for t in _gather_inputs(
+        3000, 2000, 5, 2500, 40, 100, 0.5, seed=9))
+    buf = torch.empty(table.numel() + 1, device=card)
+    shifted = buf[1:].view(table.shape)
+    shifted.copy_(table)
+    rows = resolve_rows_ref(enc, table, aux)
+    for mode in ("mean", "sum"):
+        h, a = gather_aggregate(enc, idx, shifted, aux, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(h, rows[:idx.shape[0]])
+        assert torch.equal(a, _in_order(rows, idx, mode))
+
+
 def test_cuda_tensors_never_reach_the_plain_versions(card, monkeypatch):
     import repro_torch.kernels.fused_gather_agg.ops as fga
     import repro_torch.kernels.segment_agg.ops as sa
