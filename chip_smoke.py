@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-  python3 chip_smoke.py [--parent-source PATH [PATH]]
+  python3 chip_smoke.py [--parent-source PATH [PATH ...]]
 
 Phases; any failure exits non-zero:
 
@@ -11,11 +11,12 @@ Phases; any failure exits non-zero:
    dynamic shared memory its launch grants, and the count of ``HGMMA``
    instructions in each kernel's SASS (``cuobjdump -sass`` of the built
    library); ``ptxas``'s registers, spills and shared memory of every
-   ``neighbor_agg``, ``gather_aggregate`` and ``cache_gather`` kernel, and
-   the atomics in the SASS of the ``neighbor_agg`` backward's kernels.
-   Fails if the bf16 kernel at Dh=128 has no ``HGMMA``, if a bf16 kernel
-   spills, or if the backward adds a float atomically; a machine with no
-   ``cuobjdump`` gets a line saying so;
+   ``neighbor_agg``, ``gather_aggregate``, ``cache_gather`` and
+   ``reservoir_topm`` kernel, and the atomics in the SASS of the
+   ``neighbor_agg`` backward's and the ``reservoir_topm`` kernels.  Fails
+   if the bf16 kernel at Dh=128 has no ``HGMMA``, if a bf16 or reservoir
+   kernel spills, or if the backward or a reservoir kernel adds a float
+   atomically; a machine with no ``cuobjdump`` gets a line saying so;
 2. cache_gather — call the wrapper at the shapes the serving path gives
    it (its 4,096- and 128-row chunks among them), hold the result bit-exact
    against its plain PyTorch version, then time kernel, plain version and
@@ -45,7 +46,8 @@ Phases; any failure exits non-zero:
    forwards' means and sums bit-equal to the reference order written out,
    and every output bit-equal to the parent commit's kernels (built from
    ``git show HEAD~1``, or from ``--parent-source``: a directory holding
-   its ``segment_agg.cu`` and ``fused_gather_agg.cu``, or the two files);
+   its ``segment_agg.cu``, ``fused_gather_agg.cu`` and ``reservoir.cu``, or
+   its checkout root, or the three files);
    each hop's segment lengths printed; each timed as in phase 2, with
    ``F.embedding_bag`` as the yardstick of ``neighbor_agg``, in turns
    with the parent's kernel (parent, kernel, kernel, parent), and each
@@ -72,15 +74,19 @@ Phases; any failure exits non-zero:
    ``NeighborSampler._sample_one_hop`` forms them (γ-bias weights, seeded
    float32 uniforms, ``mask = col < size``), one launch each, the counts
    zeroed before each hop and read after it; held
-   bit-exact (idx, and keys bit for bit) against its plain version with
-   the hub row and odd shapes; inclusion frequencies of 2^20 rows against
-   the exact probabilities (5 standard errors); each bucket timed as in
-   phase 2 with ``torch.topk`` over precomputed keys as the yardstick of
-   the selection alone and the bytes bound over valid lanes (w and u read
-   where the mask is set; the padded-lane figure printed beside it), and
-   each hop's sum beside the host numpy time of
-   its ``_sample_one_hop``.  Phases 3, 4 and 7 launch it 0 times: no path
-   of the port, as none of the JAX package, selects on the card.
+   bit-exact (idx, and keys bit for bit) against its plain version and
+   against the parent commit's kernel with the hub row and odd shapes;
+   inclusion frequencies of 2^20 rows against the exact probabilities (5
+   standard errors); each bucket timed as in phase 2, in turns with the
+   parent's kernel (parent, kernel, kernel, parent), with ``torch.topk``
+   over precomputed keys as the yardstick of the selection alone and the
+   bytes bound over valid lanes (w and u read where the mask is set; the
+   padded-lane figure printed beside it); the hub row's time on a line of
+   its own, its device time and that of the bucket of most rows profiled;
+   each hop's sums (kernel, parent, ``torch.topk``, bound) beside the host
+   numpy time of its ``_sample_one_hop``.  Phases 3, 4 and 7 launch it 0
+   times: no path of the port, as none of the JAX package, selects on the
+   card.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels and the
@@ -191,19 +197,27 @@ def phase_build(stamp: str):
     gnn_report("segment_agg")
     gnn_report("fused_gather_agg")
     gnn_report("gather")
-    floats = float_atomics(BUILD_DIR / "libsegment_agg.so", "bwd_")
-    if floats is None:
-        print("[build] no cuobjdump on this machine (toolkit or triton): "
-              "the float-atomic check of the neighbor_agg backward was not "
-              "made", flush=True)
-    elif floats:
-        fail(f"the neighbor_agg backward adds floats atomically: {floats}")
+    for name, info in gnn_report("reservoir").items():
+        spilled = re.search(r"(\d+) bytes spill stores", info.get("spills", ""))
+        if spilled and int(spilled.group(1)) > 0:
+            fail(f"reservoir {name} spills registers: {info['spills']}")
+    for lib, prefix, what in (("segment_agg", "bwd_", "the neighbor_agg "
+                               "backward"), ("reservoir", "topm_",
+                                             "reservoir_topm")):
+        floats = float_atomics(BUILD_DIR / f"lib{lib}.so", prefix)
+        if floats is None:
+            print(f"[build] no cuobjdump on this machine (toolkit or "
+                  f"triton): the float-atomic check of {what} was not made",
+                  flush=True)
+        elif floats:
+            fail(f"{what} adds floats atomically: {floats}")
 
 
 def _short_name(mangled: str) -> str:
-    """``bwd_short_kernel<4,2>`` / ``cache_gather_kernel<uint4,4>`` for the
-    mangled name of a GNN kernel instance."""
-    m = re.search(r"\d+((?:bwd|agg|cache|gather)_\w+?_kernel)", mangled)
+    """``bwd_short_kernel<4,2>`` / ``cache_gather_kernel<uint4,4>`` /
+    ``topm_chunk_kernel<4,u8>`` for the mangled name of a GNN or
+    reservoir kernel instance."""
+    m = re.search(r"\d+((?:bwd|agg|cache|gather|topm)_\w+?_kernel)", mangled)
     if not m:
         return mangled
     rest = mangled[m.end():].split("EEv")[0] + "E"
@@ -211,6 +225,9 @@ def _short_name(mangled: str) -> str:
     args = ([{"t": "u16", "j": "u32", "5uint4": "uint4"}[word.group(1)]]
             if word else [])
     args += re.findall(r"Li(\d+)E", rest) if rest.startswith("I") else []
+    mask = re.search(r"E([hi])E$", rest) if m.group(1).startswith("topm") \
+        else None
+    args += [{"h": "u8", "i": "i32"}[mask.group(1)]] if mask else []
     return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
 
 
@@ -240,11 +257,14 @@ def ptxas_report(lib: str, rename) -> dict:
     return ptxas
 
 
-def gnn_report(lib: str):
-    """ptxas's registers and spills of each kernel of ``csrc/<lib>.cu``."""
-    for name, info in sorted(ptxas_report(lib, _short_name).items()):
+def gnn_report(lib: str) -> dict:
+    """ptxas's registers and spills of each kernel of ``csrc/<lib>.cu``,
+    printed and returned by kernel."""
+    report = ptxas_report(lib, _short_name)
+    for name, info in sorted(report.items()):
         print(f"[build] {lib}: {name}: ptxas {info.get('used', 'not reported')}"
               f"; {info.get('spills', 'spills not reported')}", flush=True)
+    return report
 
 
 def sass_lines(lib: Path):
@@ -756,13 +776,13 @@ def _bag_inputs(torch, idx, h):
     return bag, torch.cat([h, torch.zeros_like(h[:1])])
 
 
-PARENT_SOURCES = ("segment_agg.cu", "fused_gather_agg.cu")
+PARENT_SOURCES = ("segment_agg.cu", "fused_gather_agg.cu", "reservoir.cu")
 
 
 def _parent_paths(source: list) -> dict:
-    """The parent's two kernel sources named by ``--parent-source``: a
+    """The parent's kernel sources named by ``--parent-source``: a
     directory that holds them (or a checkout root, with them under
-    ``src/repro_torch/kernels/csrc/``), or the two files themselves."""
+    ``src/repro_torch/kernels/csrc/``), or the files themselves."""
     paths = [Path(x) for x in source]
     if len(paths) == 1 and paths[0].is_dir():
         for where in (paths[0], paths[0] / "src/repro_torch/kernels/csrc"):
@@ -773,23 +793,25 @@ def _parent_paths(source: list) -> dict:
     found = {x.name: x for x in paths}
     if sorted(found) != sorted(PARENT_SOURCES) or not all(
             x.is_file() for x in found.values()):
-        fail(f"--parent-source names a directory or the two files "
+        fail(f"--parent-source names a directory or the files "
              f"{' and '.join(PARENT_SOURCES)}, not {source}")
     return found
 
 
 def parent_kernels(torch, source):
-    """The parent commit's ``neighbor_agg`` (forward and backward) and
-    ``gather_aggregate``, built from ``csrc/segment_agg.cu`` and
-    ``csrc/fused_gather_agg.cu`` as ``git show HEAD~1`` gives them (or as
+    """The parent commit's ``neighbor_agg`` (forward and backward),
+    ``gather_aggregate`` and ``reservoir_topm``, built from
+    ``csrc/segment_agg.cu``, ``csrc/fused_gather_agg.cu`` and
+    ``csrc/reservoir.cu`` as ``git show HEAD~1`` gives them (or as
     ``source``, the ``--parent-source`` list, names them) into
     ``build/repro_torch/parent/`` (one ``nvcc`` each, started together) and
     bound with ctypes.  Returns a namespace of ``forward(idx, h, mode, w)``,
-    ``backward(idx, dout, h, mode, w) -> (dh, dw)`` and
-    ``gather_aggregate(enc, idx, table, aux, mode) -> (h_dst, agg)``, or None
-    where neither the history nor ``source`` is at hand.  The backward's
-    SASS float atomics are counted, which shows that phase 1's check finds
-    them in a kernel that has them."""
+    ``backward(idx, dout, h, mode, w) -> (dh, dw)``,
+    ``gather_aggregate(enc, idx, table, aux, mode) -> (h_dst, agg)`` and
+    ``reservoir_topm(w, u, mask, m) -> (idx, keys)``, or None where neither
+    the history nor ``source`` is at hand.  The backward's SASS float
+    atomics are counted, which shows that phase 1's check finds them in a
+    kernel that has them."""
     import ctypes
     import types
 
@@ -844,6 +866,24 @@ def parent_kernels(torch, source):
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
     for fn in (ga_fn, fwd_fn, bwd_fn):
         fn.restype = ctypes.c_int
+    res = ctypes.CDLL(str(out / "libreservoir.so"))
+    res_fn = res.reservoir_topm_launch
+    # two interfaces: a launch of (R, N, m) alone, and since the chunked
+    # design one given the launcher's layout, its scratch and counters
+    res_bytes = getattr(res, "reservoir_topm_scratch_bytes", None)
+    if res_bytes is None:
+        res_fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                           + [ctypes.c_void_p] * 2
+                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
+    else:
+        res_bytes.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 7
+        res_bytes.restype = ctypes.c_longlong
+        res_fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                           + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                           + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
+    res_fn.restype = ctypes.c_int
+    res_counters = []    # the new interface's row counters, kept zeroed
     floats = float_atomics(out / "libsegment_agg.so",
                            "agg_bwd" if scratch_bytes is None else "bwd_")
     print(f"[build] the parent's kernels ({', '.join(PARENT_SOURCES)}): float "
@@ -892,8 +932,31 @@ def parent_kernels(torch, source):
         if err:
             fail(f"the parent's gather_aggregate: CUDA error {err}")
         return h_dst, agg
+
+    def reservoir_topm(w, u, mask, m):
+        from repro_torch.kernels.reservoir.ops import layout
+        (R, N), dev = w.shape, w.device
+        mask_bytes = mask.element_size()
+        mask = mask.view(torch.uint8) if mask_bytes == 1 else mask
+        idx = torch.empty((R, m), dtype=torch.int32, device=dev)
+        keys = torch.empty((R, m), dtype=torch.float32, device=dev)
+        args = [ptr(w), ptr(u), ptr(mask), mask_bytes, ptr(idx), ptr(keys),
+                R, N, m]
+        if res_bytes is not None:    # this launcher's layout for its kernel
+            plan = layout(N)
+            buf = torch.empty(max(res_bytes(R, N, m, *plan), 0),
+                              dtype=torch.uint8, device=dev)
+            if not res_counters or res_counters[0].numel() < R:
+                res_counters[:] = [torch.zeros(R, dtype=torch.int32,
+                                               device=dev)]
+            args += [*plan, ptr(buf), ptr(res_counters[0])]
+        err = res_fn(*args, stream())
+        if err:
+            fail(f"the parent's reservoir_topm: CUDA error {err}")
+        return idx, keys
     return types.SimpleNamespace(forward=forward, backward=backward,
-                                 gather_aggregate=gather_aggregate)
+                                 gather_aggregate=gather_aggregate,
+                                 reservoir_topm=reservoir_topm)
 
 
 def _in_order(torch, rows, idx, mode: str):
@@ -939,7 +1002,7 @@ def _turns(torch, new, old, flush) -> list:
 
 
 def phase_agg(torch, stamp: str, batch: dict, launches: dict,
-              parent_source) -> list:
+              parent) -> list:
     """gather_aggregate and neighbor_agg at the first batch's shapes (and a
     re-encoding of the batch with half its rows in the sideband), held
     against their plain versions, against the reference order written out
@@ -961,7 +1024,6 @@ def phase_agg(torch, stamp: str, batch: dict, launches: dict,
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     enc, aux, table = batch["enc"], batch["aux"], batch["table"]
     idxs = batch["neigh_idxs"]
-    parent = parent_kernels(torch, parent_source)
 
     def bound(nbytes, flops):
         t_b, t_f = nbytes / rate * 1e3, flops / F32_FLOP_PER_S * 1e3
@@ -1235,24 +1297,12 @@ def _reservoir_odd_cases(torch, dev, g, weight_fn, rng) -> list:
             for label, m, *xs in cases]
 
 
-def phase_reservoir(torch, stamp: str, train: dict) -> dict:
-    """reservoir_topm at the sampler's hop shapes: every bucket of hops 2
-    and 3 of the first full-width batch (each hop's launches counted), the
-    hub row and odd shapes, each bit-exact against the plain version on the
-    card; the inclusion frequencies of 2^20 rows against the exact
-    probabilities; each bucket timed as in phase 2 and each hop's sum
-    beside the host numpy time of that hop's ``_sample_one_hop``.  Returns
-    the JSON entry."""
-    import numpy as np
-
-    from repro_torch.core.sampling import NeighborSampler
-    from repro_torch.kernels.reservoir.ops import reservoir_topm
-    from repro_torch.kernels.reservoir.ref import NEG, reservoir_topm_ref
+def reservoir_hops(torch, train: dict, rng) -> dict:
+    """Phase 8's buckets: hops 2 and 3 of the first batch, in that order,
+    with uniforms from ``rng``: ``{hop: {"m", "dst", "cases"}}``, each case
+    ``(label, m, w, u, mask)`` on the card."""
     dev = torch.device("cuda")
-    rate = hbm_rate(torch.cuda.get_device_name(0))
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     g, mb, weight_fn = train["graph"], train["mb"], train["weight_fn"]
-    rng = np.random.default_rng(0)
     hops = {}
     for hop in (2, 3):                      # hop 1 is nearest the output
         m = train["fanout"][hop - 1]
@@ -1262,6 +1312,32 @@ def phase_reservoir(torch, stamp: str, train: dict) -> dict:
                  for width, w, u, mask in hop_buckets(g, dst, m, weight_fn,
                                                       rng)]
         hops[hop] = {"m": m, "dst": dst, "cases": cases}
+    return hops
+
+
+def phase_reservoir(torch, stamp: str, train: dict, parent) -> dict:
+    """reservoir_topm at the sampler's hop shapes: every bucket of hops 2
+    and 3 of the first full-width batch (each hop's launches counted), the
+    hub row and odd shapes, each bit-exact against the plain version on the
+    card and against the parent commit's kernel (``parent``, from
+    ``parent_kernels``; None: not compared); the inclusion frequencies of
+    2^20 rows against the exact probabilities; each bucket timed in turns
+    with the parent's kernel (parent / kernel / kernel / parent) beside the
+    plain version and ``torch.topk``, the widest bucket (the hub row) on a
+    line of its own, its device time and that of the bucket of most rows
+    profiled, and each hop's sums beside the host numpy time of that hop's
+    ``_sample_one_hop``.  Returns the JSON entry."""
+    import numpy as np
+
+    from repro_torch.core.sampling import NeighborSampler
+    from repro_torch.kernels.reservoir.ops import layout, reservoir_topm
+    from repro_torch.kernels.reservoir.ref import NEG, reservoir_topm_ref
+    dev = torch.device("cuda")
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    g, weight_fn = train["graph"], train["weight_fn"]
+    rng = np.random.default_rng(0)
+    hops = reservoir_hops(torch, train, rng)
 
     # the counted runs: one launch per bucket, as a GPU sampler would issue,
     # each hop counted on its own
@@ -1283,23 +1359,31 @@ def phase_reservoir(torch, stamp: str, train: dict) -> dict:
 
     max_err = 0.0
 
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(
+            a[1].view(torch.int32), b[1].view(torch.int32))
+
     def check(label, m, w, u, mask, got):
         nonlocal max_err
         idx, keys = got
-        r_idx, r_keys = reservoir_topm_ref(w, u, mask, m)
+        ref = reservoir_topm_ref(w, u, mask, m)
+        old = None if parent is None else parent.reservoir_topm(w, u, mask, m)
         torch.cuda.synchronize()
-        exact = (torch.equal(idx, r_idx)
-                 and torch.equal(keys.view(torch.int32),
-                                 r_keys.view(torch.int32)))
-        err = float((keys - r_keys).abs().max())
+        exact = same(got, ref)
+        same_parent = old is None or same(got, old)
+        err = float((keys - ref[1]).abs().max())
         max_err = max(max_err, err)
         spent = int((idx == w.shape[1]).sum())
         print(f"[kernel] reservoir_topm {label} ({w.shape[0]}, {w.shape[1]}) "
-              f"m={m} mask {mask.dtype}: bit-exact={exact} (idx equal, keys "
-              f"equal bit for bit), max_abs_err={err}, {spent} exhausted "
-              f"slots", flush=True)
-        if not exact or not bool((keys[idx == w.shape[1]] == NEG).all()):
-            fail(f"reservoir_topm disagrees with its plain version at {label}")
+              f"m={m} mask {mask.dtype} layout "
+              f"{tuple(layout(w.shape[1]))}: bit-exact={exact} (idx "
+              f"equal, keys equal bit for bit), max_abs_err={err}, {spent} "
+              f"exhausted slots; bit-equal to the parent's kernel="
+              f"{'not compared' if old is None else same_parent}", flush=True)
+        if not (exact and same_parent) or not bool(
+                (keys[idx == w.shape[1]] == NEG).all()):
+            fail(f"reservoir_topm disagrees with its plain version or the "
+                 f"parent's kernel at {label}")
 
     for hop, h in hops.items():
         for case, got in zip(h["cases"], outs[hop]):
@@ -1329,9 +1413,10 @@ def phase_reservoir(torch, stamp: str, train: dict) -> dict:
 
     totals = {}
     for hop, h in hops.items():
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-               "padded_bound_ms": 0.0}
+        tot = {"ms": 0.0, "parent_ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bound_ms": 0.0, "padded_bound_ms": 0.0}
         rows = lanes = 0
+        widest = most = None
         for label, m, w, u, mask in h["cases"]:
             R, N = w.shape
             km = (torch.log(u.clamp(min=1e-30)) / w.clamp(min=1e-9)
@@ -1341,8 +1426,11 @@ def phase_reservoir(torch, stamp: str, train: dict) -> dict:
             valid = int(mask.sum())
             nbytes = R * N * mask.element_size() + 8 * valid + 8 * R * m
             padded = R * N * (8 + mask.element_size()) + 8 * R * m
-            t = {"ms": time_ms(torch, lambda: reservoir_topm(w, u, mask, m),
-                               flush),
+            turns = _turns(
+                torch, lambda: reservoir_topm(w, u, mask, m),
+                None if parent is None else
+                lambda: parent.reservoir_topm(w, u, mask, m), flush)
+            t = {"ms": turns[1], "parent_ms": turns[0],
                  "plain_ms": time_ms(torch, lambda: reservoir_topm_ref(
                      w, u, mask, m), flush),
                  "library_ms": time_ms(torch, lambda: torch.topk(km, m, dim=1),
@@ -1350,15 +1438,31 @@ def phase_reservoir(torch, stamp: str, train: dict) -> dict:
                  "bound_ms": nbytes / rate * 1e3,
                  "padded_bound_ms": padded / rate * 1e3}
             for k in tot:
-                tot[k] += t[k]
+                tot[k] = None if t[k] is None or tot[k] is None \
+                    else tot[k] + t[k]
             rows, lanes = rows + R, lanes + R * N
-            print(f"[time] reservoir_topm {label} ({R}, {N}) m={m}: kernel "
-                  f"{t['ms']} ms, plain {t['plain_ms']} ms, torch.topk over "
-                  f"precomputed keys (selection only) {t['library_ms']} ms, "
-                  f"bytes bound {t['bound_ms']} ms ({nbytes} B, {valid} "
-                  f"valid lanes, at {rate / 1e12} TB/s; {t['padded_bound_ms']}"
-                  f" ms counting w and u of every padded lane)  [{stamp}]",
-                  flush=True)
+            line = (f"{label} ({R}, {N}) m={m} layout "
+                    f"{tuple(layout(N))}: kernel {t['ms']} ms, "
+                    f"parent {t['parent_ms']} ms (turns parent / kernel / "
+                    f"kernel / parent {turns} ms), plain {t['plain_ms']} ms, "
+                    f"torch.topk over precomputed keys (selection only) "
+                    f"{t['library_ms']} ms, bytes bound {t['bound_ms']} ms "
+                    f"({nbytes} B, {valid} valid lanes, at {rate / 1e12} "
+                    f"TB/s; {t['padded_bound_ms']} ms counting w and u of "
+                    f"every padded lane)")
+            print(f"[time] reservoir_topm {line}  [{stamp}]", flush=True)
+            if widest is None or N > widest[0]:
+                widest = (N, line, (label, m, w, u, mask))
+            if most is None or R > most[0]:
+                most = (R, (label, m, w, u, mask))
+        print(f"[time] reservoir_topm hub row of hop {hop}, {widest[1]}  "
+              f"[{stamp}]", flush=True)
+        # device time of a call, without the harness: the hub row and the
+        # bucket of most rows
+        for label, m, w, u, mask in (widest[2], most[1]):
+            _profile(torch, lambda: reservoir_topm(w, u, mask, m), stamp,
+                     f"reservoir_topm {label} ({w.shape[0]}, {w.shape[1]})",
+                     calls=PROFILE_CALLS)
         sampler = NeighborSampler(g, train["fanout"], weight_fn=weight_fn,
                                   seed=0)
         host = []
@@ -1371,10 +1475,10 @@ def phase_reservoir(torch, stamp: str, train: dict) -> dict:
         totals[hop] = tot
         print(f"[time] reservoir_topm hop {hop} (m={h['m']}), sum over "
               f"{len(h['cases'])} buckets ({rows} rows, {lanes} lanes): "
-              f"kernel {tot['ms']} ms, plain {tot['plain_ms']} ms, "
-              f"torch.topk (selection only) {tot['library_ms']} ms, bytes "
-              f"bound {tot['bound_ms']} ms (valid lanes; "
-              f"{tot['padded_bound_ms']} ms padded), launches "
+              f"kernel {tot['ms']} ms, parent {tot['parent_ms']} ms, plain "
+              f"{tot['plain_ms']} ms, torch.topk (selection only) "
+              f"{tot['library_ms']} ms, bytes bound {tot['bound_ms']} ms "
+              f"(valid lanes; {tot['padded_bound_ms']} ms padded), launches "
               f"{tot['launches']}; host numpy time of the hop's "
               f"_sample_one_hop on the same {len(h['dst'])} rows (keys, "
               f"buckets and selection), median of 5: {tot['host_numpy_ms']} "
@@ -1386,7 +1490,7 @@ def phase_reservoir(torch, stamp: str, train: dict) -> dict:
             "launches": t3["launches"], "max_abs_err": max_err,
             "ms": t3["ms"], "plain_ms": t3["plain_ms"],
             "bound_ms": t3["bound_ms"], "bound_by": "bytes",
-            "library_ms": t3["library_ms"],
+            "library_ms": t3["library_ms"], "parent_ms": t3["parent_ms"],
             "host_numpy_ms": t3["host_numpy_ms"], "hop2": totals[2]}
 
 
@@ -1681,10 +1785,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-source", default=None, nargs="+",
                     metavar="PATH",
-                    help="the parent commit's csrc/segment_agg.cu and "
-                         "csrc/fused_gather_agg.cu, or a directory that "
-                         "holds them (or its checkout root), where this "
-                         "checkout has no git history")
+                    help="the parent commit's csrc/segment_agg.cu, "
+                         "csrc/fused_gather_agg.cu and csrc/reservoir.cu, "
+                         "or a directory that holds them (or its checkout "
+                         "root), where this checkout has no git history")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1702,11 +1806,12 @@ def main() -> int:
     launches = phase_slice(torch, stamp)
     entry["launches"] = launches["cache_gather"]
     train = phase_train(torch, stamp)
+    parent = parent_kernels(torch, args.parent_source)
     entries = [entry] + phase_agg(torch, stamp, train["batch"],
-                                  train["launches"], args.parent_source)
+                                  train["launches"], parent)
     flash = phase_flash(torch, stamp)
     lm = phase_lm(torch, stamp)
-    reservoir = phase_reservoir(torch, stamp, train)
+    reservoir = phase_reservoir(torch, stamp, train, parent)
     flash["launches"] = lm["prefill"]["flash_attention"]
     flash["decode_launches"] = lm["serve"]["flash_attention"]
     reservoir["path_launches"] = {

@@ -15,6 +15,7 @@ from repro_torch.core.feature_plane import DeviceFeaturePlane, HostFeaturePlane
 from repro_torch.graph.synthetic import dataset_like
 from repro_torch.kernels.gather.ops import cache_gather
 from repro_torch.kernels.gather.ref import cache_gather_ref
+from repro_torch.kernels.reservoir.ops import chunked, layout
 from repro_torch.kernels.segment_agg.ref import neighbor_agg_bwd_ref
 
 pytestmark = pytest.mark.cuda
@@ -685,11 +686,11 @@ def _reservoir_inputs(R, N, device, kind="sampler", seed=0):
     return [torch.from_numpy(x).to(device) for x in (w, u, mask)]
 
 
-def _assert_reservoir_bit_exact(w, u, mask, m):
+def _assert_reservoir_bit_exact(w, u, mask, m, plan=None):
     from repro_torch.kernels.reservoir.ops import reservoir_topm
     from repro_torch.kernels.reservoir.ref import NEG, reservoir_topm_ref
     launches = reservoir_topm.launches
-    idx, keys = reservoir_topm(w, u, mask, m)
+    idx, keys = reservoir_topm(w, u, mask, m, plan=plan)
     r_idx, r_keys = reservoir_topm_ref(w, u, mask.bool(), m)
     torch.cuda.synchronize()
     assert reservoir_topm.launches == launches + 1
@@ -749,3 +750,136 @@ def test_reservoir_routes_and_counts(card, monkeypatch):
     torch.cuda.synchronize()
     assert ops.reservoir_topm.launches == launches + 1
     assert idx.shape == (8, 7) and idx.is_cuda
+
+
+# the chunked kernel at its borders: every chunk size the launcher uses
+# (one block a row up to 2,048 lanes, chunks over blocks past it), each as
+# the launcher's layout and cut at that size
+RESERVOIR_CHUNKS = sorted({layout(N).chunk_lanes for N in RESERVOIR_WIDTHS
+                           if N > 32})
+SPLIT_CHUNKS = sorted({layout(N).chunk_lanes for N in RESERVOIR_WIDTHS
+                       if layout(N).P > 1})
+
+
+def _cut_at(N, C):
+    """Layouts that cut rows of N lanes at chunks of C lanes: one chunk a
+    block (W = 8 past 256 lanes, else one warp), and one block walking the
+    row in sub-chunks of C."""
+    W = 8 if C >= 256 else 1
+    K = C // (32 * W)
+    return [chunked(N, K, W, N), chunked(N, K, W, 1)]
+
+
+def _reservoir_plans(N, C):
+    """The launcher's layout, the row cut at C, and chunks of 64 lanes
+    (past 32 of them, the last block merges in two levels)."""
+    return list(dict.fromkeys([layout(N), *_cut_at(N, C),
+                               chunked(N, 1, 2, N)]))
+
+
+def _reservoir_rows(R, N, C, kind, device, seed=0):
+    """``border_ties``: w = 1 and the four lanes around every multiple of C
+    and of 32 share each row's top key; ``one_chunk``: every valid lane in
+    one chunk; ``exhausted``: the first chunk masked whole, the second with
+    3 valid lanes, the rest 80% valid."""
+    rng = np.random.default_rng(seed)
+    w, u, mask = (x.cpu().numpy() for x in _reservoir_inputs(R, N, "cpu",
+                                                              seed=seed))
+    if kind == "border_ties":
+        w[:] = 1.0
+        u = (rng.random((R, N)) * 0.5).astype(np.float32)
+        for step in (C, 32):
+            for b in range(step, N, step):
+                u[:, max(b - 2, 0):b + 2] = 0.9
+    elif kind == "one_chunk":
+        at = (rng.integers(0, max(N // C, 1), R) * C)[:, None]
+        mask = ((np.arange(N) >= at) & (np.arange(N) < at + C)
+                & (rng.random((R, N)) < 0.8))
+    elif kind == "exhausted":
+        mask = rng.random((R, N)) < 0.8
+        mask[:, :2 * C] = False
+        three = C + np.array([1, C // 2, C - 1])
+        mask[:, three[three < N]] = True
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in (w, u, mask)]
+
+
+@pytest.mark.parametrize("m", [5, 10])
+@pytest.mark.parametrize("delta", ["-1", "0", "+1", "C+1"])
+@pytest.mark.parametrize("C", RESERVOIR_CHUNKS)
+def test_reservoir_chunk_borders_bit_exact(card, C, delta, m):
+    N = C + {"-1": -1, "0": 0, "+1": 1, "C+1": C + 1}[delta]
+    w, u, mask = _reservoir_inputs(7, N, card, seed=N)
+    for plan in _reservoir_plans(N, C):
+        _assert_reservoir_bit_exact(w, u, mask, m, plan)
+
+
+@pytest.mark.parametrize("kind", ["border_ties", "one_chunk", "exhausted"])
+@pytest.mark.parametrize("mult", [2, 8])
+@pytest.mark.parametrize("C", SPLIT_CHUNKS)
+def test_reservoir_split_rows_bit_exact(card, C, mult, kind):
+    """Ties that straddle a chunk border, a row whose valid lanes all sit in
+    one chunk, and all-masked chunks beside chunks with fewer valid lanes
+    than m, at 2C + 1 and 8C + 3 lanes."""
+    N = mult * C + (1 if mult == 2 else 3)
+    w, u, mask = _reservoir_rows(5, N, C, kind, card, seed=C + mult)
+    for plan in _reservoir_plans(N, C):
+        _assert_reservoir_bit_exact(w, u, mask, 10, plan)
+
+
+@pytest.mark.parametrize("R,N", [(4, 16384), (3, 70217), (2, 131072)])
+def test_reservoir_m40_on_split_rows(card, R, N):
+    """m = 40, past the 32 keys of a warp's chunk: one merge level (32
+    chunks at 16,384 lanes), two past it."""
+    w, u, mask = _reservoir_inputs(R, N, card, seed=R)
+    for plan in _reservoir_plans(N, 1024):
+        _assert_reservoir_bit_exact(w, u, mask, 40, plan)
+
+
+@pytest.mark.parametrize("R,N,m", [(300, 8192, 5), (64, 70217, 10),
+                                   (2000, 4096, 15)])
+def test_reservoir_many_waves_of_chunks(card, R, N, m):
+    """Buckets whose rows × chunks far exceed one wave of the card's SMs
+    (8,832 to 32,000 blocks), each row's last block merging its lists."""
+    assert R * layout(N).P > 50 * torch.cuda.get_device_properties(
+        card).multi_processor_count
+    _assert_reservoir_bit_exact(*_reservoir_inputs(R, N, card), m)
+
+
+def test_reservoir_launches_repeat_bit_equal(card):
+    """The row counters are left at 0 by every launch: launches on one
+    stream, split and not, wide and narrow, interleaved, repeat bit for
+    bit."""
+    from repro_torch.kernels.reservoir.ops import reservoir_topm
+    cases = [(_reservoir_inputs(R, N, card, seed=N), m)
+             for R, N, m in [(3, 70217, 5), (40, 4096, 10), (7, 8, 5),
+                             (16, 8192, 5)]]
+    first = [reservoir_topm(*x, m) for x, m in cases]
+    for _ in range(3):
+        for (x, m), (idx, keys) in zip(cases, first):
+            again = reservoir_topm(*x, m)
+            assert torch.equal(again[0], idx) and torch.equal(
+                again[1].view(torch.int32), keys.view(torch.int32))
+    for x, m in cases:
+        _assert_reservoir_bit_exact(*x, m)
+
+
+@pytest.mark.parametrize("N,m,cut", [(40000, 1500, False), (5000, 3000, True)])
+def test_reservoir_lists_past_shared_memory(card, N, m, cut):
+    """m so large that a block's lists outgrow shared memory and live in
+    its scratch: the final merge's lists at 40,000 lanes, the running list
+    of one block walking 5,000 lanes in sub-chunks."""
+    w, u, mask = _reservoir_inputs(2, N, card, seed=m)
+    plan = chunked(N, 1, 8, 1) if cut else None
+    _assert_reservoir_bit_exact(w, u, mask, m, plan)
+
+
+def test_reservoir_refuses_a_layout_that_does_not_fit(card):
+    from repro_torch.kernels.reservoir.ops import Layout, reservoir_topm
+    w, u, mask = _reservoir_inputs(3, 300, card)
+    launches = reservoir_topm.launches
+    for plan in (Layout(0, 3, 8, 1, 1), Layout(0, 1, 1, 1, 1),
+                 Layout(seg=16), Layout(0, 1, 1, 40, 1)):
+        with pytest.raises(ValueError, match="layout"):
+            reservoir_topm(w, u, mask, 5, plan=plan)
+    assert reservoir_topm.launches == launches

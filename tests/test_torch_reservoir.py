@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro.kernels.reservoir.ops import reservoir_topm as jx_reservoir_topm
-from repro_torch.kernels.reservoir.ops import reservoir_topm
+from repro_torch.kernels.reservoir.ops import chunked, layout, reservoir_topm
 from repro_torch.kernels.reservoir.ref import NEG, reservoir_topm_ref
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -272,3 +272,162 @@ def test_hop_buckets_form_the_samplers_rows_and_match_jax():
 def test_reservoir_rejects_bad_inputs(args, err):
     with pytest.raises(err):
         reservoir_topm(*args)
+
+
+# ---------------------------------------------------------------------------
+# chunk-then-merge: the selection the CUDA kernel makes, modelled in torch
+# ---------------------------------------------------------------------------
+
+# the chunk sizes the launcher cuts a wide row into (kernels/reservoir/ops.py
+# :layout), and the widths at their borders: C - 1, C, C + 1 and 2C + 1
+SPLIT_CHUNKS = sorted({layout(N).chunk_lanes for N in (4096, 16384, 32768)})
+BORDERS = [(C, C + d) for C in SPLIT_CHUNKS for d in (-1, 0, 1, C + 1)]
+# widths whose launcher layout splits the row over blocks (one merge level,
+# two past 32 chunks)
+WIDE_WIDTHS = [2049, 4097, 16385, 32769]
+
+
+def _select(keys, lanes, cap):
+    """The first ``cap`` candidates of each row under key descending, lane
+    ascending (-inf keys last, never picked); (keys, lanes) (R, cap)."""
+    o1 = torch.argsort(lanes, dim=1, stable=True)
+    k1 = keys.gather(1, o1)
+    order = o1.gather(1, torch.argsort(k1, dim=1, descending=True,
+                                       stable=True))[:, :cap]
+    k, ln = keys.gather(1, order), lanes.gather(1, order)
+    pad = cap - k.shape[1]
+    if pad > 0:
+        k = torch.cat([k, torch.full((k.shape[0], pad), -torch.inf)], 1)
+        ln = torch.cat([ln, torch.zeros((k.shape[0], pad), dtype=ln.dtype)], 1)
+    return k, ln
+
+
+def _merge(lists, cap):
+    return _select(torch.cat([k for k, _ in lists], 1),
+                   torch.cat([ln for _, ln in lists], 1), cap)
+
+
+def _chunk_merge(w, u, mask, m, plan):
+    """The kernel's selection in plain torch, list by list: each warp's
+    32·K lanes keep their top min(m, 32·K); a chunk's W warp lists (and its
+    running list, sub-chunk by sub-chunk) merge to its top min(m, lanes);
+    past 32 chunks, warp w merges chunks w, w + W, ... first; the row's
+    lists merge to its top m.  A narrow segment holds its whole row."""
+    N = w.shape[1]
+    keys = (torch.log(torch.clamp(u, min=1e-30))
+            / torch.clamp(w, min=1e-9)).masked_fill(mask == 0, -torch.inf)
+    lanes = torch.arange(N).expand_as(keys)
+    if plan.seg:
+        k, ln = _select(keys, lanes, m)
+    else:
+        warp, sub, span = plan.warp_lanes, plan.warp_lanes * plan.W, \
+            plan.chunk_lanes
+        lb = min(m, span)
+        chunks = []
+        for c0 in range(0, N, span):
+            run = []
+            for s0 in range(c0, min(c0 + span, N), sub):
+                run = [_merge(run + [
+                    _select(keys[:, a:a + warp], lanes[:, a:a + warp],
+                            min(m, warp))
+                    for a in range(s0, min(s0 + sub, N), warp)], lb)]
+            chunks += run
+        assert len(chunks) == plan.P
+        if len(chunks) > 32:
+            chunks = [_merge(chunks[i::plan.W], min(m, 32 * lb))
+                      for i in range(plan.W)]
+        k, ln = _merge(chunks, m)
+    spent = k == -torch.inf
+    return (torch.where(spent, N, ln).to(torch.int32),
+            k.masked_fill(spent, NEG))
+
+
+def _border_rows(N, C, seed):
+    """Rows of width N for chunks of C lanes, stacked: random (80% valid);
+    border ties (w = 1, the four lanes around every multiple of C and of 32
+    share the row's top key); exhausted chunks (the first chunk masked
+    whole, the second with 3 valid lanes, the rest 80% valid); one chunk
+    (every valid lane in the last whole chunk)."""
+    rng = np.random.default_rng(seed)
+    w, u, mask = _inputs(4, N, "random", seed)
+    w[1] = 1.0
+    u[1] = rng.random(N).astype(np.float32) * 0.5
+    for step in (C, 32):
+        for b in range(step, N, step):
+            u[1, max(b - 2, 0):b + 2] = 0.9
+    mask[1] = rng.random(N) < 0.9
+    mask[2, :C] = False
+    mask[2, C:2 * C] = False
+    three = C + np.array([1, C // 2, C - 1])
+    mask[2, three[three < N]] = True
+    last = max(N // C - 1, 0) * C
+    mask[3] = False
+    mask[3, last:last + C] = rng.random(min(C, N - last)) < 0.8
+    return w, u, mask
+
+
+def _plans(N, C):
+    """The launcher's layout at N, the row cut into chunks of C lanes (8
+    warps), one block walking it in sub-chunks of C, and chunks of 64 lanes
+    (two merge levels past 32 of them)."""
+    K = C // 256
+    return list(dict.fromkeys([layout(N), chunked(N, K, 8, N),
+                               chunked(N, K, 8, 1), chunked(N, 1, 2, N)]))
+
+
+@pytest.mark.parametrize("m", [5, 40])
+@pytest.mark.parametrize("C,N", BORDERS, ids=lambda v: str(v))
+def test_chunk_merge_model_is_the_selection(C, N, m):
+    """The invariant the kernel's exactness rests on: the top-m of a row is
+    the top-m of its chunks' top-m lists, however the row is cut, with ties
+    across chunk borders and exhausted chunks.  The model of the kernel's
+    lists equals the port's plain version bit for bit under every layout,
+    and the JAX package's selection (the jnp oracle, and the Pallas kernel
+    in interpret mode) on the same rows."""
+    w, u, mask = _border_rows(N, C, seed=N)
+    tw, tu, tm = (torch.from_numpy(x) for x in (w, u, mask))
+    want = reservoir_topm_ref(tw, tu, tm, m)
+    for plan in _plans(N, C):
+        got = _chunk_merge(tw, tu, tm, m, plan)
+        assert torch.equal(got[0], want[0]), plan
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32)), plan
+    for use_pallas in (False, True):
+        j_idx, j_keys = _jax(w, u, mask, m, use_pallas)
+        _assert_matches(want[0].numpy(), want[1].numpy(), j_idx, j_keys, w,
+                        u, mask, exact_idx=False)
+
+
+@pytest.mark.parametrize("N", WIDE_WIDTHS)
+def test_chunk_merge_model_at_the_launchers_wide_layouts(N):
+    """Rows the launcher splits over blocks (9 to 129 chunks; two merge
+    levels at 32,769 lanes): the model of the kernel's lists against the
+    JAX oracle and the plain version, m = 10."""
+    plan = layout(N)
+    assert plan.P > 1
+    w, u, mask = _border_rows(N, plan.chunk_lanes, seed=N)
+    tw, tu, tm = (torch.from_numpy(x) for x in (w, u, mask))
+    got = _chunk_merge(tw, tu, tm, 10, plan)
+    want = reservoir_topm_ref(tw, tu, tm, 10)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    j_idx, j_keys = _jax(w, u, mask, 10, False)
+    _assert_matches(got[0].numpy(), got[1].numpy(), j_idx, j_keys, w, u,
+                    mask, exact_idx=False)
+
+
+def test_launcher_layouts_cover_each_row_once():
+    """Every layout the launcher picks, and every one ``chunked`` builds,
+    covers a row exactly once: P chunks of S sub-chunks, the last chunk
+    holding the row's last lane, at most 32·W chunks (two merge levels)."""
+    for N in [1, 2, 3, 5, 8, 17, 32, 33, 64, 65, 100, 255, 256, 257, 1024,
+              1025, 2048, 2049, 4096, 8193, 16385, 32768, 32769, 70217,
+              131072, 2**20 + 3, 2**30]:
+        plans = [layout(N)] + [chunked(N, K, W, P) for K in (1, 2, 4, 8)
+                               for W in (1, 2, 4, 8) for P in (1, 7, 10**9)]
+        for plan in plans:
+            if plan.seg:
+                assert N <= plan.seg <= 32 and plan.seg & (plan.seg - 1) == 0
+                continue
+            assert (plan.P - 1) * plan.chunk_lanes < N <= plan.P * \
+                plan.chunk_lanes, (N, plan)
+            assert 1 <= plan.P <= 32 * plan.W and plan.S >= 1
