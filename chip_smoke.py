@@ -84,9 +84,33 @@ Phases; any failure exits non-zero:
    padded-lane figure printed beside it); the hub row's time on a line of
    its own, its device time and that of the bucket of most rows profiled;
    each hop's sums (kernel, parent, ``torch.topk``, bound) beside the host
-   numpy time of its ``_sample_one_hop``.  Phases 3, 4 and 7 launch it 0
-   times: no path of the port, as none of the JAX package, selects on the
-   card.
+   numpy time of its ``_sample_one_hop``.  Phases 3, 4, 7 and 9 launch it
+   0 times: no path of the port, as none of the JAX package, selects on
+   the card;
+9. the multi-partition slice at full width — ``repro_torch.launch.train
+   --arch graphsage-products --partitions 2 --halo-budget 4096
+   --sampling-device device --fused-gather-agg --steps 8`` through
+   ``run_gnn`` (a locality plan with a bounded halo, 8 gradient-synchronised
+   global steps of two partitions on the card under ``fit_supervised``
+   with a checkpoint every 4, then a fresh trainer that restores the
+   committed checkpoint), launch counts zeroed just before and read just
+   after (``gather_aggregate`` partitions × global steps, ``neighbor_agg``
+   and its backward that × 2 hops, nothing else).  It prints the plan, the
+   host seconds of planning, global steps/s, each partition's stage split,
+   the checkpoint write and restore seconds, the modeled memory, accuracy
+   and the hit rates, and fails unless: the restored trainer's params and
+   ``opt_state`` are ``torch.equal`` to the writer's and to the committed
+   npz, with ``global_steps`` and the cache and halo statistics back, and
+   one further global step runs; the first global step's all-reduced
+   gradient on the card is within rel 1e-4 of the CPU's from the same
+   parameters and batches; every halo row in each partition's device plane
+   is bit-equal to the owner's row; ``fit_supervised`` with a failure
+   injected at step 3 of 4 ends at step 4 with one failure and one
+   restore; and a 4-step unfused run launches one ``cache_gather`` per
+   chunk of each partition's plane fetch and no other kernel.  It also
+   prints the device time by kernel of 2 warm global steps
+   (``torch.profiler``) against the median of 3 un-profiled ones.
+   Checkpoints go to temporary directories that the phase removes.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels and the
@@ -104,6 +128,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -114,6 +139,9 @@ SERVE_ARGS = ["--gnn", "--arch", ARCH, "--sampling-device", "device",
               "--train-steps", "4", "--queries", "64", "--batch", "4"]
 TRAIN_ARGS = ["--arch", ARCH, "--sampling-device", "device",
               "--fused-gather-agg", "--steps", "8"]
+MULTIPART_ARGS = ["--arch", ARCH, "--partitions", "2", "--halo-budget",
+                  "4096", "--sampling-device", "device", "--fused-gather-agg",
+                  "--steps", "8"]
 TIMED_LAUNCHES = 50
 PROFILE_CALLS = 20               # calls in a profiled window of a small kernel
 PROFILE_TRIES = 3                # windows before an empty profile fails
@@ -1780,6 +1808,301 @@ def phase_lm(torch, stamp: str) -> dict:
     return {"prefill": prefill_launches, "serve": serve_launches}
 
 
+def _run_multipart(torch, argv: list, stamp: str):
+    """``run_gnn`` of ``repro_torch.launch.train`` with ``argv`` and a
+    fresh checkpoint directory; the launch counts zeroed just before and
+    read just after.  Returns (what run_gnn returns, launches, seconds)."""
+    from repro_torch.launch.train import build_parser, run_gnn
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    args = build_parser().parse_args(argv + ["--ckpt-dir", ckpt])
+    buf = io.StringIO()
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rep = run_gnn(args)
+    torch.cuda.synchronize()
+    launches = counts()
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"{line}  [{stamp}]", flush=True)
+    return rep, launches, wall
+
+
+def phase_multipart(torch, stamp: str) -> dict:
+    """The multi-partition slice at full width (phase 9); returns the launch
+    counts of the fused run and of the unfused run."""
+    import numpy as np
+
+    from repro_torch.core.multipart import MultiPipeline
+    from repro_torch.core.pipeline import PipelineStats
+    from repro_torch.core.sampling import NeighborSampler, seed_loader
+    from repro_torch.distributed.collectives import grad_allreduce
+    from repro_torch.graph.batch import (batch_device_arrays,
+                                         compute_level_caps)
+    from repro_torch.launch.mesh import HostSimMesh
+    from repro_torch.models.gnn import make_grad_fn_allfused
+    from repro_torch.models.params import init_params, leaves
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    rep, launches, wall = _run_multipart(torch, MULTIPART_ARGS, stamp)
+    tr, tr2, sup = rep["trainer"], rep["restored"], rep["report"]
+    cfg, plan, parts = tr.cfg, tr.plan, tr.plan.parts
+    steps = sup.steps_run
+    try:
+        if not (steps == 8 and sup.checkpoints == 2 and sup.failures == 0
+                and tr.global_steps == 8 and parts == 2):
+            fail(f"multi-partition run: {sup}, {tr.global_steps} global "
+                 f"steps, {parts} partitions")
+        layers = cfg.num_layers
+        want = {"cache_gather": 0, "gather_aggregate": parts * steps,
+                "neighbor_agg": parts * steps * (layers - 1),
+                "neighbor_agg_backward": parts * steps * (layers - 1),
+                "flash_attention": 0, "reservoir_topm": 0}
+        print(f"[multipart] {ARCH} fused, full width, {parts} partitions: "
+              f"{steps} global steps under fit_supervised; launches "
+              f"{launches} (expected {want}); run_gnn incl. both trainers' "
+              f"builds and evaluations {wall:.2f} s  [{stamp}]", flush=True)
+        if launches != want:
+            fail(f"multi-partition launches {launches}, expected {want}")
+        for slot in tr.slots:
+            st = slot.pipe.stats
+            if (st.steps != steps or len(st.losses) != steps
+                    or not all(map(math.isfinite, st.losses))):
+                fail(f"partition {slot.index}: {st.steps} steps, losses "
+                     f"{st.losses}")
+            if slot.pipe.plane.device.type != "cuda":
+                fail(f"partition {slot.index}'s plane is on "
+                     f"{slot.pipe.plane.device}")
+        if not all(p.is_cuda for p in leaves(tr.params)):
+            fail("multi-partition parameters are not on cuda")
+        secs = rep["seconds"]
+        print(f"[multipart] plan: sizes {[len(ns) for ns in plan.node_sets]}, "
+              f"edge locality {plan.edge_locality(tr.full_graph)}, kept "
+              f"information {plan.kept_information(tr.full_graph)}, halo "
+              f"rows kept {[len(hs) for hs in plan.halo_sets]} "
+              f"({plan.halo_rows} in all, budget {plan.halo_budget}), "
+              f"exchange {tr.halo_exchange_bytes} B; host seconds: planning "
+              f"{tr.plan_seconds} (the restored trainer's "
+              f"{tr2.plan_seconds}), trainer build {secs['build']} (the "
+              f"restored trainer's {secs['rebuild']})  [{stamp}]", flush=True)
+        print(f"[multipart] {steps} global steps in {secs['fit']} s: "
+              f"{steps / secs['fit']} global steps/s wall clock (the first "
+              f"incl. one-time set-up, 2 checkpoint writes incl.)  "
+              f"[{stamp}]", flush=True)
+        for slot in tr.slots:
+            st, n = slot.pipe.stats, max(slot.pipe.stats.steps, 1)
+            print(f"[multipart] partition {slot.index}: mean of {st.steps} "
+                  f"steps: sample {st.t_sample / n * 1e3:.3f} ms, batch "
+                  f"{st.t_batch / n * 1e3:.3f} ms, train "
+                  f"{st.t_train / n * 1e3:.3f} ms; losses {st.losses}; "
+                  f"cache hit rate {slot.cache.stats.hit_rate}, halo hit "
+                  f"rate {slot.halo_stats.hit_rate}  [{stamp}]", flush=True)
+        agg = PipelineStats()
+        MultiPipeline(tr)._aggregate(agg)
+        print(f"[multipart] modeled memory {tr.modeled_memory(agg)} B "
+              f"({parts} partitions, {cfg.parallel_mode}); accuracy "
+              f"{tr.evaluate()}, restored {tr2.evaluate()}; cache hit rate "
+              f"{tr.cache_hit_rate}, halo hit rate {tr.halo_hit_rate}  "
+              f"[{stamp}]", flush=True)
+
+        # 1. restore: the restored trainer holds the committed step's state
+        mgr = CheckpointManager(rep["ckpt_dir"], async_save=False)
+        step = mgr.latest_step()
+        with np.load(Path(rep["ckpt_dir"]) / f"step_{step:09d}" /
+                     "shard_0.npz") as z:
+            on_disk = {k: z[k] for k in z.files}
+        from repro_torch.train.checkpoint import _flatten_with_names
+        disk_ok = all(
+            np.array_equal(on_disk[f"{g}/{n}".replace("/", "__")],
+                           x.cpu().numpy() if isinstance(x, torch.Tensor)
+                           else np.asarray(x, np.int32))
+            for g, tree in tr2.state_dict().items()
+            for n, x in _flatten_with_names(tree))
+        stats_ok = (
+            [s.cache.stats for s in tr2.slots] ==
+            [s.cache.stats for s in tr.slots]
+            and [s.halo_stats for s in tr2.slots] ==
+            [s.halo_stats for s in tr.slots])
+        mine, theirs = leaves(tr2.state_dict()), leaves(tr.state_dict())
+        equal = len(mine) == len(theirs) and all(
+            torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+            for x, y in zip(mine, theirs))
+        print(f"[check] restore: step {step}, global_steps "
+              f"{tr2.global_steps}, params and opt_state torch.equal to the "
+              f"writer's={equal} and to the committed npz={disk_ok}; cache "
+              f"and halo statistics back={stats_ok}; restore "
+              f"{secs['restore']} s host  [{stamp}]", flush=True)
+        if not (step == 8 and tr2.global_steps == 8 and equal and disk_ok
+                and stats_ok and all(p.is_cuda for p in leaves(tr2.params))):
+            fail("the restored trainer differs from the committed checkpoint")
+        counts = _zero_counts()
+        tr2.global_step()
+        torch.cuda.synchronize()
+        after = counts()
+        if not (tr2.global_steps == 9 and after["gather_aggregate"] == parts
+                and all(math.isfinite(s.pipe.stats.losses[-1])
+                        for s in tr2.slots)):
+            fail(f"the global step after the restore: {after}, "
+                 f"global_steps {tr2.global_steps}")
+        save_dir = tempfile.mkdtemp(prefix="chip_smoke_save_")
+        try:
+            t0 = time.perf_counter()
+            tr.save(CheckpointManager(save_dir, async_save=False), step=8)
+            t_save = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(save_dir, ignore_errors=True)
+        nbytes = sum(np.asarray(x.cpu() if isinstance(x, torch.Tensor)
+                                else x).nbytes
+                     for x in leaves(tr.state_dict()))
+        print(f"[multipart] checkpoint write (synchronous, {nbytes} B of "
+              f"params and opt_state) {t_save} s, restore {secs['restore']} "
+              f"s; one global step after the restore: launches {after}  "
+              f"[{stamp}]", flush=True)
+
+        # 2. the first global step's all-reduced gradient, card against CPU,
+        # from the initial parameters (re-drawn from the seed) and the two
+        # partitions' first batches (re-derived as each pipeline drew them)
+        batches = []
+        for slot in tr.slots:
+            g = slot.graph
+            seeds = next(iter(seed_loader(g, cfg.batch_size,
+                                          tr.seed + slot.index)))
+            mb = NeighborSampler(g, cfg.fanout, weight_fn=slot.weight_fn,
+                                 seed=tr.seed + slot.index).sample(seeds)
+            caps = compute_level_caps(len(seeds), cfg.fanout, g.num_nodes)
+            arrays = batch_device_arrays(mb, level_caps=caps)
+            enc, aux, table = slot.pipe.plane.fused_inputs(
+                mb.input_ids, arrays["pads"][0])
+            batches.append({
+                "inputs": (enc.cpu(), aux.cpu(), table.cpu(),
+                           [torch.from_numpy(i) for i in arrays["neigh_idxs"]],
+                           torch.from_numpy(arrays["labels"])),
+                "n": len(mb.input_ids)})
+        means, losses = {}, {}
+        for label, dev in (("card", "cuda"), ("host", "cpu")):
+            params = init_params(tr.decls, torch.Generator().manual_seed(
+                tr.seed), dev)
+            gfn = make_grad_fn_allfused(cfg)
+            grads, ls = [], []
+            for b in batches:
+                enc, aux, table, idxs, labels = b["inputs"]
+                gr, loss, _ = gfn(params, enc.to(dev), aux.to(dev),
+                                  table.to(dev), [i.to(dev) for i in idxs],
+                                  labels.to(dev))
+                grads.append(gr)
+                ls.append(float(loss))
+            means[label] = [x.cpu() for x in
+                            leaves(grad_allreduce(HostSimMesh(parts))(grads))]
+            losses[label] = ls
+        grad_rel = max(_close(a, b) for a, b in zip(means["card"],
+                                                    means["host"]))
+        run_first = [s.pipe.stats.losses[0] for s in tr.slots]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(losses["card"] + run_first,
+                           losses["host"] + losses["host"]))
+        print(f"[check] first global step, input ids "
+              f"{[b['n'] for b in batches]}: losses cuda {losses['card']} "
+              f"cpu {losses['host']} (the run's first {run_first}); "
+              f"all-reduced gradient cuda vs cpu rel {grad_rel:.2e}, losses "
+              f"rel {loss_rel:.2e} (tolerance 1e-4)", flush=True)
+        if not (grad_rel <= 1e-4 and loss_rel <= 1e-4):
+            fail("the first global step on the card differs from the CPU "
+                 "beyond 1e-4")
+
+        # 3. halo rows in each partition's device plane equal the owner's
+        owner_local = plan.local_ids()
+        halo_ok = []
+        for slot, ns, hs in zip(tr.slots, plan.node_sets, plan.halo_sets):
+            local = np.arange(len(ns), len(ns) + len(hs))
+            resident = int(slot.cache.is_cached(local).sum())
+            got = slot.pipe.plane.fetch(local)
+            want_rows = np.stack([plan.subgraphs[q].features[owner_local[v]]
+                                  for q, v in zip(plan.owner[hs], hs)])
+            halo_ok.append((len(hs), resident,
+                            bool(np.array_equal(got, want_rows))))
+        print(f"[check] halo rows (rows, resident on the card, bit-equal to "
+              f"the owner's) per partition: {halo_ok}", flush=True)
+        if not all(ok and n == res for n, res, ok in halo_ok):
+            fail(f"halo rows in the device planes: {halo_ok}")
+
+        # 4. the failure path on the same trainer, in a new directory
+        fail_dir = tempfile.mkdtemp(prefix="chip_smoke_fail_")
+        counts = _zero_counts()
+        try:
+            t0 = time.perf_counter()
+            frep = tr.fit_supervised(4, fail_dir, ckpt_every=2,
+                                     fail_at_step=3)
+            torch.cuda.synchronize()
+            t_fail = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(fail_dir, ignore_errors=True)
+        fl = counts()
+        print(f"[check] failure path: fit_supervised(4, fail_at_step=3): "
+              f"{frep}; launches {fl}; {t_fail} s  [{stamp}]", flush=True)
+        if not (frep.final_step == 4 and frep.failures == 1
+                and frep.restores == 1 and frep.steps_run == 5
+                and fl["gather_aggregate"] == parts * frep.steps_run):
+            fail(f"failure path: {frep}, launches {fl}")
+
+        # device busy share of a warm global step: 3 un-profiled steps on
+        # the host clock, then 2 profiled ones for the device time by kernel
+        from torch.profiler import ProfilerActivity, profile
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            tr.global_step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                tr.global_step()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        if not rows:
+            fail("the profiler recorded no device time over 2 global steps")
+        busy_ms = sum(r[1] for r in rows) / 2e3
+        step_ms = float(np.median(walls)) * 1e3
+        top = "; ".join(f"{k[:60]} {t / 2e3:.3f} ms/step ({c // 2}/step)"
+                        for k, t, c in rows[:8])
+        print(f"[profile] 2 warm global steps: device busy {busy_ms:.3f} "
+              f"ms/step (kernels and copies summed), {100 * busy_ms / step_ms:.2f}"
+              f"% of the {step_ms:.1f} ms median un-profiled global step "
+              f"(of 3: {[round(w * 1e3, 1) for w in walls]} ms); top: {top}  "
+              f"[{stamp}]", flush=True)
+    finally:
+        shutil.rmtree(rep["ckpt_dir"], ignore_errors=True)
+        for t in (tr, tr2):
+            for slot in t.slots:
+                slot.pipe.shutdown()
+
+    # 5. the unfused path: each partition's plane fetch launches cache_gather
+    unfused = [a for a in MULTIPART_ARGS if a != "--fused-gather-agg"]
+    unfused[unfused.index("--steps") + 1] = "4"
+    urep, ulaunch, uwall = _run_multipart(torch, unfused, stamp)
+    utr = urep["trainer"]
+    try:
+        dispatches = sum(s.pipe.plane.gather_dispatches for s in utr.slots)
+        inputs = [s.halo_stats.inputs for s in utr.slots]
+        uwant = {"cache_gather": dispatches, "gather_aggregate": 0,
+                 "neighbor_agg": 0, "neighbor_agg_backward": 0,
+                 "flash_attention": 0, "reservoir_topm": 0}
+        print(f"[multipart] unfused, {urep['report'].steps_run} global "
+              f"steps: launches {ulaunch} (expected {uwant}: one "
+              f"cache_gather per {4096}-row chunk of each plane fetch, "
+              f"{inputs} input rows per partition); run_gnn {uwall:.2f} s  "
+              f"[{stamp}]", flush=True)
+        if not (urep["report"].steps_run == 4 and ulaunch == uwant
+                and dispatches >= 2 * 4):
+            fail(f"unfused multi-partition launches {ulaunch}, expected "
+                 f"{uwant}")
+    finally:
+        shutil.rmtree(urep["ckpt_dir"], ignore_errors=True)
+        for t in (utr, urep["restored"]):
+            for slot in t.slots:
+                slot.pipe.shutdown()
+    return {"fused": launches, "unfused": ulaunch}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1819,6 +2142,14 @@ def main() -> int:
         "train": train["launches"]["reservoir_topm"],
         "lm_prefill": lm["prefill"]["reservoir_topm"],
         "lm_serve": lm["serve"]["reservoir_topm"]}
+    multipart = phase_multipart(torch, stamp)
+    entry["multipart_unfused_launches"] = multipart["unfused"]["cache_gather"]
+    entries[1]["multipart_launches"] = multipart["fused"]["gather_aggregate"]
+    entries[2]["multipart_launches"] = multipart["fused"]["neighbor_agg"]
+    entries[2]["multipart_backward_launches"] = \
+        multipart["fused"]["neighbor_agg_backward"]
+    reservoir["path_launches"]["multipart"] = \
+        multipart["fused"]["reservoir_topm"]
     entries += [flash, reservoir]
     for mod in ("jax", "repro"):
         if mod in sys.modules:

@@ -12,11 +12,15 @@ Baseline adapters reproduce the comparison systems *as configurations*:
   * ``quiver_like``  — device-biased static hotness cache, workers, no
     sampling/caching coordination (γ=1)
 
-Not ported yet (ROADMAP.md): checkpointing (slice 3), the multi-partition
-trainer (slice 3), the autotune hooks (slice 4).
+Checkpoint/restore rides ``train/checkpoint.py`` and streamed feature
+updates ``graph/storage.py``'s ``FeatureStreamConsumer``; ``make_trainer``
+builds the multi-partition trainer (core/multipart.py) for
+``partitions > 1``.  Not ported yet (ROADMAP.md): the autotune hooks
+``apply_live_config`` and ``fit_autotuned`` (slice 5).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -35,10 +39,11 @@ from repro_torch.core.sampling import NeighborSampler, seed_loader
 from repro_torch.graph.batch import (batch_device_arrays, compute_level_caps,
                                      generate_batch)
 from repro_torch.graph.partition import overlap_ratio, partition
-from repro_torch.graph.storage import Graph
+from repro_torch.graph.storage import FeatureStreamConsumer, Graph
 from repro_torch.models.gnn import (decls_gnn, make_eval_fn, make_train_step,
                                     make_train_step_allfused)
 from repro_torch.models.params import init_params, param_bytes
+from repro_torch.train.checkpoint import TrainerCheckpointMixin
 from repro_torch.train.optimizer import make_adamw
 
 RUNTIME_BYTES = 16 * 2**20        # fixed per-worker runtime context (Eq. 3)
@@ -77,7 +82,7 @@ def apply_baseline(cfg: GNNConfig, baseline: Optional[str]) -> GNNConfig:
     raise ValueError(baseline)
 
 
-class A3GNNTrainer:
+class A3GNNTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
     def __init__(self, graph: Graph, cfg: GNNConfig, seed: int = 0,
                  device="cuda"):
         self.full_graph = graph
@@ -113,6 +118,25 @@ class A3GNNTrainer:
 
     def _to_device(self, a):
         return torch.from_numpy(a).to(self.device)
+
+    # ------------------------------------------------------------------
+    # streaming feature updates — attach/detach from FeatureStreamConsumer
+    # (graph/storage.py); single-partition routing: refresh resident rows
+    # ------------------------------------------------------------------
+    def _check_feature_store_target(self):
+        if self.graph is not self.full_graph:
+            raise ValueError("attach_feature_store needs the undivided "
+                             "graph (partitions=1); use "
+                             "MultiPartitionTrainer for partition fleets")
+
+    def _on_feature_update(self, ids, rows):
+        # the store already wrote the host rows; pull resident copies
+        # (device mirrors re-sync off FeatureCache.version), so the
+        # trainer — and every serving engine sharing its plane — observes
+        # the drift
+        del rows
+        if self.cache is not None:
+            self.cache.refresh_rows(ids)
 
     # ------------------------------------------------------------------
     def _train_fn(self, mb, plane=None):
@@ -266,6 +290,19 @@ class A3GNNTrainer:
     def set_weights(self, weights: Dict):
         self.params = weights["params"]
 
+    # checkpoint/restart interface: TrainerCheckpointMixin provides
+    # state_dict/load_state_dict/save/restore (+ the partition-count guard)
+    def checkpoint_extra(self) -> Dict:
+        return {**super().checkpoint_extra(),
+                "cache_stats": [dataclasses.asdict(self.cache.stats)
+                                if self.cache is not None else None]}
+
+    def apply_live_config(self, knobs: Dict, pipe=None):
+        raise NotImplementedError(f"apply_live_config (slice 5): {NOT_PORTED}")
+
+    def fit_autotuned(self, autotune=None, seed: Optional[int] = None):
+        raise NotImplementedError(f"fit_autotuned (slice 5): {NOT_PORTED}")
+
     # ------------------------------------------------------------------
     def evaluate(self, max_batches: int = 8) -> float:
         sampler = NeighborSampler(self.graph, self.cfg.fanout, weight_fn=None,
@@ -292,11 +329,14 @@ class A3GNNTrainer:
 
 
 def make_trainer(graph: Graph, cfg: GNNConfig, seed: int = 0,
-                 device="cuda"):
-    """Trainer factory: the single-partition ``A3GNNTrainer``.  The
-    multi-partition trainer (``cfg.partitions > 1``) is slice 3's work."""
+                 partition_method: str = "locality", device="cuda"):
+    """Trainer factory: the multi-partition scale-out trainer when
+    ``cfg.partitions > 1``, the classic single-partition ``A3GNNTrainer``
+    otherwise.  Both share the checkpoint/restore interface."""
     if cfg.partitions > 1:
-        raise NotImplementedError(f"partitions > 1 (slice 3): {NOT_PORTED}")
+        from repro_torch.core.multipart import MultiPartitionTrainer
+        return MultiPartitionTrainer(graph, cfg, seed=seed,
+                                     method=partition_method, device=device)
     return A3GNNTrainer(graph, cfg, seed=seed, device=device)
 
 

@@ -5,24 +5,89 @@ reporting the paper's metrics:
   PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage-products \
       --sampling-device device --fused-gather-agg --steps 8
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage-products \
+      --partitions 2 --halo-budget 4096 --sampling-device device \
+      --fused-gather-agg --steps 8
+
 Everything runs on ``--device`` (default ``cuda``); ``--device cpu`` runs
 the plain versions of the kernels on the host.  ``--fused-gather-agg``
 takes the all-hop fused step (the ``gather_aggregate`` and
-``neighbor_agg`` kernels, forward and backward).  The online auto-tuner
-(``--autotune``), the multi-partition scale-out (``--partitions`` > 1) and
+``neighbor_agg`` kernels, forward and backward).  ``--partitions`` > 1
+takes the multi-partition scale-out (``run_gnn_multipartition``): a
+locality plan with a bounded halo, gradient-synchronised global steps
+under the fault-tolerance supervisor with checkpoints, then a fresh
+trainer that restores the committed checkpoint; every partition runs on
+the one ``--device``.  The online auto-tuner (``--autotune``, slice 5) and
 the LM workloads are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import tempfile
+import time
 from typing import Dict
 
 NOT_PORTED = "not ported yet — see ROADMAP.md"
 
 
+def run_gnn_multipartition(args, cfg, graph) -> Dict:
+    """Scale-out GNN path: locality-partitioned data parallelism under the
+    fault-tolerance supervisor, with a restart-path restore proof.  Returns
+    the trainer, the supervisor's report, the restored trainer, the
+    checkpoint directory and the host seconds of each part."""
+    from repro_torch.core.a3gnn import make_trainer
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    tr = make_trainer(graph, cfg, seed=args.seed, device=args.device)
+    t_build = time.perf_counter() - t0
+    plan = tr.plan
+    print(f"[partition] {plan.parts} partitions ({plan.method}): "
+          f"sizes={[len(ns) for ns in plan.node_sets]} "
+          f"edge_locality={plan.edge_locality(graph):.3f} "
+          f"halo={plan.halo_counts}")
+    if plan.halo_budget > 0:
+        print(f"[halo] budget={plan.halo_budget}/partition "
+              f"kept={[len(hs) for hs in plan.halo_sets]} "
+              f"kept_information={plan.kept_information(graph):.3f} "
+              f"(vs {plan.edge_locality(graph):.3f} at budget=0) "
+              f"exchange={tr.halo_exchange_bytes/2**10:.1f} KiB")
+    # fresh dir per run unless the caller pins one — a reused dir would
+    # let keep-k GC favor a previous (longer) run's higher step numbers
+    # and the restore proof below would resurrect stale parameters
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(
+        prefix=f"ckpt_gnn_p{cfg.partitions}_")
+    t0 = time.perf_counter()
+    rep = tr.fit_supervised(args.steps, ckpt_dir,
+                            ckpt_every=max(args.steps // 2, 1))
+    t_fit = time.perf_counter() - t0
+    acc = tr.evaluate()
+    halo_note = (f" halo_hit={tr.halo_hit_rate:.3f}"
+                 if plan.halo_budget > 0 else "")
+    print(f"[result] {rep.steps_run} global steps "
+          f"({rep.steps_run * plan.parts} partition mini-batches), "
+          f"checkpoints={rep.checkpoints} acc={acc:.4f} "
+          f"cache_hit={tr.cache_hit_rate:.3f}{halo_note}")
+    # restart-path proof: rebuild a fresh trainer and restore the committed
+    # checkpoint (the same machinery a partitions restart uses)
+    t0 = time.perf_counter()
+    tr2 = make_trainer(graph, cfg, seed=args.seed, device=args.device)
+    t_rebuild = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = tr2.restore(CheckpointManager(ckpt_dir, async_save=False))
+    t_restore = time.perf_counter() - t0
+    print(f"[restore] fresh trainer restored from step {step} "
+          f"(global_steps={tr2.global_steps}) acc={tr2.evaluate():.4f}")
+    return {"trainer": tr, "report": rep, "restored": tr2,
+            "ckpt_dir": ckpt_dir,
+            "seconds": {"build": t_build, "fit": t_fit,
+                        "rebuild": t_rebuild, "restore": t_restore}}
+
+
 def run_gnn(args) -> Dict:
     """Train ``args.steps`` steps per epoch and print the result and the
-    stage split.  Returns the trainer and its ``RunResult``."""
+    stage split.  Returns the trainer and its ``RunResult``; with
+    ``--partitions`` > 1, what ``run_gnn_multipartition`` returns."""
     from repro_torch.configs import get_config
     from repro_torch.core.a3gnn import A3GNNTrainer, apply_baseline
     from repro_torch.graph.synthetic import dataset_like
@@ -32,6 +97,14 @@ def run_gnn(args) -> Dict:
         cfg = cfg.replace(parallel_mode=args.mode)
     if args.bias_rate is not None:
         cfg = cfg.replace(bias_rate=args.bias_rate)
+    if args.partitions is not None:
+        cfg = cfg.replace(partitions=args.partitions)
+    if args.halo_budget is not None:
+        cfg = cfg.replace(halo_budget=args.halo_budget)
+    if args.halo_refresh_interval is not None:
+        cfg = cfg.replace(halo_refresh_interval=args.halo_refresh_interval)
+    if args.rebalance_drift is not None:
+        cfg = cfg.replace(rebalance_drift=args.rebalance_drift)
     if args.sampling_device is not None:
         cfg = cfg.replace(sampling_device=args.sampling_device)
     if args.fused_gather_agg:
@@ -40,6 +113,8 @@ def run_gnn(args) -> Dict:
     graph = dataset_like(cfg, seed=args.seed)
     print(f"[data] {graph.name}: {graph.num_nodes} nodes, "
           f"{graph.num_edges} edges")
+    if cfg.partitions > 1:
+        return run_gnn_multipartition(args, cfg, graph)
     tr = A3GNNTrainer(graph, cfg, seed=args.seed, device=args.device)
     res = tr.run_epochs(args.epochs, max_steps_per_epoch=args.steps)
     print(f"[result] thr={res.throughput_epochs_s:.4f} ep/s "
@@ -68,7 +143,24 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=[None, "seq", "mode1", "mode2"])
     ap.add_argument("--bias-rate", type=float, default=None)
     ap.add_argument("--partitions", type=int, default=None,
-                    help="data-parallel graph partitions (not ported yet)")
+                    help="data-parallel graph partitions (scale-out path; "
+                         "every partition on the one --device)")
+    ap.add_argument("--halo-budget", type=int, default=None,
+                    help="per-partition cap on boundary feature rows "
+                         "exchanged through the mesh (0 = drop cut edges, "
+                         "the paper's no-remote-access setting)")
+    ap.add_argument("--halo-refresh-interval", type=int, default=None,
+                    help="re-run the bounded halo exchange every N global "
+                         "steps when streamed feature updates left halo "
+                         "copies stale (0 = explicit refresh only)")
+    ap.add_argument("--rebalance-drift", type=float, default=None,
+                    help="cut-fraction drift past the plan baseline that "
+                         "triggers an incremental partition re-balance "
+                         "between global steps on a mutating graph "
+                         "(boundary-node migration; <= 0 disables)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory of the multi-partition path "
+                         "(default: a fresh temporary directory)")
     ap.add_argument("--sampling-device", default=None,
                     choices=[None, "cpu", "device", "auto"],
                     help="feature-plane backend for batch generation: cpu "
@@ -80,7 +172,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "hop from encoded cache slots + a miss sideband and "
                          "aggregates every hop in place")
     ap.add_argument("--autotune", action="store_true",
-                    help="online auto-tuning controller (not ported yet)")
+                    help="online auto-tuning controller (slice 5, not "
+                         "ported yet)")
     return ap
 
 
@@ -88,10 +181,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.arch.startswith("graphsage"):
         raise SystemExit(f"LM training: {NOT_PORTED}")
-    if args.partitions is not None and args.partitions > 1:
-        raise SystemExit(f"--partitions > 1: {NOT_PORTED}")
     if args.autotune:
-        raise SystemExit(f"--autotune: {NOT_PORTED}")
+        raise SystemExit(f"--autotune (slice 5): {NOT_PORTED}")
     run_gnn(args)
     return 0
 

@@ -1,4 +1,5 @@
-"""Carry parameters between the JAX package and the port.
+"""Carry parameters and optimizer state between the JAX package and the
+port.
 
 Both packages keep the same trees with the same layouts: the GNN's
 ``{"layers": [{name: array}]}`` with ``(din, dout)`` weights, and the LM's
@@ -27,3 +28,12 @@ def params_to_numpy(params):
     """The port's parameters → the same tree of ``np.ndarray``, the form
     the JAX package's functions accept."""
     return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+def opt_state_from_jax(state, device="cuda"):
+    """A JAX AdamW state ``{"m", "v", "count"}`` (array-likes) → the port's:
+    ``m`` and ``v`` as tensors on ``device``, ``count`` (an int32 0-d array
+    there) as the Python ``int`` the port's optimizer keeps."""
+    return {"m": params_from_jax(state["m"], device),
+            "v": params_from_jax(state["v"], device),
+            "count": int(np.asarray(state["count"]))}

@@ -232,21 +232,43 @@ def gnn_loss_allfused(params, enc0, aux0, table, neigh_idxs, labels, cfg):
     return _softmax_ce(logits, labels)
 
 
-def _make_step(loss_fn, cfg, opt):
-    """One step of ``loss_fn(params, *inputs)``: gradients by autograd, the
-    update by the functional ``opt``.  The returned parameters are new
-    tensors; the inputs are not modified."""
+def _make_grad(loss_fn):
+    """(params, *inputs) → (grads, loss, acc): the gradients of
+    ``loss_fn(params, *inputs)`` by autograd, in the tree of ``params``."""
 
-    def step(params, opt_state, *inputs):
+    def gfn(params, *inputs):
         flat = [p.detach().requires_grad_(True) for p in leaves(params)]
         live = unflatten(params, flat)
         loss, acc = loss_fn(live, *inputs)
         grads = unflatten(params, torch.autograd.grad(loss, flat))
+        return grads, loss.detach(), acc
+    return gfn
+
+
+def make_apply_fn(cfg, opt):
+    """(params, opt_state, grads) → (params, opt_state): the functional
+    ``opt`` update from given (e.g. all-reduced) gradients.  The returned
+    parameters are new tensors; the inputs are not modified."""
+
+    def apply(params, opt_state, grads):
         with torch.no_grad():
             updates, opt_state = opt.update(grads, opt_state, params, cfg.lr)
             params = unflatten(params, [p + u.to(p.dtype) for p, u in
                                         zip(leaves(params), leaves(updates))])
-        return params, opt_state, loss.detach(), acc
+        return params, opt_state
+    return apply
+
+
+def _make_step(loss_fn, cfg, opt):
+    """One step of ``loss_fn(params, *inputs)``: the gradients of
+    ``_make_grad``, then the update of ``make_apply_fn`` — so grad + apply
+    of one partition is this step bit for bit."""
+    grad, apply = _make_grad(loss_fn), make_apply_fn(cfg, opt)
+
+    def step(params, opt_state, *inputs):
+        grads, loss, acc = grad(params, *inputs)
+        params, opt_state = apply(params, opt_state, grads)
+        return params, opt_state, loss, acc
     return step
 
 
@@ -274,6 +296,32 @@ def make_train_step_allfused(cfg, opt):
 
     step.counters = counters
     return step
+
+
+def make_grad_fn(cfg):
+    """(params, features, neigh_idxs, labels) → (grads, loss, acc): the
+    unfused step WITHOUT the optimizer update — the multi-partition path
+    (core/multipart.py) averages gradients across partitions before
+    applying one shared update (``make_apply_fn``)."""
+    return _make_grad(lambda p, feats, idxs, labels:
+                      gnn_loss(p, feats, idxs, labels, cfg))
+
+
+def make_grad_fn_allfused(cfg):
+    """All-hop fused twin of ``make_grad_fn``: (params, enc0, aux0, table,
+    neigh_idxs, labels) → (grads, loss, acc); ``gfn.counters["calls"]``
+    counts invocations."""
+    counters = {"calls": 0}
+    inner = _make_grad(lambda p, enc0, aux0, table, idxs, labels:
+                       gnn_loss_allfused(p, enc0, aux0, table, idxs, labels,
+                                         cfg))
+
+    def gfn(params, enc0, aux0, table, neigh_idxs, labels):
+        counters["calls"] += 1
+        return inner(params, enc0, aux0, table, neigh_idxs, labels)
+
+    gfn.counters = counters
+    return gfn
 
 
 def make_eval_fn(cfg):

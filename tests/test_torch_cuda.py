@@ -883,3 +883,59 @@ def test_reservoir_refuses_a_layout_that_does_not_fit(card):
         with pytest.raises(ValueError, match="layout"):
             reservoir_topm(w, u, mask, 5, plan=plan)
     assert reservoir_topm.launches == launches
+
+
+# ---------------------------------------------------------------------------
+# the multi-partition slice: the fused global step and the checkpoint
+# ---------------------------------------------------------------------------
+
+def test_two_partition_fused_global_step_on_the_card(card):
+    """Two fused 2-partition global steps on the card against the same
+    steps on the CPU: the same seeded parameters, the same plan and the
+    same sampled batches; each partition's loss within rel 1e-4."""
+    from repro_torch.core.multipart import MultiPartitionTrainer
+    from repro_torch.kernels.fused_gather_agg.ops import gather_aggregate
+    from repro_torch.models.params import leaves
+    cfg = gnn_config("products", smoke=True, partitions=2, halo_budget=32,
+                     fused_gather_agg=True, sampling_device="device",
+                     cache_volume_mb=0.1)
+    runs = []
+    for dev in (card, "cpu"):
+        tr = MultiPartitionTrainer(dataset_like(cfg, seed=0), cfg, seed=0,
+                                   device=dev)
+        launches = gather_aggregate.launches
+        try:
+            tr.global_step()
+            tr.global_step()
+        finally:
+            for s in tr.slots:
+                s.pipe.shutdown()
+        runs.append((tr, gather_aggregate.launches - launches))
+    (gpu, n_gpu), (cpu, _) = runs
+    assert n_gpu == 4                        # 2 partitions × 2 global steps
+    assert all(p.is_cuda for p in leaves(gpu.params))
+    assert all(s.pipe.plane.device.type == "cuda" for s in gpu.slots)
+    for sg, sc in zip(gpu.slots, cpu.slots):
+        np.testing.assert_allclose(sg.pipe.stats.losses, sc.pipe.stats.losses,
+                                   rtol=1e-4, atol=0)
+        assert sg.cache.stats == sc.cache.stats
+        assert sg.halo_stats == sc.halo_stats
+
+
+def test_checkpoint_from_the_card_restores_onto_it(card, tmp_path):
+    from repro_torch.train.checkpoint import CheckpointManager
+    g = torch.Generator(device=card).manual_seed(0)
+    state = {"params": {"layers": [
+        {"w": torch.randn(100, 256, device=card, generator=g),
+         "b": torch.randn(256, device=card, generator=g)}]},
+        "opt_state": {"count": 3}}
+    want = state["params"]["layers"][0]["w"].clone()
+    cm = CheckpointManager(tmp_path, async_save=True)
+    cm.save(3, state)
+    state["params"]["layers"][0]["w"].add_(1.0)   # after the snapshot
+    cm.wait()
+    out, step = cm.restore(state)
+    assert step == 3 and out["opt_state"]["count"] == 3
+    got = out["params"]["layers"][0]
+    assert got["w"].is_cuda and torch.equal(got["w"], want)
+    assert torch.equal(got["b"], state["params"]["layers"][0]["b"])

@@ -43,7 +43,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "kernels.fused_gather_agg.ops", "launch.serve",
                  "launch.train", "models.transformer", "models.api",
                  "serve.engine", "kernels.flash_attention.ops",
-                 "kernels.reservoir.ops"):
+                 "kernels.reservoir.ops", "train.checkpoint",
+                 "train.fault_tolerance", "launch.mesh",
+                 "distributed.collectives", "core.multipart"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["leaked"] == []
 
@@ -60,6 +62,21 @@ def test_device_plane_on_cuda_raises_without_cuda():
         DeviceFeaturePlane(g, None, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         make_feature_plane(g, None, "auto")       # auto follows cuda, no probe
+
+
+def test_multipartition_on_cuda_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs.gnn import gnn_config
+    from repro_torch.core.a3gnn import make_trainer
+    from repro_torch.graph.synthetic import dataset_like
+    from repro_torch.launch.train import main
+    cfg = gnn_config("products", smoke=True, partitions=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_trainer(dataset_like(cfg, seed=0), cfg)   # device defaults cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "graphsage-products", "--smoke", "--partitions", "2",
+              "--ckpt-dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

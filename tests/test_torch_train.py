@@ -196,8 +196,6 @@ def test_launch_train_runs_the_slice_on_cpu(capsys):
 @pytest.mark.parametrize("argv", [
     ["--arch", "graphsage-products", "--smoke", "--device", "cpu",
      "--autotune"],
-    ["--arch", "graphsage-products", "--smoke", "--device", "cpu",
-     "--partitions", "2"],
     ["--arch", "qwen3-4b", "--smoke", "--device", "cpu"],
 ])
 def test_unported_branches_refuse(argv):
@@ -205,10 +203,22 @@ def test_unported_branches_refuse(argv):
         main(argv)
 
 
-def test_make_trainer_refuses_partitions():
+def test_launch_train_runs_partitions(capsys):
+    assert main(["--arch", "graphsage-products", "--smoke", "--device",
+                 "cpu", "--partitions", "2", "--steps", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "[partition] 2 partitions" in out
+    assert "[restore] fresh trainer restored from step 2" in out
+
+
+def test_make_trainer_builds_multipartition():
+    from repro_torch.core.multipart import MultiPartitionTrainer
     cfg = gnn_config("products", smoke=True, partitions=2)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        make_trainer(None, cfg, device="cpu")
+    tr = make_trainer(dataset_like(cfg, seed=0), cfg, device="cpu")
+    assert isinstance(tr, MultiPartitionTrainer) and len(tr.slots) == 2
+    assert isinstance(make_trainer(dataset_like(cfg, seed=0),
+                                   cfg.replace(partitions=1), device="cpu"),
+                      A3GNNTrainer)
 
 
 def test_device_defaults_to_cuda():
