@@ -110,7 +110,28 @@ Phases; any failure exits non-zero:
    chunk of each partition's plane fetch and no other kernel.  It also
    prints the device time by kernel of 2 warm global steps
    (``torch.profiler``) against the median of 3 un-profiled ones.
-   Checkpoints go to temporary directories that the phase removes.
+   Checkpoints go to temporary directories that the phase removes;
+10. the online auto-tuner at full width — (a) ``repro_torch.launch.train
+   --arch graphsage-products --sampling-device device --fused-gather-agg
+   --autotune --episodes-autotune 4 --steps 10`` through ``run_gnn``, launch
+   counts zeroed just before and read just after (2 warm-up and 4 × 10
+   fused steps: ``gather_aggregate`` 42, ``neighbor_agg`` and its backward
+   84 each, nothing else); per episode the configuration, the measured
+   throughput, memory and accuracy, the hit rate, the surrogate's predicted
+   point and the host seconds of PROPOSE, RECONFIGURE and MEASURE (the
+   controller's ``propose``, ``_apply_config`` and ``measure``, wrapped by
+   this script); the PPO agent's parameters on the card, and one PPO update
+   on the card within 1e-5 of the same update on the CPU; (b) one
+   controller (``tune_sampling_device``, ``max_partitions=2``,
+   ``max_halo_budget=4096``) on a fresh full-width trainer: the plane
+   flipped device → cpu → device over one cache, one fused step from one
+   state and batch on each plane, losses and updated parameters bit-equal
+   (``gather_aggregate``'s table path against its all-sideband path); a
+   restart to 2 partitions with a 4096-row halo (params and ``opt_state``
+   ``torch.equal`` across it; the checkpoint write, planning and restore
+   seconds) and a 4-global-step episode; the halo budget swapped live to
+   0 on the same trainer; a restart back to 1 partition, again
+   ``torch.equal``, and one step.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels and the
@@ -142,6 +163,10 @@ TRAIN_ARGS = ["--arch", ARCH, "--sampling-device", "device",
 MULTIPART_ARGS = ["--arch", ARCH, "--partitions", "2", "--halo-budget",
                   "4096", "--sampling-device", "device", "--fused-gather-agg",
                   "--steps", "8"]
+AUTOTUNE_EPISODES, AUTOTUNE_STEPS = 4, 10
+AUTOTUNE_ARGS = ["--arch", ARCH, "--sampling-device", "device",
+                 "--fused-gather-agg", "--autotune", "--episodes-autotune",
+                 str(AUTOTUNE_EPISODES), "--steps", str(AUTOTUNE_STEPS)]
 TIMED_LAUNCHES = 50
 PROFILE_CALLS = 20               # calls in a profiled window of a small kernel
 PROFILE_TRIES = 3                # windows before an empty profile fails
@@ -2103,6 +2128,274 @@ def phase_multipart(torch, stamp: str) -> dict:
     return {"fused": launches, "unfused": ulaunch}
 
 
+@contextlib.contextmanager
+def _timed(torch, cls, names, log: list):
+    """Wrap each method ``names`` of ``cls`` so that a call appends (name,
+    host seconds up to a synchronised card, the instance, the arguments) to
+    ``log``; the methods are restored on exit."""
+    saved = {n: cls.__dict__[n] for n in names}
+
+    def wrap(name, fn):
+        def timed(self, *a, **k):
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            log.append((name, time.perf_counter() - t0, self, a))
+            return out
+        return timed
+    for n, fn in saved.items():
+        setattr(cls, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
+def _clone(torch, tree):
+    """A copy of a trainer's ``state_dict()`` whose tensors are new."""
+    from repro_torch.models.params import tree_map
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+def _state_equal(torch, tr, state) -> bool:
+    from repro_torch.models.params import leaves
+    mine, want = leaves(tr.state_dict()), leaves(state)
+    return len(mine) == len(want) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(mine, want))
+
+
+def phase_autotune(torch, stamp: str) -> dict:
+    """The online auto-tuner at full width (phase 10): (a) the CLI path,
+    (b) a scripted plane flip, restarts and a halo swap on one controller.
+    Returns the launch counts of (a)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.gnn import AutotuneConfig
+    from repro_torch.core.a3gnn import A3GNNTrainer
+    from repro_torch.core.autotune.controller import (AutotuneController,
+                                                      episode_space)
+    from repro_torch.core.autotune.ppo import PPOAgent, PPOConfig
+    from repro_torch.core.feature_plane import (DeviceFeaturePlane,
+                                                HostFeaturePlane)
+    from repro_torch.core.multipart import MultiPartitionTrainer
+    from repro_torch.core.sampling import NeighborSampler, seed_loader
+    from repro_torch.graph.batch import generate_batch
+    from repro_torch.launch.train import build_parser, run_gnn
+    from repro_torch.models.params import leaves
+    from repro_torch.train.checkpoint import TrainerCheckpointMixin
+
+    # (a) the CLI path, every controller phase timed on the host
+    args = build_parser().parse_args(AUTOTUNE_ARGS)
+    log: list = []
+    buf = io.StringIO()
+    with _timed(torch, AutotuneController,
+                ("propose", "_apply_config", "measure"), log):
+        counts = _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = run_gnn(args)
+        torch.cuda.synchronize()
+        launches = counts()
+        wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"{line}  [{stamp}]", flush=True)
+    rep, tr = out["report"], out["trainer"]
+    ctrl = log[-1][2]
+    # warm-up (AutotuneConfig.warmup_steps, seq) and every episode's steps
+    # are fused steps: 1 gather_aggregate, (layers - 1) neighbor_agg
+    # forwards and as many backwards each; evaluate() runs the unfused
+    # forward (plain torch) and fused_inputs no cache_gather
+    steps = AutotuneConfig().warmup_steps + AUTOTUNE_EPISODES * AUTOTUNE_STEPS
+    hops = tr.cfg.num_layers - 1
+    want = {"cache_gather": 0, "gather_aggregate": steps,
+            "neighbor_agg": hops * steps, "neighbor_agg_backward": hops * steps,
+            "flash_attention": 0, "reservoir_topm": 0}
+    print(f"[autotune] {ARCH} fused, full width: {len(rep.episodes)} "
+          f"episodes x {AUTOTUNE_STEPS} steps after {ctrl.acfg.warmup_steps} "
+          f"warm-up steps; launches {launches} (expected {want}); run_gnn "
+          f"incl. the trainer build {wall:.2f} s  [{stamp}]", flush=True)
+    if launches != want:
+        fail(f"autotune launches {launches}, expected {want}")
+    if [ep.steps for ep in rep.episodes] != [AUTOTUNE_STEPS] * \
+            AUTOTUNE_EPISODES:
+        fail(f"autotune episodes ran {[ep.steps for ep in rep.episodes]} "
+             f"steps")
+    pending = {"propose": 0.0, "_apply_config": 0.0}
+    for name, secs, _, a in log:
+        if name != "measure":
+            pending[name] += secs
+            continue
+        ep = rep.episodes[a[0]]
+        m, pred = ep.metrics, ep.predicted
+        print(f"[autotune] episode {ep.index}: config {ep.config}; measured "
+              f"throughput {m['throughput']} steps/s, memory {m['memory']} B, "
+              f"accuracy {m['accuracy']}; hit rate {ep.cache_hit_rate}; "
+              f"surrogate predicted {pred}; host seconds: propose "
+              f"{pending['propose']}, reconfigure {pending['_apply_config']}, "
+              f"measure {secs}  [{stamp}]", flush=True)
+        if not all(map(math.isfinite, m.values())):
+            fail(f"episode {ep.index}: metrics {m}")
+        pending = {"propose": 0.0, "_apply_config": 0.0}
+    print(f"[autotune] best episode {rep.best.index} (feasible "
+          f"{rep.best_feasible}); reconfigure to it {pending['_apply_config']}"
+          f" s; trainer left on {tr.cfg.parallel_mode}, workers "
+          f"{tr.cfg.workers}, Θ {tr.cfg.cache_volume_mb} MB  [{stamp}]",
+          flush=True)
+    agent = ctrl.agent
+    on_card = all(p.is_cuda for p in agent.parameters())
+    if not (on_card and all(p.is_cuda for p in leaves(tr.params))):
+        fail("the PPO agent or the trainer is not on cuda")
+
+    # one PPO update on the card against the same update on the CPU, from
+    # one seed and one rollout against the run's surrogate
+    def agent_on(dev):
+        return PPOAgent(episode_space(ctrl.acfg), ctrl._surrogate_eval,
+                        agent.w, ctrl.feasible,
+                        PPOConfig(horizon=ctrl.acfg.ppo_horizon, seed=0),
+                        device=dev)
+    host, card = agent_on("cpu"), agent_on("cuda")
+    same_init = all(torch.equal(x.cpu(), y) for x, y in
+                    zip(card.parameters(), host.parameters()))
+    s, a, logp, r, v = host._rollout(
+        np.random.default_rng(0).random(host.space.dim))
+    adv, ret = host._gae(r, v)
+    for ag in (host, card):
+        ag._update((s, a, logp, ret, adv))
+    ppo_err = max(float((x.detach().cpu() - y.detach()).abs().max())
+                  for x, y in zip(card.parameters(), host.parameters()))
+    n_ppo = sum(p.numel() for p in agent.parameters())
+    print(f"[check] PPO agent on {agent.device} ({n_ppo} parameters); one "
+          f"update on the card vs the "
+          f"CPU from one seed (initial weights equal={same_init}): max abs "
+          f"diff {ppo_err:.2e} (tolerance 1e-5)", flush=True)
+    if not (same_init and ppo_err <= 1e-5):
+        fail("the PPO update on the card differs from the CPU")
+
+    # (b) a scripted run on one controller at full width
+    cfg = get_config(ARCH).replace(sampling_device="device",
+                                   fused_gather_agg=True)
+    tb = A3GNNTrainer(tr.full_graph, cfg, seed=0, device="cuda")
+    restart_dir = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    ctrl = AutotuneController(tb, tb.make_pipeline(), AutotuneConfig(
+        steps_per_episode=4, warmup_steps=0, tune_sampling_device=True,
+        max_partitions=2, max_halo_budget=4096, restart_dir=restart_dir,
+        seed=0))
+    try:
+        # 1. device -> cpu -> device planes over one cache: one fused step
+        # from one state and batch, the table path against the sideband
+        seeds = next(iter(seed_loader(tb.graph, cfg.batch_size, 0)))
+        mb = generate_batch(NeighborSampler(tb.graph, cfg.fanout,
+                                            weight_fn=tb.weight_fn,
+                                            seed=0).sample(seeds),
+                            ctrl.pipe.plane, tb.graph, fused=True)
+        if mb.features is not None:
+            fail("the fused batch carries features")
+        state = _clone(torch, tb.state_dict())
+        flips = []
+        counts = _zero_counts()
+        for dev, kind in (("device", DeviceFeaturePlane),
+                          ("cpu", HostFeaturePlane),
+                          ("device", DeviceFeaturePlane)):
+            t0 = time.perf_counter()
+            ctrl._apply_config({"sampling_device": dev})
+            t_swap = time.perf_counter() - t0
+            plane = ctrl.pipe.plane
+            if not (isinstance(plane, kind) and plane.cache is tb.cache):
+                fail(f"sampling_device={dev}: plane {plane}")
+            tb.load_state_dict(_clone(torch, state))
+            loss, _ = tb._train_fn(mb, plane)
+            flips.append((dev, loss, t_swap, [p.clone() for p in
+                                              leaves(tb.params)]))
+        torch.cuda.synchronize()
+        fl = counts()
+        same = all(f[1] == flips[0][1] and all(
+            torch.equal(x, y) for x, y in zip(f[3], flips[0][3]))
+            for f in flips)
+        print(f"[check] plane flip device -> cpu -> device, one cache, "
+              f"{len(mb.input_ids)} input ids: fused-step losses "
+              f"{[f[1] for f in flips]}, updated params bit-equal={same}; "
+              f"swap host seconds {[round(f[2], 6) for f in flips]}; "
+              f"launches {fl}  [{stamp}]", flush=True)
+        if not (same and fl["gather_aggregate"] == 3):
+            fail("the fused step differs between the device and cpu planes")
+        tb.load_state_dict(state)
+
+        # 2. restart to 2 partitions with a 4096-row halo budget
+        tlog: list = []
+        before = _clone(torch, tb.state_dict())
+        with _timed(torch, TrainerCheckpointMixin, ("save", "restore"),
+                    tlog):
+            t0 = time.perf_counter()
+            ctrl._apply_config({"partitions": 2, "halo_budget": 4096})
+            t_restart = time.perf_counter() - t0
+        mp = ctrl.tr
+        secs = {name: t for name, t, _, _ in tlog}
+        carried = _state_equal(torch, mp, before)
+        print(f"[autotune] restart 1 -> 2 partitions, halo budget 4096: "
+              f"{t_restart} s host, of which checkpoint write {secs['save']}"
+              f", planning {mp.plan_seconds}, restore {secs['restore']}; "
+              f"params and opt_state torch.equal={carried}  [{stamp}]",
+              flush=True)
+        if not (isinstance(mp, MultiPartitionTrainer) and mp.plan.parts == 2
+                and mp.plan.halo_budget == 4096 and carried
+                and mp.device.type == "cuda" and ctrl.restarts == 1):
+            fail("the restart to 2 partitions did not carry the state over")
+        counts = _zero_counts()
+        ep = ctrl.measure(1, ctrl._current_config())
+        torch.cuda.synchronize()
+        got = counts()
+        ewant = {"cache_gather": 0, "gather_aggregate": 8,
+                 "neighbor_agg": 8 * hops, "neighbor_agg_backward": 8 * hops,
+                 "flash_attention": 0, "reservoir_topm": 0}
+        print(f"[autotune] episode at 2 partitions, 4 global steps: "
+              f"{ep.steps} partition steps, metrics {ep.metrics}, hit rate "
+              f"{ep.cache_hit_rate}, halo hit rate {mp.halo_hit_rate}; "
+              f"launches {got} (expected {ewant})  [{stamp}]", flush=True)
+        if not (ep.steps == 8 and got == ewant
+                and all(map(math.isfinite, ep.metrics.values()))):
+            fail(f"the 2-partition episode: {ep.steps} steps, {got}")
+
+        # 3. the halo budget swapped live to 0: no restart
+        before = _clone(torch, mp.state_dict())
+        t0 = time.perf_counter()
+        ctrl._apply_config({"halo_budget": 0})
+        t_halo = time.perf_counter() - t0
+        ok = (ctrl.tr is mp and mp.plan.halo_budget == 0
+              and ctrl.restarts == 1 and _state_equal(torch, mp, before))
+        print(f"[autotune] halo budget 4096 -> 0 live: {t_halo} s host, the "
+              f"same trainer, state carried={ok}  [{stamp}]", flush=True)
+        if not ok:
+            fail("the live halo swap rebuilt the trainer or lost its state")
+
+        # 4. restart back to 1 partition
+        before = _clone(torch, mp.state_dict())
+        t0 = time.perf_counter()
+        ctrl._apply_config({"partitions": 1})
+        t_back = time.perf_counter() - t0
+        back = ctrl.tr
+        carried = _state_equal(torch, back, before)
+        counts = _zero_counts()
+        one = ctrl.pipe.run(max_steps=1)
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"[autotune] restart 2 -> 1 partition: {t_back} s host; params "
+              f"and opt_state torch.equal={carried}; one step after: loss "
+              f"{one.losses}, launches {got}  [{stamp}]", flush=True)
+        if not (isinstance(back, A3GNNTrainer) and carried
+                and ctrl.restarts == 2 and back.device.type == "cuda"
+                and got["gather_aggregate"] == 1
+                and all(map(math.isfinite, one.losses))):
+            fail("the restart back to 1 partition did not carry the state")
+    finally:
+        ctrl.pipe.shutdown()
+        shutil.rmtree(restart_dir, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2150,6 +2443,13 @@ def main() -> int:
         multipart["fused"]["neighbor_agg_backward"]
     reservoir["path_launches"]["multipart"] = \
         multipart["fused"]["reservoir_topm"]
+    autotune = phase_autotune(torch, stamp)
+    entry["autotune_launches"] = autotune["cache_gather"]
+    entries[1]["autotune_launches"] = autotune["gather_aggregate"]
+    entries[2]["autotune_launches"] = autotune["neighbor_agg"]
+    entries[2]["autotune_backward_launches"] = \
+        autotune["neighbor_agg_backward"]
+    reservoir["path_launches"]["autotune"] = autotune["reservoir_topm"]
     entries += [flash, reservoir]
     for mod in ("jax", "repro"):
         if mod in sys.modules:

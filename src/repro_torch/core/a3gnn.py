@@ -15,8 +15,8 @@ Baseline adapters reproduce the comparison systems *as configurations*:
 Checkpoint/restore rides ``train/checkpoint.py`` and streamed feature
 updates ``graph/storage.py``'s ``FeatureStreamConsumer``; ``make_trainer``
 builds the multi-partition trainer (core/multipart.py) for
-``partitions > 1``.  Not ported yet (ROADMAP.md): the autotune hooks
-``apply_live_config`` and ``fit_autotuned`` (slice 5).
+``partitions > 1``.  ``apply_live_config`` and ``fit_autotuned`` are the
+online auto-tuner's hooks (core/autotune/controller.py).
 """
 from __future__ import annotations
 
@@ -47,7 +47,6 @@ from repro_torch.train.checkpoint import TrainerCheckpointMixin
 from repro_torch.train.optimizer import make_adamw
 
 RUNTIME_BYTES = 16 * 2**20        # fixed per-worker runtime context (Eq. 3)
-NOT_PORTED = "not ported yet — see ROADMAP.md"
 
 
 @dataclass
@@ -297,11 +296,75 @@ class A3GNNTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
                 "cache_stats": [dataclasses.asdict(self.cache.stats)
                                 if self.cache is not None else None]}
 
-    def apply_live_config(self, knobs: Dict, pipe=None):
-        raise NotImplementedError(f"apply_live_config (slice 5): {NOT_PORTED}")
+    # ------------------------------------------------------------------
+    def apply_live_config(self, knobs: Dict, pipe: Optional[Pipeline] = None):
+        """Episode-boundary reconfiguration (autotune controller).
 
+        Applies any of (bias_rate γ, cache_volume_mb Θ, parallel_mode,
+        workers, batch_size, sampling_device) to the live trainer: the
+        cache is resized with its hit/miss accounting intact, the sampler
+        bias weight function is rebuilt for the new γ, and — when ``pipe``
+        is given — the executor drains and swaps mode/workers/feature-plane
+        backend without dropping a batch.  ``halo_budget`` is recorded but
+        inert at one partition (no cut edges to recover; core/multipart.py
+        implements the real swap)."""
+        updates = {k: knobs[k] for k in ("bias_rate", "cache_volume_mb",
+                                         "parallel_mode", "workers",
+                                         "batch_size", "sampling_device")
+                   if k in knobs}
+        if "halo_budget" in knobs:
+            self.cfg = self.cfg.replace(halo_budget=int(knobs["halo_budget"]))
+        if "workers" in updates:
+            updates["workers"] = int(updates["workers"])
+        if "batch_size" in updates:
+            updates["batch_size"] = int(updates["batch_size"])
+        self.cfg = self.cfg.replace(**updates)
+        if "cache_volume_mb" in updates:
+            vol = float(updates["cache_volume_mb"])
+            if vol <= 0:
+                self.cache = None
+            elif self.cache is None:
+                self.cache = FeatureCache(self.graph, vol,
+                                          self.cfg.cache_policy)
+            else:
+                self.cache.resize(vol)
+        if "cache_volume_mb" in updates or "bias_rate" in updates:
+            self.weight_fn = (bias_weight_fn(self.cache, self.cfg.bias_rate)
+                              if (self.cache is not None
+                                  and self.cfg.bias_rate > 1.0) else None)
+        if pipe is not None:
+            pipe.reconfigure(mode=updates.get("parallel_mode"),
+                             workers=updates.get("workers"),
+                             cache=self.cache, weight_fn=self.weight_fn,
+                             batch_size=updates.get("batch_size"),
+                             sampling_device=updates.get("sampling_device"))
+
+    # ------------------------------------------------------------------
     def fit_autotuned(self, autotune=None, seed: Optional[int] = None):
-        raise NotImplementedError(f"fit_autotuned (slice 5): {NOT_PORTED}")
+        """Train under the online auto-tuner (paper §III-C, Algo. 3 live).
+
+        Runs ``autotune.episodes`` PROPOSE → RECONFIGURE → MEASURE →
+        FEEDBACK episodes (see core/autotune/controller.py) on a persistent
+        pipeline and returns the ``AutotuneReport`` — measured Pareto
+        points, per-episode configs/metrics, and the recommendation the
+        trainer is left running."""
+        from repro_torch.core.autotune.controller import AutotuneController
+        acfg = autotune or self.cfg.autotune
+        if seed is not None:
+            acfg = acfg.replace(seed=seed)
+        ctrl = AutotuneController(self, self.make_pipeline(), acfg)
+        try:
+            report = ctrl.run()
+            if ctrl.tr is not self:
+                # a `partitions` restart rebuilt the trainer mid-run; keep
+                # this object's params/opt state current — the rebuilt
+                # topology lives in report.final_trainer
+                self.load_state_dict(ctrl.tr.state_dict())
+            return report
+        finally:
+            # the controller may have swapped (trainer, pipe) through the
+            # partitions restart path — shut down whatever is current
+            ctrl.pipe.shutdown()
 
     # ------------------------------------------------------------------
     def evaluate(self, max_batches: int = 8) -> float:

@@ -31,9 +31,9 @@ the existing substrate:
     recovered by a bounded periodic halo re-fill
     (``cfg.halo_refresh_interval`` / ``refresh_halo_features``).
 
-Interface-compatible with ``A3GNNTrainer`` where the restart path needs it
-(checkpoint → rebuild → restore).  The autotune hooks
-(``apply_live_config``, ``fit_autotuned``) are not ported yet (slice 5).
+Interface-compatible with ``A3GNNTrainer`` where the autotune controller
+needs it, so the episode space can tune ``partitions`` through the
+checkpoint → rebuild → restore restart path.
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.gnn import GNNConfig
-from repro_torch.core.a3gnn import NOT_PORTED, A3GNNTrainer, RunResult
+from repro_torch.core.a3gnn import A3GNNTrainer, RunResult
 from repro_torch.core.cache import FeatureCache
 from repro_torch.core.locality import accuracy_drop_model, bias_weight_fn
 from repro_torch.core.perf_model import (MemoryTerms, bottleneck_step_time,
@@ -687,10 +687,61 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
 
     def apply_live_config(self, knobs: Dict,
                           pipe: Optional[MultiPipeline] = None):
-        raise NotImplementedError(f"apply_live_config (slice 5): {NOT_PORTED}")
+        """Episode-boundary reconfiguration, fanned out to every partition
+        (same contract as ``A3GNNTrainer.apply_live_config``; the
+        ``partitions`` knob itself needs the restart path instead, while
+        ``halo_budget`` swaps live through ``set_halo_budget``)."""
+        if "halo_budget" in knobs:
+            self.set_halo_budget(int(knobs["halo_budget"]), pipe)
+        updates = {k: knobs[k] for k in ("bias_rate", "cache_volume_mb",
+                                         "parallel_mode", "workers",
+                                         "batch_size", "sampling_device")
+                   if k in knobs}
+        if "workers" in updates:
+            updates["workers"] = int(updates["workers"])
+        if "batch_size" in updates:
+            updates["batch_size"] = int(updates["batch_size"])
+        self.cfg = self.cfg.replace(**updates)
+        for slot in self.slots:
+            if "cache_volume_mb" in updates:
+                vol = float(updates["cache_volume_mb"])
+                if vol <= 0:
+                    slot.cache = None
+                elif slot.cache is None:
+                    slot.cache = FeatureCache(slot.graph, vol,
+                                              self.cfg.cache_policy)
+                else:
+                    slot.cache.resize(vol)
+            if "cache_volume_mb" in updates or "bias_rate" in updates:
+                slot.weight_fn = (bias_weight_fn(slot.cache,
+                                                 self.cfg.bias_rate)
+                                  if (slot.cache is not None
+                                      and self.cfg.bias_rate > 1.0) else None)
+        if pipe is not None:
+            pipe.reconfigure(mode=updates.get("parallel_mode"),
+                             workers=updates.get("workers"),
+                             batch_size=updates.get("batch_size"),
+                             sampling_device=updates.get("sampling_device"))
 
     def fit_autotuned(self, autotune=None, seed: Optional[int] = None):
-        raise NotImplementedError(f"fit_autotuned (slice 5): {NOT_PORTED}")
+        """Online auto-tuning over the partition fleet (paper §III-C); with
+        ``autotune.max_partitions > 1`` the controller also tunes the
+        partition count through the checkpoint → rebuild → restore path."""
+        from repro_torch.core.autotune.controller import AutotuneController
+        acfg = autotune or self.cfg.autotune
+        if seed is not None:
+            acfg = acfg.replace(seed=seed)
+        ctrl = AutotuneController(self, self.make_pipeline(), acfg)
+        try:
+            report = ctrl.run()
+            if ctrl.tr is not self:
+                # a `partitions` restart rebuilt the trainer mid-run; keep
+                # this object's params/opt state current — the rebuilt
+                # topology lives in report.final_trainer
+                self.load_state_dict(ctrl.tr.state_dict())
+            return report
+        finally:
+            ctrl.pipe.shutdown()
 
     # ------------------------------------------------------------------
     def evaluate(self, max_batches: int = 8) -> float:

@@ -17,8 +17,15 @@ takes the multi-partition scale-out (``run_gnn_multipartition``): a
 locality plan with a bounded halo, gradient-synchronised global steps
 under the fault-tolerance supervisor with checkpoints, then a fresh
 trainer that restores the committed checkpoint; every partition runs on
-the one ``--device``.  The online auto-tuner (``--autotune``, slice 5) and
-the LM workloads are not ported yet.
+the one ``--device``.  ``--autotune`` trains the single-partition trainer
+under the online auto-tuner (``fit_autotuned``: ``--episodes-autotune``
+episodes of ``--steps`` steps each):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage-products \
+      --sampling-device device --fused-gather-agg --autotune \
+      --episodes-autotune 4 --steps 10
+
+The LM workloads are not ported yet.
 """
 from __future__ import annotations
 
@@ -84,10 +91,37 @@ def run_gnn_multipartition(args, cfg, graph) -> Dict:
                         "rebuild": t_rebuild, "restore": t_restore}}
 
 
+def run_autotune(args, tr) -> Dict:
+    """``tr.fit_autotuned`` with ``--episodes-autotune`` episodes of
+    ``--steps`` steps; prints each episode, the best and the Pareto count.
+    Returns the trainer and the ``AutotuneReport``."""
+    acfg = tr.cfg.autotune.replace(episodes=args.episodes_autotune,
+                                   steps_per_episode=args.steps,
+                                   seed=args.seed)
+    rep = tr.fit_autotuned(acfg)
+    for ep in rep.episodes:
+        c, m = ep.config, ep.metrics
+        print(f"[episode {ep.index}] γ={c['bias_rate']:.2f} "
+              f"Θ={c['cache_volume_mb']:.2f}MB "
+              f"mode={c['parallel_mode']} workers={int(c['workers'])} | "
+              f"thr={m['throughput']:.2f} steps/s "
+              f"mem={m['memory']/2**20:.1f} MiB acc={m['accuracy']:.3f} "
+              f"hit={ep.cache_hit_rate:.2f}")
+    b, m = rep.best, rep.best.metrics
+    print(f"[autotune] best=episode {b.index} "
+          f"thr={m['throughput']:.2f} steps/s "
+          f"(baseline {rep.baseline_metrics['throughput']:.2f}) "
+          f"changed={sorted(rep.changed_knobs())}")
+    print(f"[pareto] {len(rep.pareto_points())} non-dominated "
+          f"measured points")
+    return {"trainer": tr, "report": rep}
+
+
 def run_gnn(args) -> Dict:
     """Train ``args.steps`` steps per epoch and print the result and the
     stage split.  Returns the trainer and its ``RunResult``; with
-    ``--partitions`` > 1, what ``run_gnn_multipartition`` returns."""
+    ``--partitions`` > 1, what ``run_gnn_multipartition`` returns; with
+    ``--autotune``, what ``run_autotune`` returns."""
     from repro_torch.configs import get_config
     from repro_torch.core.a3gnn import A3GNNTrainer, apply_baseline
     from repro_torch.graph.synthetic import dataset_like
@@ -116,6 +150,8 @@ def run_gnn(args) -> Dict:
     if cfg.partitions > 1:
         return run_gnn_multipartition(args, cfg, graph)
     tr = A3GNNTrainer(graph, cfg, seed=args.seed, device=args.device)
+    if args.autotune:
+        return run_autotune(args, tr)
     res = tr.run_epochs(args.epochs, max_steps_per_epoch=args.steps)
     print(f"[result] thr={res.throughput_epochs_s:.4f} ep/s "
           f"({res.throughput_steps_s:.2f} steps/s) "
@@ -172,8 +208,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "hop from encoded cache slots + a miss sideband and "
                          "aggregates every hop in place")
     ap.add_argument("--autotune", action="store_true",
-                    help="online auto-tuning controller (slice 5, not "
-                         "ported yet)")
+                    help="run the online auto-tuning controller (§III-C)")
+    ap.add_argument("--episodes-autotune", type=int, default=4)
     return ap
 
 
@@ -181,8 +217,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.arch.startswith("graphsage"):
         raise SystemExit(f"LM training: {NOT_PORTED}")
-    if args.autotune:
-        raise SystemExit(f"--autotune (slice 5): {NOT_PORTED}")
     run_gnn(args)
     return 0
 

@@ -21,7 +21,7 @@ from repro.configs.gnn import gnn_config as jx_gnn_config
 from repro.core.a3gnn import A3GNNTrainer as JxTrainer
 from repro.graph.synthetic import dataset_like as jx_dataset
 from repro.train.checkpoint import CheckpointManager as JxManager
-from repro_torch.configs.gnn import gnn_config
+from repro_torch.configs.gnn import AutotuneConfig, gnn_config
 from repro_torch.core.a3gnn import A3GNNTrainer
 from repro_torch.core.sampling import NeighborSampler, seed_loader
 from repro_torch.graph.batch import batch_device_arrays, generate_batch
@@ -298,10 +298,15 @@ def test_trainer_checkpoint_extra_and_restore(tmp_path):
                     strict=True):
         assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
     assert tr2.opt_state["count"] == 2
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tr2.apply_live_config({"bias_rate": 4.0})
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tr2.fit_autotuned()
+    # the autotune hooks act on the restored trainer: a live γ swap, then
+    # tuning episodes that resume from the restored optimizer state
+    tr2.apply_live_config({"bias_rate": 4.0})
+    assert tr2.cfg.bias_rate == 4.0 and tr2.weight_fn is not None
+    rep = tr2.fit_autotuned(AutotuneConfig(
+        episodes=2, steps_per_episode=2, warmup_steps=0, presample=8,
+        surrogate_trees=4, ppo_updates=1, ppo_horizon=2, seed=0))
+    assert [ep.steps for ep in rep.episodes] == [2, 2]
+    assert tr2.opt_state["count"] == 6 and rep.final_trainer is tr2
 
 
 def test_single_partition_attach_refreshes_cache_and_detach_stops():

@@ -939,3 +939,99 @@ def test_checkpoint_from_the_card_restores_onto_it(card, tmp_path):
     got = out["params"]["layers"][0]
     assert got["w"].is_cuda and torch.equal(got["w"], want)
     assert torch.equal(got["b"], state["params"]["layers"][0]["b"])
+
+
+# ---------------------------------------------------------------------------
+# the online auto-tuner: PPO on the card, and scripted episodes
+# ---------------------------------------------------------------------------
+
+def test_ppo_update_on_the_card_matches_the_cpu(card):
+    """One seed gives the same initial nets on either device; one rollout
+    on the CPU and one update on each: every parameter within 1e-5."""
+    from repro_torch.core.autotune.ppo import PPOAgent, PPOConfig
+    from repro_torch.core.autotune.space import Space
+
+    def evaluate(cfg):
+        u = Space().encode(cfg)
+        return {"throughput": 1.0 + u[0] * u[4], "memory": 1e8 * (1 + u[5]),
+                "accuracy": 0.7 + 0.1 * u[2]}
+    agents = [PPOAgent(Space(), evaluate, {"throughput": 1.0},
+                       lambda m: True, PPOConfig(seed=1), device=dev)
+              for dev in ("cpu", card)]
+    host, gpu = agents
+    for x, y in zip(gpu.parameters(), host.parameters(), strict=True):
+        assert x.is_cuda and torch.equal(x.cpu(), y)
+    s, a, logp, r, v = host._rollout(np.random.default_rng(0).random(7))
+    adv, ret = host._gae(r, v)
+    for ag in agents:
+        ag._update((s, a, logp, ret, adv))
+    for x, y in zip(gpu.parameters(), host.parameters(), strict=True):
+        assert x.is_cuda
+        np.testing.assert_allclose(x.detach().cpu().numpy(),
+                                   y.detach().numpy(), rtol=0, atol=1e-5)
+
+
+def test_scripted_autotune_on_the_card_matches_the_cpu(card, monkeypatch,
+                                                       tmp_path):
+    """The controller's episodes with ``propose`` scripted (the plane to
+    cpu and back, a restart to 2 partitions with a halo and back) on the
+    card and on the CPU: the same configurations, memory, hit rates and
+    steps, losses within rel 1e-4, the state carried over each restart
+    exactly, and the card's kernels launched on every fused step."""
+    from repro_torch.configs.gnn import AutotuneConfig
+    from repro_torch.core.a3gnn import A3GNNTrainer
+    from repro_torch.core.autotune.controller import AutotuneController
+    from repro_torch.kernels.fused_gather_agg.ops import gather_aggregate
+    from repro_torch.models.params import leaves
+    script = [dict(sampling_device="cpu", partitions=1, halo_budget=0),
+              dict(sampling_device="device", partitions=2, halo_budget=16),
+              dict(sampling_device="device", partitions=1, halo_budget=0)]
+    cfg = gnn_config("products", smoke=True, fused_gather_agg=True,
+                     sampling_device="device", cache_volume_mb=0.3)
+    runs = []
+    for i, dev in enumerate((card, "cpu")):
+        it, losses, carried = iter(script), [], []
+        measure, restart = AutotuneController.measure, \
+            AutotuneController._restart
+
+        def measured(self, index, c, predicted=None):
+            ep = measure(self, index, c, predicted)
+            losses.append(list(self.pipe.stats.losses))
+            return ep
+
+        def restarted(self, n, halo_budget=None):
+            before = [x.detach().cpu().clone() if torch.is_tensor(x) else x
+                      for x in leaves(self.tr.state_dict())]
+            restart(self, n, halo_budget)
+            carried.append(all(
+                torch.equal(x.cpu(), y) if torch.is_tensor(x) else x == y
+                for x, y in zip(leaves(self.tr.state_dict()), before)))
+
+        monkeypatch.setattr(AutotuneController, "propose", lambda self: (
+            {**self._current_config(), **next(it)}, None))
+        monkeypatch.setattr(AutotuneController, "measure", measured)
+        monkeypatch.setattr(AutotuneController, "_restart", restarted)
+        tr = A3GNNTrainer(dataset_like(cfg, seed=0), cfg, seed=0, device=dev)
+        ctrl = AutotuneController(tr, tr.make_pipeline(), AutotuneConfig(
+            episodes=len(script) + 1, steps_per_episode=2, warmup_steps=0,
+            presample=8, surrogate_trees=4, tune_sampling_device=True,
+            max_partitions=2, max_halo_budget=16, w_throughput=0.0,
+            w_memory=1.0, w_accuracy=0.0, restart_dir=str(tmp_path / f"run{i}"),
+            seed=0))
+        launches = gather_aggregate.launches
+        try:
+            rep = ctrl.run()
+        finally:
+            ctrl.pipe.shutdown()
+        monkeypatch.undo()
+        runs.append((rep, losses, carried, ctrl,
+                     gather_aggregate.launches - launches))
+    (rg, lg, cg, ctrl, n_gpu), (rc, lc, cc, _, _) = runs
+    assert cg == cc == [True, True]
+    assert n_gpu == sum(ep.steps for ep in rg.episodes) == 2 + 2 + 4 + 2
+    assert all(p.is_cuda for p in leaves(ctrl.tr.params))
+    for eg, ec, a, b in zip(rg.episodes, rc.episodes, lg, lc, strict=True):
+        assert eg.config == ec.config and eg.steps == ec.steps
+        assert eg.metrics["memory"] == ec.metrics["memory"]
+        assert eg.cache_hit_rate == ec.cache_hit_rate
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=0)

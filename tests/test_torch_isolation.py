@@ -45,7 +45,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "serve.engine", "kernels.flash_attention.ops",
                  "kernels.reservoir.ops", "train.checkpoint",
                  "train.fault_tolerance", "launch.mesh",
-                 "distributed.collectives", "core.multipart"):
+                 "distributed.collectives", "core.multipart",
+                 "core.autotune", "core.autotune.space",
+                 "core.autotune.pareto", "core.autotune.surrogate",
+                 "core.autotune.ppo", "core.autotune.controller"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["leaked"] == []
 

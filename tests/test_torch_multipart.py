@@ -25,7 +25,7 @@ from repro.distributed.collectives import halo_all_to_all as jx_halo
 from repro.graph.partition import plan_partitions as jx_plan
 from repro.graph.synthetic import dataset_like as jx_dataset
 from repro.launch.mesh import HostSimMesh as JxHostSimMesh
-from repro_torch.configs.gnn import gnn_config
+from repro_torch.configs.gnn import AutotuneConfig, gnn_config
 from repro_torch.core.a3gnn import A3GNNTrainer, make_trainer
 from repro_torch.core.multipart import MultiPartitionTrainer
 from repro_torch.core.sampling import NeighborSampler, seed_loader
@@ -315,10 +315,16 @@ def test_multipartition_run_epochs_and_refusals(graph):
     assert res.modeled_steps_s > 0 and res.memory_bytes > 0
     assert all(s.cache.stats.hits + s.cache.stats.misses > 0
                for s in tr.slots)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tr.apply_live_config({"bias_rate": 4.0})
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tr.fit_autotuned()
+    # the autotune hooks fan out to every partition
+    tr.apply_live_config({"bias_rate": 4.0, "cache_volume_mb": 0.2})
+    assert tr.cfg.bias_rate == 4.0
+    assert all(s.weight_fn is not None and s.cache.volume_mb == 0.2
+               for s in tr.slots)
+    rep = tr.fit_autotuned(AutotuneConfig(
+        episodes=2, steps_per_episode=2, warmup_steps=0, presample=8,
+        surrogate_trees=4, ppo_updates=1, ppo_horizon=2, seed=0))
+    assert [ep.steps for ep in rep.episodes] == [4, 4]   # 2 global × 2
+    assert tr.global_steps == 3 + 4 and rep.final_trainer is tr
 
 
 # ---------------------------------------------------------------------------

@@ -194,13 +194,23 @@ def test_launch_train_runs_the_slice_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--arch", "graphsage-products", "--smoke", "--device", "cpu",
-     "--autotune"],
+    ["--arch", "qwen3-4b", "--smoke", "--device", "cpu", "--autotune"],
     ["--arch", "qwen3-4b", "--smoke", "--device", "cpu"],
 ])
 def test_unported_branches_refuse(argv):
+    # LM training, tuned or not, is not ported
     with pytest.raises(SystemExit, match="not ported yet"):
         main(argv)
+
+
+def test_launch_train_autotune_runs_on_cpu(capsys):
+    assert main(["--arch", "graphsage-products", "--smoke", "--device",
+                 "cpu", "--sampling-device", "device", "--fused-gather-agg",
+                 "--autotune", "--episodes-autotune", "3", "--steps",
+                 "3"]) == 0
+    out = capsys.readouterr().out
+    assert all(f"[episode {i}]" in out for i in range(3))
+    assert "[autotune] best=episode" in out and "[pareto]" in out
 
 
 def test_launch_train_runs_partitions(capsys):
