@@ -131,7 +131,33 @@ Phases; any failure exits non-zero:
    ``torch.equal`` across it; the checkpoint write, planning and restore
    seconds) and a 4-global-step episode; the halo budget swapped live to
    0 on the same trainer; a restart back to 1 partition, again
-   ``torch.equal``, and one step.
+   ``torch.equal``, and one step;
+11. the serving fabric at full width — (a) ``repro_torch.launch.serve
+   --gnn --arch graphsage-products --sampling-device device --partitions 2
+   --replicas 2 --train-steps 4 --queries 64 --batch 4 --slo-p99-ms 600``
+   through ``run_gnn_serve``: 4 warm-up global steps, each replica stepped
+   once, 64 queries, a trainer step with ``refresh_weights`` and a
+   re-query, a 512-query burst; the launch counts zeroed just before and
+   read just after, and each part's ``cache_gather`` launches (the
+   launcher's per-part counts) equal to the gather chunks its planes
+   issued, no other kernel launched.  It prints the plan and its planning
+   seconds, q/s, p50 and p99, the per-partition and per-replica counts,
+   the burst's shed fraction and deferrals and the host time of a fabric
+   step split into its engines' sample, fetch, pad and forward (the
+   fabric's ``step`` and the engine's stages wrapped by this script), and
+   fails unless the load is served whole with finite logits, each query by
+   a replica of its owner, the audit balances, every replica held the
+   warm tree until the hand-off and the re-query's logits are bit-equal to
+   a fresh engine's forward with the trainer's new tree on the same batch,
+   and the burst both sheds and serves; (b) chaos: two fabrics of SimHost
+   replicas on a ``VirtualClock`` (``from_plan`` on the plan re-budgeted to
+   a 4,096-row halo, 2 ms a response, timeout 8 ms, replica 0/0 killed
+   after its 3rd response, 48 queries 4 a step) and a twin on the CPU from
+   the same parameters: the audit balanced, 0/0 down with timeouts and
+   retries, the two card runs' traces identical and logits bit-equal, the
+   CPU's (rid, partition, replica, status) trace identical with equal
+   predictions and logits within 1e-4, one launch per gather chunk, and
+   every halo row resident in each card plane, bit-equal to the owner's.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels and the
@@ -163,6 +189,11 @@ TRAIN_ARGS = ["--arch", ARCH, "--sampling-device", "device",
 MULTIPART_ARGS = ["--arch", ARCH, "--partitions", "2", "--halo-budget",
                   "4096", "--sampling-device", "device", "--fused-gather-agg",
                   "--steps", "8"]
+FABRIC_ARGS = ["--gnn", "--arch", ARCH, "--sampling-device", "device",
+               "--partitions", "2", "--replicas", "2", "--train-steps", "4",
+               "--queries", "64", "--batch", "4", "--slo-p99-ms", "600"]
+FABRIC_HALO = 4096               # the chaos fabrics' plan: halo rows kept
+CHAOS_QUERIES = 48
 AUTOTUNE_EPISODES, AUTOTUNE_STEPS = 4, 10
 AUTOTUNE_ARGS = ["--arch", ARCH, "--sampling-device", "device",
                  "--fused-gather-agg", "--autotune", "--episodes-autotune",
@@ -2396,6 +2427,312 @@ def phase_autotune(torch, stamp: str) -> dict:
     return launches
 
 
+FABRIC_PARTS = ("train", "warm", "load", "refresh", "burst")
+
+
+@contextlib.contextmanager
+def _fabric_probe(watch_rid: int):
+    """Wrap ``ServingFabric.step`` and the four stages of an engine step
+    (``NeighborSampler.sample``, the plane fetch in ``generate_batch``, the
+    padding in ``inference_arrays``, ``GNNInferenceEngine._fwd``), so that
+    each fabric step appends its wall seconds, the host seconds of each
+    stage summed over the engines it stepped, and their count to ``steps``.
+    The fetch and the forward each end in a copy to the host, so the card's
+    work is inside the stage that issued it; ``t0`` is the step's start.
+    A forward whose engine holds request ``watch_rid`` appends (engine,
+    params, features, index arrays, logits, the request's row) to
+    ``seen``.  Restored on exit."""
+    from repro_torch.core.sampling import NeighborSampler
+    from repro_torch.serve import gnn_engine
+    from repro_torch.serve.fabric import ServingFabric
+    steps, seen, cur = [], [], {}
+    saved = [(NeighborSampler, "sample"), (gnn_engine, "generate_batch"),
+             (gnn_engine, "inference_arrays"),
+             (gnn_engine.GNNInferenceEngine, "_fwd"), (ServingFabric, "step")]
+    orig = [getattr(owner, name) for owner, name in saved]
+
+    def timed(stage, fn):
+        def wrap(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            cur[stage] = cur.get(stage, 0.0) + time.perf_counter() - t0
+            return out
+        return wrap
+
+    fwd = timed("forward", orig[3])
+
+    def forward(self, params, feats, idxs):
+        out = fwd(self, params, feats, idxs)
+        cur["engines"] = cur.get("engines", 0) + 1
+        rids = [self.running[s].rid for s in sorted(self.running)]
+        if watch_rid in rids:
+            seen.append((self, params, feats.copy(),
+                         [i.copy() for i in idxs], out.copy(),
+                         rids.index(watch_rid)))
+        return out
+
+    def step(self):
+        cur.clear()
+        t0 = time.perf_counter()
+        n = orig[4](self)
+        steps.append({"t0": t0, "wall": time.perf_counter() - t0, **cur})
+        return n
+
+    for (owner, name), fn in zip(saved, (
+            timed("sample", orig[0]), timed("fetch", orig[1]),
+            timed("pad", orig[2]), forward, step)):
+        setattr(owner, name, fn)
+    try:
+        yield steps, seen
+    finally:
+        for (owner, name), fn in zip(saved, orig):
+            setattr(owner, name, fn)
+
+
+def phase_fabric(torch, stamp: str) -> dict:
+    """The partition-routed serving fabric at full width (phase 11); returns
+    the ``cache_gather`` launches of each part of (a) and of the chaos run,
+    and every kernel's launches over (a)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import build_parser, run_gnn_serve
+    from repro_torch.models.params import leaves, tree_map
+    from repro_torch.serve.fabric import ServingFabric
+    from repro_torch.serve.gnn_engine import GNNInferenceEngine, GNNRequest
+    from repro_torch.serve.transport import (FaultSpec, VirtualClock,
+                                             sim_host_factory)
+
+    # (a) the CLI path
+    args = build_parser().parse_args(FABRIC_ARGS)
+    buf = io.StringIO()
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    with _fabric_probe(args.queries) as (steps, seen), \
+            contextlib.redirect_stdout(buf):
+        rep = run_gnn_serve(args)
+    torch.cuda.synchronize()
+    total = counts()
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"{line}  [{stamp}]", flush=True)
+    tr, fab = rep["trainer"], rep["fabric"]
+    plan, cfg, parts = tr.plan, tr.cfg, tr.plan.parts
+    launches, chunks = rep["launches"], rep["dispatches"]
+    print(f"[fabric] plan: sizes {[len(ns) for ns in plan.node_sets]}, edge "
+          f"locality {plan.edge_locality(tr.full_graph)}, halo rows "
+          f"{plan.halo_rows}; planning {tr.plan_seconds} s host; "
+          f"{parts}×{fab.replicas} replicas, batch {fab.engine_batch}; "
+          f"launches of the whole run {total}; per part: cache_gather "
+          f"{launches}, gather chunks the planes issued {chunks}, host "
+          f"seconds {rep['seconds']}; run_gnn_serve {wall:.2f} s  "
+          f"[{stamp}]", flush=True)
+    others = {k: v for k, v in total.items() if k != "cache_gather"}
+    if any(others.values()):
+        fail(f"the fabric run launched other kernels: {others}")
+    if sum(launches.values()) != total["cache_gather"]:
+        fail(f"cache_gather launches by part {launches} do not sum to the "
+             f"run's {total['cache_gather']}")
+    for name in FABRIC_PARTS:
+        if not (launches[name] == chunks[name] > 0):
+            fail(f"{name}: cache_gather launches {launches[name]}, gather "
+                 f"chunks {chunks[name]}")
+    engines = fab.all_engines
+    if not (all(e.device.type == "cuda" for e in engines)
+            and all(p.is_cuda for p in leaves(tr.params))
+            and all(part[0].plane.device.type == "cuda"
+                    and all(e.plane is part[0].plane for e in part)
+                    for part in fab.engines)):
+        fail("a replica, its plane or the parameters are not on cuda")
+
+    # the load: whole, finite, routed to the owner, conserved
+    served, nodes, ncls = rep["served"], rep["nodes"], cfg.num_classes
+    owners = plan.owner_of(nodes)
+    if not (len(served) == args.queries
+            and all(r.status == "done" for r in served)
+            and all(r.logits.shape == (ncls,)
+                    and bool(np.isfinite(r.logits).all()) for r in served)):
+        fail(f"{sum(r.status == 'done' for r in served)}/{args.queries} "
+             f"queries done with finite logits")
+    if not (all(r.partition == owners[r.rid]
+                and 0 <= r.replica < fab.replicas for r in served)
+            and rep["per_partition"] == np.bincount(
+                owners, minlength=parts).tolist()):
+        fail(f"routing: per partition {rep['per_partition']}, owners "
+             f"{np.bincount(owners, minlength=parts).tolist()}")
+    # the replicas' warm-up requests were stepped on the engines directly,
+    # never offered to the fabric: they retire in ``done`` alone
+    audit, warm_served = fab.audit(), rep["warm_served"]
+    if not (audit["pending"] == audit["inflight"] == 0
+            and audit["offered"] + warm_served
+            == audit["done"] + audit["shed"] + audit["timed_out"]):
+        fail(f"audit does not balance: {audit}, {warm_served} warm-up "
+             f"requests")
+    per_replica = {f"{p}/{r}": st.completed for (p, r), st in
+                   sorted(fab.replica_state.items())}
+    s = rep["stats"]
+    load_steps = steps[:s["fabric_steps"]]
+    # a replica's engine re-stamps ``t_submit`` when the request reaches
+    # it, so the fabric's percentiles run from dispatch; the whole load was
+    # queued before its first fabric step, which bounds the queue wait
+    e2e = np.array([r.t_done - load_steps[0]["t0"] for r in served]) * 1e3
+    print(f"[fabric] load: {s['completed']} queries at "
+          f"{s['queries_per_s']} q/s, p50 {s['p50_ms']} ms, p99 "
+          f"{s['p99_ms']} ms from dispatch; from the first fabric step p50 "
+          f"{float(np.percentile(e2e, 50))} ms, p99 "
+          f"{float(np.percentile(e2e, 99))} ms; {s['fabric_steps']} fabric "
+          f"steps; per "
+          f"partition {rep['per_partition']}; per replica over the run "
+          f"{per_replica}; audit {audit} ({warm_served} warm-up requests "
+          f"in done)  [{stamp}]", flush=True)
+    full = [st for st in load_steps if st.get("engines") == len(engines)]
+    pick = full or load_steps
+    split = ", ".join(
+        f"{k} {float(np.mean([st.get(k, 0.0) for st in pick])) * 1e3:.3f}"
+        for k in ("sample", "fetch", "pad", "forward"))
+    print(f"[breakdown] fabric step of the load (mean of {len(pick)} steps "
+          f"with {'every' if full else 'any'} replica busy): wall "
+          f"{float(np.mean([st['wall'] for st in pick])) * 1e3:.3f} ms = "
+          f"its engines' steps, summed: {split} ms; engines stepped "
+          f"{[st.get('engines', 0) for st in load_steps]}; fabric-step "
+          f"walls {[round(st['wall'] * 1e3, 2) for st in load_steps]} ms  "
+          f"[{stamp}]", flush=True)
+
+    # the refresh: stale until the hand-off, then the trainer's new tree
+    rq, warm = rep["requery"], rep["warm_params"]
+    if not (all(h is warm for h in rep["held_before_refresh"])
+            and warm is not tr.params
+            and all(e.params is tr.params for e in engines)):
+        fail("before refresh_weights every replica must hold the warm tree, "
+             "after it the trainer's")
+    if not (rq.rid == args.queries and rq.status == "done"
+            and len(seen) == 1 and seen[0][1] is tr.params):
+        fail(f"the re-query: {rq.status}, {len(seen)} forwards seen")
+    eng, _, feats, idxs, logits, row = seen[0]
+    fresh = GNNInferenceEngine(eng.graph, cfg, tr.params, plane=eng.plane,
+                               batch=eng.batch, node_map=eng.node_map,
+                               device=eng.device)
+    again = fresh._fwd(tr.params, feats, idxs)[row]
+    stale = fresh._fwd(warm, feats, idxs)[row]
+    print(f"[check] re-query rid {rq.rid} on replica "
+          f"{rq.partition}/{rq.replica}: logits bit-equal to a fresh "
+          f"engine's forward with the trainer's new tree on the same batch="
+          f"{bool(np.array_equal(again, rq.logits))} (and to the probe's "
+          f"{bool(np.array_equal(logits[row], rq.logits))}); the warm tree "
+          f"on that batch differs by {float(abs(stale - rq.logits).max())}",
+          flush=True)
+    if not (np.array_equal(again, rq.logits)
+            and np.array_equal(logits[row], rq.logits)
+            and not np.array_equal(stale, rq.logits)):
+        fail("the re-query is not the trainer's new tree on its batch")
+
+    # the burst: explicit degradation
+    b = rep["burst"]
+    print(f"[fabric] burst: offered {b['offered']}, served {b['completed']}, "
+          f"shed {b['shed']} (fraction {b['shed_fraction']}), deferrals "
+          f"{b['deferrals']}, {b['fabric_steps']} fabric steps in "
+          f"{b['seconds']} s at target {fab.slo.slo_p99_ms} ms; served p50 "
+          f"{b['p50_ms']} ms p99 {b['p99_ms']} ms  [{stamp}]", flush=True)
+    if not (b["shed"] > 0 and b["completed"] > 0):
+        fail(f"the burst must shed and serve: {b}")
+
+    # (b) chaos on the card: SimHost replicas on a virtual clock, one killed
+    t0 = time.perf_counter()
+    plan_h = plan.with_halo_budget(tr.full_graph, FABRIC_HALO)
+    t_plan = time.perf_counter() - t0
+    rng = np.random.default_rng(tr.seed)
+    chaos_nodes = rng.choice(np.flatnonzero(tr.full_graph.test_mask),
+                             CHAOS_QUERIES, replace=False)
+    host_params = tree_map(lambda t: t.cpu(), tr.params)
+
+    def chaos(device, params):
+        fab_c = ServingFabric.from_plan(
+            tr.full_graph, plan_h, cfg, params, batch=4, replicas=2, seed=0,
+            transport_factory=sim_host_factory(
+                faults={(0, 0): FaultSpec(added_latency_ms=2,
+                                          down_after_responses=3)},
+                base=FaultSpec(added_latency_ms=2), seed=0),
+            clock=VirtualClock(tick_s=1e-3), timeout_ms=8,
+            record_trace=True, device=device)
+        d0 = sum(p[0].plane.gather_dispatches for p in fab_c.engines)
+        counts = _zero_counts()
+        t0 = time.perf_counter()
+        for i in range(0, len(chaos_nodes), 4):
+            for rid in range(i, min(i + 4, len(chaos_nodes))):
+                fab_c.submit(GNNRequest(rid=rid, node=int(chaos_nodes[rid])))
+            fab_c.step()
+        fab_c.drain()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (fab_c, counts(), secs,
+                sum(p[0].plane.gather_dispatches for p in fab_c.engines) - d0)
+
+    runs = [chaos("cuda", tr.params), chaos("cuda", tr.params),
+            chaos("cpu", host_params)]
+    (c1, l1, s1, d1), (c2, l2, _, _), (c3, _, s3, _) = runs
+    a1 = c1.audit()
+    st00 = c1.replica_state[(0, 0)]
+    done = [{r.rid: r for r in c.completed} for c, _, _, _ in runs]
+    logits_eq = done[0].keys() == done[1].keys() and all(
+        np.array_equal(r.logits, done[1][k].logits)
+        for k, r in done[0].items())
+    host_trace = [e[:4] for e in c3.request_trace]
+    cpu_diff = max((float(abs(r.logits - done[2][k].logits).max())
+                    for k, r in done[0].items()), default=0.0)
+    preds_eq = all(r.pred == done[2][k].pred for k, r in done[0].items())
+    print(f"[chaos] {CHAOS_QUERIES} queries 4 a step over SimHost replicas "
+          f"on a virtual clock (2 ms a response, timeout 8 ms, replica 0/0 "
+          f"killed after its 3rd response), halo budget {FABRIC_HALO} "
+          f"(re-budgeted in {t_plan:.3f} s): audit {a1}; {c1.fstats.asdict()}"
+          f"; 0/0 {st00.state}, timeouts {st00.timeouts}; launches {l1} "
+          f"(gather chunks {d1}); {s1:.3f} s on the card, {s3:.3f} s on the "
+          f"CPU  [{stamp}]", flush=True)
+    print(f"[check] chaos: trace identical run to run="
+          f"{c1.request_trace == c2.request_trace}, logits bit-equal="
+          f"{logits_eq}; card vs CPU: (rid, partition, replica, status) "
+          f"identical={[e[:4] for e in c1.request_trace] == host_trace}, "
+          f"preds equal={preds_eq}, logits max_abs_diff={cpu_diff} "
+          f"(tolerance 1e-4)", flush=True)
+    if not (a1["pending"] == a1["inflight"] == 0 and a1["offered"]
+            == a1["done"] + a1["shed"] + a1["timed_out"] == CHAOS_QUERIES):
+        fail(f"chaos audit does not balance: {a1}")
+    if not (st00.state == "down" and c1.fstats.timeouts > 0
+            and c1.fstats.retries > 0):
+        fail(f"chaos: replica 0/0 {st00.state}, {c1.fstats.asdict()}")
+    if not (c1.request_trace == c2.request_trace and logits_eq
+            and len(c1.request_trace) == CHAOS_QUERIES):
+        fail("chaos: two runs on the card differ")
+    if not ([e[:4] for e in c1.request_trace] == host_trace and preds_eq
+            and cpu_diff <= 1e-4):
+        fail("chaos: the card and the CPU differ")
+    if not (l1["cache_gather"] == d1 > 0
+            and sum(l1.values()) == l1["cache_gather"]):
+        fail(f"chaos launches {l1}, gather chunks {d1}")
+
+    # the halo rows in each card plane equal the owner's
+    owner_local = plan_h.local_ids()
+    halo_ok = []
+    for p, (ns, hs) in enumerate(zip(plan_h.node_sets, plan_h.halo_sets)):
+        plane = c1.engines[p][0].plane
+        local = np.arange(len(ns), len(ns) + len(hs))
+        resident = int(plane.cache.is_cached(local).sum())
+        want = np.stack([plan_h.subgraphs[q].features[owner_local[v]]
+                         for q, v in zip(plan_h.owner[hs], hs)])
+        slots = torch.from_numpy(plane.cache.device_map[local]).long()
+        table = plane._dev_table[slots.to(plane.device)].cpu().numpy()
+        halo_ok.append((len(hs), resident,
+                        bool(np.array_equal(plane.fetch(local), want)),
+                        bool(np.array_equal(table, want))))
+    print(f"[check] chaos fabric halo rows (rows, resident on the card, "
+          f"fetched bit-equal to the owner's, card table bit-equal) per "
+          f"partition: {halo_ok}", flush=True)
+    if not all(n == res > 0 and ok and tab for n, res, ok, tab in halo_ok):
+        fail(f"halo rows in the fabric's device planes: {halo_ok}")
+    for slot in tr.slots:
+        slot.pipe.shutdown()
+    return {"parts": launches, "chaos": l1["cache_gather"], "total": total}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2450,6 +2787,12 @@ def main() -> int:
     entries[2]["autotune_backward_launches"] = \
         autotune["neighbor_agg_backward"]
     reservoir["path_launches"]["autotune"] = autotune["reservoir_topm"]
+    fabric = phase_fabric(torch, stamp)
+    entry["fabric_launches"] = sum(n for k, n in fabric["parts"].items()
+                                   if k != "train")
+    entry["fabric_warmup_train_launches"] = fabric["parts"]["train"]
+    entry["fabric_chaos_launches"] = fabric["chaos"]
+    reservoir["path_launches"]["fabric"] = fabric["total"]["reservoir_topm"]
     entries += [flash, reservoir]
     for mod in ("jax", "repro"):
         if mod in sys.modules:

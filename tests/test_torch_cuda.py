@@ -1035,3 +1035,61 @@ def test_scripted_autotune_on_the_card_matches_the_cpu(card, monkeypatch,
         assert eg.metrics["memory"] == ec.metrics["memory"]
         assert eg.cache_hit_rate == ec.cache_hit_rate
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the serving fabric: chaos on the card against the same fabric on the CPU
+# ---------------------------------------------------------------------------
+
+def test_fabric_chaos_on_the_card_matches_the_cpu(card):
+    """A 2 × 2 smoke fabric of SimHost replicas on a virtual clock, replica
+    (0, 0) killed after its 3rd response, on the card and on the CPU from
+    the same parameters: the same (rid, partition, replica, status) trace
+    and predictions, logits within atol 1e-4, the audit balanced, and one
+    ``cache_gather`` launch per gather chunk of the card's planes."""
+    from repro_torch.core.a3gnn import A3GNNTrainer
+    from repro_torch.graph.partition import plan_partitions
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.fabric import ServingFabric
+    from repro_torch.serve.gnn_engine import GNNRequest
+    from repro_torch.serve.transport import (FaultSpec, VirtualClock,
+                                             sim_host_factory)
+    cfg = gnn_config("products", smoke=True, sampling_device="device")
+    g = dataset_like(cfg, seed=0)
+    params = A3GNNTrainer(g, cfg, seed=0, device=card).params
+    plan = plan_partitions(g, 2, "locality", seed=0, halo_budget=32)
+    nodes = np.random.default_rng(1).choice(g.num_nodes, 48, replace=False)
+    runs = []
+    for dev, p in ((card, params), ("cpu", tree_map(lambda t: t.cpu(),
+                                                    params))):
+        fab = ServingFabric.from_plan(
+            g, plan, cfg, p, batch=4, replicas=2, seed=0,
+            transport_factory=sim_host_factory(
+                faults={(0, 0): FaultSpec(added_latency_ms=2,
+                                          down_after_responses=3)},
+                base=FaultSpec(added_latency_ms=2), seed=0),
+            clock=VirtualClock(tick_s=1e-3), timeout_ms=8,
+            record_trace=True, device=dev)
+        launches = cache_gather.launches
+        for i in range(0, len(nodes), 4):
+            for rid in range(i, i + 4):
+                fab.submit(GNNRequest(rid=rid, node=int(nodes[rid])))
+            fab.step()
+        fab.drain()
+        runs.append((fab, cache_gather.launches - launches))
+    (gpu, n_gpu), (cpu, _) = runs
+    assert all(e.device.type == "cuda" for e in gpu.all_engines)
+    assert n_gpu == sum(p[0].plane.gather_dispatches for p in gpu.engines)
+    assert n_gpu > 0
+    a = gpu.audit()
+    assert a == cpu.audit() and a["pending"] == a["inflight"] == 0
+    assert a["offered"] == a["done"] + a["shed"] + a["timed_out"] == 48
+    assert gpu.replica_state[(0, 0)].state == "down"
+    assert gpu.fstats.timeouts > 0 and gpu.fstats.retries > 0
+    assert [e[:4] for e in gpu.request_trace] == \
+        [e[:4] for e in cpu.request_trace]
+    done = {r.rid: r for r in cpu.completed}
+    for r in gpu.completed:
+        assert r.pred == done[r.rid].pred
+        np.testing.assert_allclose(r.logits, done[r.rid].logits, atol=1e-4,
+                                   rtol=0)
