@@ -52,14 +52,16 @@ Phases; any failure exits non-zero:
    ``F.embedding_bag`` as the yardstick of ``neighbor_agg``, in turns
    with the parent's kernel (parent, kernel, kernel, parent), and each
    profiled over ``PROFILE_CALLS`` calls for its own device time;
-6. flash_attention at the LM slice's shapes (the qwen3-4b prefill, bf16;
-   the edges of its 128-row tiles, S = 127, 129 and 4097; Dh=64 at
-   S=1000; odd lengths, f32 and non-causal): held against its plain
-   version (bf16 by an output-scaled bound that must also refuse two
-   faulty outputs, a skipped KV tile and a 3% normaliser error), and the
-   qwen3-4b and llama3.2-3b prefills timed as in phase 2 with
-   ``F.scaled_dot_product_attention`` as the yardstick (the port never
-   calls it), each with its TFLOP/s and share of the bound;
+6. flash_attention at the LM slices' shapes (the qwen3-4b, llama3.2-3b,
+   zamba2-7b and qwen2-moe-a2.7b prefills, bf16; the edges of its 128-row tiles, S = 127, 129 and 4097;
+   Dh=64 at S=1000; the widths run on a wider template, Dh 112 and Dh 8,
+   bf16 and f32, causal and not, GQA; odd lengths, f32 and non-causal):
+   held against its plain version (bf16 by an output-scaled bound that
+   must also refuse two faulty outputs, a skipped KV tile and a 3%
+   normaliser error), and the qwen3-4b, llama3.2-3b and zamba2-7b (Dh 112)
+   prefills timed as in phase 2 with ``F.scaled_dot_product_attention``
+   as the yardstick (the port never calls it), each with its TFLOP/s and
+   share of the bound (Dh 112 also against the 128-wide template's work);
 7. the LM serving slice at full width — qwen3-4b with seeded weights on the
    card: ``Model.prefill`` of ``tokens (2, 4096)`` (36 flash_attention
    launches, counted), then ``run_lm_serve``'s engine on 16 requests at
@@ -157,12 +159,31 @@ Phases; any failure exits non-zero:
    retries, the two card runs' traces identical and logits bit-equal, the
    CPU's (rid, partition, replica, status) trace identical with equal
    predictions and logits within 1e-4, one launch per gather chunk, and
-   every halo row resident in each card plane, bit-equal to the owner's.
+   every halo row resident in each card plane, bit-equal to the owner's;
+12. the MoE, hybrid and SSM LM families at full width, each with seeded
+   weights: qwen2-moe-a2.7b drawn on the card in bf16 (f32 masters and a
+   copy would not fit), zamba2-7b and mamba2-1.3b through the CLI path
+   (``run_lm_serve`` drawing its own f32 masters).  For each: a bf16
+   block prefill of ``tokens (2, 4096)`` (24 / 13 / 0 flash_attention
+   launches and nothing else, counted; a warm-up, in which every
+   flash_attention call is held against the plain version on its own
+   inputs by the bf16 bound, and the counted run compared bit for bit,
+   which must hold for the MoE; one profiled); 4 requests served at
+   batch 4 (prompts <= 32, 8 new tokens, no kernel launched, every token
+   in range) and the decode step's time (median of 30) and profile; for
+   zamba2 and mamba2 at f32 on a 64-token prompt, at full depth every
+   flash_attention call against the plain version on its own inputs, then
+   (zamba2 cut to 12 layers: its seeded 81-layer stack is chaotic) the
+   prefill through the kernel against the plain attention and the
+   engine's first token against the prefill's argmax (the MoE engine is
+   held against the JAX engine's streams in the CPU tests instead: a block
+   prefill drops tokens past an expert's capacity, decode drops none).
 
 Every line with a time, rate or size carries the card's name and power
-limit.  The next-to-last line is a JSON list of the ported kernels and the
-last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or
-of the JAX package.
+limit.  The next-to-last line is a JSON list of the ported kernels (the
+``flash_attention`` entry with ``path_launches`` of phase 12's prefills)
+and the last line is ``{"ok": true, "device": {...}}``.  Imports nothing
+of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -400,9 +421,11 @@ def float_atomics(lib: Path, prefix: str):
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_fwd_wgmma<128>`` for the mangled name of that instance."""
-    m = re.search(r"(flash_fwd_\w+?)ILi(\d+)E", mangled)
-    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+    """``flash_fwd_wgmma<128>`` / ``flash_fwd_f32<128,pad>`` for the
+    mangled name of that instance (``pad``: its columns past dh masked)."""
+    m = re.search(r"(flash_fwd_\w+?)ILi(\d+)E(Lb1E)?", mangled)
+    return (f"{m.group(1)}<{m.group(2)}{',pad' if m.group(3) else ''}>"
+            if m else mangled)
 
 
 def _cuobjdump():
@@ -438,13 +461,13 @@ def flash_report():
         regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
         top_reg[name] = max([top_reg.get(name, -1), *regs])
     for name in sorted(n for n in set(ptxas) | set(hgmma) if "<" in n):
-        dh = int(re.search(r"<(\d+)>", name).group(1))
+        width = int(re.search(r"<(\d+)", name).group(1))
         bf16 = "wgmma" in name
         info = ptxas.get(name, {})
         print(f"[build] {name} ({'bf16' if bf16 else 'f32'}): ptxas "
               f"{info.get('used', 'not reported')}; "
               f"{info.get('spills', 'spills not reported')}; dynamic shared "
-              f"memory {smem(dh, int(bf16))} B; SASS: HGMMA "
+              f"memory {smem(width, int(bf16))} B; SASS: HGMMA "
               f"{hgmma.get(name, 'not counted')}, highest register "
               f"R{top_reg.get(name, '?')}"
               + (f"; {info['warning']}" if "warning" in info else ""),
@@ -1609,9 +1632,9 @@ def _bf16_bound_rejects_faults(torch, out, q, k, v):
 
 
 def phase_flash(torch, stamp: str) -> dict:
-    """flash_attention at the LM slice's shapes against its plain version,
-    timed at the qwen3-4b and llama3.2-3b prefills; returns the JSON entry
-    (the qwen3-4b prefill's numbers, the llama3.2-3b one's beside them)."""
+    """flash_attention at the LM slices' shapes against its plain version,
+    timed at the qwen3-4b, llama3.2-3b and zamba2-7b prefills; returns the
+    JSON entry (the qwen3-4b prefill's numbers, the others beside them)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1622,13 +1645,28 @@ def phase_flash(torch, stamp: str) -> dict:
     rate = hbm_rate(torch.cuda.get_device_name(0))
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     B, S = PREFILL_SHAPE
-    # (label, B, S, H, Hkv, Dh, dtype, causal, timed): the two prefills;
-    # the edges of the bf16 kernel's 128-row tiles (a partial diagonal, one
-    # row past a tile, a partial last KV tile) and its Dh=64 instance; odd
-    # lengths, f32 and non-causal
+    # (label, B, S, H, Hkv, Dh, dtype, causal, timed): the three timed
+    # prefills and the qwen2-moe-a2.7b prefill's shape; the edges of the
+    # bf16 kernel's 128-row tiles (a partial diagonal, one row past a tile,
+    # a partial last KV tile) and its Dh=64 instance; odd lengths, f32 and
+    # non-causal; the widths run on a wider template, Dh 112 (zamba2-7b,
+    # kimi-k2's GQA) and Dh 8 (glm4-9b's smoke config), in both types
     bf16 = torch.bfloat16
     cases = [("qwen3_prefill", B, S, 32, 8, 128, bf16, True, True),
              ("llama3_prefill", B, S, 24, 8, 128, bf16, True, True),
+             ("zamba2_prefill", B, S, 32, 32, 112, bf16, True, True),
+             ("qwen2_moe_prefill", B, S, 16, 16, 128, bf16, True, False),
+             ("s257_dh112_gqa_bf16", 1, 257, 8, 2, 112, bf16, True, False),
+             ("s300_dh112_full_bf16", 1, 300, 4, 2, 112, bf16, False, False),
+             ("s257_dh112_f32", 1, 257, 8, 2, 112, torch.float32, True,
+              False),
+             ("s300_dh112_full_f32", 1, 300, 4, 4, 112, torch.float32, False,
+              False),
+             ("s130_dh8_bf16", 2, 130, 8, 2, 8, bf16, True, False),
+             ("s200_dh8_full_bf16", 1, 200, 4, 4, 8, bf16, False, False),
+             ("s130_dh8_f32", 2, 130, 8, 2, 8, torch.float32, True, False),
+             ("s200_dh8_full_f32", 1, 200, 4, 4, 8, torch.float32, False,
+              False),
              ("s127_bf16", 1, 127, 32, 8, 128, bf16, True, False),
              ("s129_bf16", 1, 129, 32, 8, 128, bf16, True, False),
              ("s4097_bf16", 1, 4097, 32, 8, 128, bf16, True, False),
@@ -1663,12 +1701,14 @@ def phase_flash(torch, stamp: str) -> dict:
         if not (ok and bool(torch.isfinite(out).all())):
             fail(f"flash_attention disagrees with its plain version at "
                  f"{label}")
-        if label == "qwen3_prefill":
+        if label in ("qwen3_prefill", "zamba2_prefill"):
             _bf16_bound_rejects_faults(torch, out, q, k, v)
         if not timed:
             continue
         pairs = s * (s + 1) // 2 if causal else s * s
         flops = 4 * b * h * dh * pairs
+        # the template the kernel runs: Dh 112 is computed 128 wide
+        done = 4 * b * h * (128 if dh == 112 else dh) * pairs
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
         t_f, t_b = flops / peak * 1e3, nbytes / rate * 1e3
@@ -1686,7 +1726,10 @@ def phase_flash(torch, stamp: str) -> dict:
         print(f"[time] flash_attention {label} q ({b}, {s}, {h}, {dh}) kv "
               f"heads {hkv} {dtype}: kernel {t['ms']} ms "
               f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
-              f"{t['bound_ms'] / t['ms']:.1%} of the bound), plain "
+              f"{t['bound_ms'] / t['ms']:.1%} of the bound"
+              + (f"; {done / t['ms'] / 1e9:.1f} TFLOP/s of the 128-wide "
+                 f"template's {done} FLOP" if done != flops else "")
+              + "), plain "
               f"{t['plain_ms']} ms, scaled_dot_product_attention "
               f"{t['library_ms']} ms ({flops / t['library_ms'] / 1e9:.1f} "
               f"TFLOP/s, {t['bound_ms'] / t['library_ms']:.1%} of the bound; "
@@ -1695,13 +1738,15 @@ def phase_flash(torch, stamp: str) -> dict:
               f"{t_f} ms, {nbytes} B at {rate / 1e12} TB/s = {t_b} ms  "
               f"[{stamp}]", flush=True)
         timed_at[label] = t
-    llama = timed_at["llama3_prefill"]
+    def brief(label):
+        return {k: timed_at[label][k] for k in ("ms", "library_ms",
+                                                "bound_ms")}
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:60",
             "max_abs_err": max_err, **timed_at["qwen3_prefill"],
-            "llama3_2_3b_prefill": {k: llama[k] for k in (
-                "ms", "library_ms", "bound_ms")}}
+            "llama3_2_3b_prefill": brief("llama3_prefill"),
+            "zamba2_7b_prefill": brief("zamba2_prefill")}
 
 
 def _profile(torch, fn, stamp: str, label: str, calls: int = 1):
@@ -2733,6 +2778,288 @@ def phase_fabric(torch, stamp: str) -> dict:
     return {"parts": launches, "chaos": l1["cache_gather"], "total": total}
 
 
+# phase 12: (family, arch, flash_attention launches a (2, 4096) prefill)
+FAMILIES = (("moe", "qwen2-moe-a2.7b", 24), ("hybrid", "zamba2-7b", 13),
+            ("ssm", "mamba2-1.3b", 0))
+FAMILY_SERVE_ARGS = ["--requests", "4", "--batch", "4", "--max-len", "64",
+                     "--prompt-len", "32", "--max-new", "8"]
+DECODE_STEPS = 30      # the decode step's time is the median of these
+
+
+def _family_prefill(torch, family: str, model, cparams, want_flash: int,
+                    stamp: str) -> dict:
+    """A bf16 block prefill of PREFILL_SHAPE: one warm-up, in which every
+    flash_attention call is held against the plain version on its own
+    inputs (``bf16_excess``), then one counted run (counts zeroed just
+    before, read just after); the two outputs compared bit for bit (an MoE
+    must be bit-equal: its sum back over the experts is a gather in a
+    fixed order); one profiled.  Returns the launches, seconds and
+    tokens/s."""
+    from repro_torch.kernels.flash_attention.ref import bf16_excess
+    from repro_torch.models import layers
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    B, S = PREFILL_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device=dev)}
+    kernel, excess = layers.flash_attention, []
+
+    def in_situ(q, k, v, causal=True):
+        out = kernel(q, k, v, causal)
+        excess.append(max(bf16_excess(out, q, k, v, causal)))
+        return out
+
+    with torch.no_grad():
+        layers.flash_attention = in_situ
+        try:
+            first, caches1 = model.prefill(cparams, batch)    # warm-up
+        finally:
+            layers.flash_attention = kernel
+        worst = max(excess, default=0.0)
+        print(f"[check] {family} bf16 prefill ({B}, {S}): {len(excess)} "
+              f"flash_attention calls, each against the plain version on "
+              f"its own inputs, worst {worst:.3f} of the bf16 bound",
+              flush=True)
+        if len(excess) != want_flash or worst > 1:
+            fail(f"{family} prefill: {len(excess)} flash_attention calls "
+                 f"(expected {want_flash}), worst {worst} of the bf16 bound")
+        torch.cuda.synchronize()
+        counts = _zero_counts()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(cparams, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = counts()
+    want = {"cache_gather": 0, "gather_aggregate": 0, "neighbor_agg": 0,
+            "neighbor_agg_backward": 0, "flash_attention": want_flash,
+            "reservoir_topm": 0}
+    same = (torch.equal(first, logits)
+            and all(torch.equal(caches1[k], caches[k]) for k in caches))
+    print(f"[{family}] {cfg.name} prefill tokens ({B}, {S}) bf16: "
+          f"{dt * 1e3:.1f} ms, {B * S / dt:.0f} tokens/s; launches "
+          f"{launches} (expected {want}); two prefills bit-equal: {same}; "
+          f"caches {{{', '.join(f'{k}: {tuple(v.shape)}' for k, v in caches.items())}}}"
+          f"  [{stamp}]", flush=True)
+    if launches != want:
+        fail(f"{family} prefill launches {launches}, expected {want}")
+    if not (logits.shape == (B, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all())):
+        fail(f"{family} prefill logits {tuple(logits.shape)} not finite or "
+             f"misshapen")
+    if family == "moe" and not same:
+        fail("two MoE prefills on the card differ")
+    del first, caches1, logits, caches
+    with torch.no_grad():
+        _profile(torch, lambda: model.prefill(cparams, batch), stamp,
+                 f"{family}: one prefill of ({B}, {S})")
+    return {"launches": launches, "ms": dt * 1e3, "tokens_per_s": B * S / dt}
+
+
+def _family_serve(torch, family: str, args, stamp: str, params=None):
+    """``run_lm_serve`` (with ``params``, or the CLI path drawing its own),
+    counts zeroed just before and read just after: every request served,
+    every token in range, no kernel launched; then the decode step's time
+    at batch ``args.batch`` with every slot at position max_len / 2.
+    Returns (the engine, the stats, the launches, decode-step ms)."""
+    from repro_torch.launch.serve import run_lm_serve
+    buf = io.StringIO()
+    counts = _zero_counts()
+    with contextlib.redirect_stdout(buf):
+        rep = run_lm_serve(args, params=params)
+    torch.cuda.synchronize()
+    launches = counts()
+    for line in buf.getvalue().splitlines():
+        print(f"[{family}] {line}  [{stamp}]", flush=True)
+    eng, st = rep["engine"], rep["stats"]
+    V = eng.cfg.vocab_size
+    done = eng.completed
+    if not (st["completed"] == args.requests == len(done)
+            and all(r.status == "done" and len(r.out_tokens) == args.max_new
+                    and all(0 <= t < V for t in r.out_tokens) for r in done)):
+        fail(f"{family}: {st['completed']}/{args.requests} requests served")
+    if any(launches.values()):
+        fail(f"{family} serving launched {launches}: decode is plain torch")
+    dev = eng.device
+    step = {"token": torch.ones(args.batch, dtype=torch.int32, device=dev),
+            "pos": torch.full((args.batch,), args.max_len // 2,
+                              dtype=torch.int32, device=dev)}
+    times = []
+    with torch.no_grad():
+        for _ in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            lg, _ = eng.model.decode(eng._cparams, eng.kv.caches, step)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"{family} decode-step logits are not finite")
+        _profile(torch, lambda: eng.model.decode(eng._cparams, eng.kv.caches,
+                                                 step), stamp,
+                 f"{family}: one decode step at batch {args.batch}")
+    times.sort()
+    step_ms = times[len(times) // 2]
+    print(f"[{family}] serving {args.requests} requests at batch "
+          f"{args.batch}: {st['tokens']} tokens in {st['seconds']:.2f} s, "
+          f"{st['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+          f"{st['ttft_p50_ms']:.1f} ms p99 {st['ttft_p99_ms']:.1f} ms; decode "
+          f"step (batch {args.batch}, position {args.max_len // 2}) median "
+          f"of {DECODE_STEPS} {step_ms:.2f} ms (min {times[0]:.2f}, max "
+          f"{times[-1]:.2f}); launches {launches}  [{stamp}]",
+          flush=True)
+    return eng, st, launches, step_ms
+
+
+# phase 12's f32 checks of the whole prefill run the hybrid at a cut depth:
+# with seeded weights the 81-layer zamba2-7b stack is chaotic (PERF.md:
+# 1e-6 relative noise on the embedding table moved its logits by
+# about a quarter of their largest on the H100, under 1e-3 at 12 layers),
+# so no two f32 summation orders agree to LOGITS_REL_TOL there.  At full
+# depth each attention call is held against the plain version on its own
+# inputs.
+HYBRID_F32_CHECK_LAYERS = 12
+
+
+def _family_f32_checks(torch, family: str, cfg, params):
+    """f32 on a 64-token prompt.  At full depth: every flash_attention call
+    of the prefill against the plain version on the same inputs.  At
+    ``HYBRID_F32_CHECK_LAYERS`` for the hybrid, at full depth for the SSM:
+    the prefill through the kernel against the
+    prefill with ``layers.flash_attention`` swapped for its plain version,
+    and the engine's first greedy token against the prefill's argmax (the
+    sequential recurrence against the chunked SSD)."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers
+    from repro_torch.models.api import build
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.engine import Engine, Request
+    dev = torch.device("cuda")
+    cfg32 = cfg.replace(compute_dtype="float32")
+    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, 64
+                                               ).astype(np.int32)
+    toks = {"tokens": torch.from_numpy(prompt)[None].to(dev)}
+    kernel = layers.flash_attention
+    calls = []
+
+    def in_situ(q, k, v, causal=True):
+        out = kernel(q, k, v, causal)
+        ref = flash_attention_ref(q, k, v, causal)
+        calls.append(float((out - ref).abs().max() / ref.abs().max()))
+        return out
+
+    full = build(cfg32)
+    with torch.no_grad():
+        layers.flash_attention = in_situ
+        try:
+            full.prefill(params, toks)
+        finally:
+            layers.flash_attention = kernel
+    worst = max(calls, default=0.0)
+    print(f"[check] {family} f32 prefill of 64 tokens, {cfg.num_layers} "
+          f"layers: {len(calls)} flash_attention calls, each against the "
+          f"plain version on its own inputs, worst max |diff| / max |out| "
+          f"{worst:.2e} (tolerance {LOGITS_REL_TOL})", flush=True)
+    if worst > LOGITS_REL_TOL:
+        fail(f"a {family} flash_attention call differs from the plain "
+             f"version on its own inputs")
+    n = HYBRID_F32_CHECK_LAYERS if family == "hybrid" else cfg.num_layers
+    if n < cfg.num_layers:
+        cfg32 = cfg32.replace(num_layers=n)
+        stack = "mamba" if family == "hybrid" else "layers"
+        params = {**params, stack: tree_map(lambda a: a[:n], params[stack])}
+    m32 = build(cfg32)
+    with torch.no_grad():
+        got, _ = m32.prefill(params, toks)
+        layers.flash_attention = flash_attention_ref
+        try:
+            want, _ = m32.prefill(params, toks)
+        finally:
+            layers.flash_attention = kernel
+    rel = float((got - want).abs().max() / want.abs().max())
+    eng = Engine(cfg32, params=params, batch=1, max_len=128, device=dev)
+    eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=1))
+    eng.run_to_completion()
+    first, top = eng.completed[0].out_tokens[0], int(got[0].argmax())
+    print(f"[check] {family} f32 prefill of 64 tokens, {n} layers: kernel vs "
+          f"plain attention max |diff| / max |logit| = {rel:.2e} (tolerance "
+          f"{LOGITS_REL_TOL}); engine first token {first}, prefill argmax {top}", flush=True)
+    if not (rel <= LOGITS_REL_TOL and bool(torch.isfinite(got).all())):
+        fail(f"the {family} f32 prefill through the kernel differs from "
+             f"the plain one")
+    if first != top:
+        fail(f"the {family} engine's first token is not the prefill's "
+             f"argmax")
+
+
+def phase_families(torch, stamp: str) -> dict:
+    """The MoE, hybrid and SSM LM families at full width (phase 12); returns
+    each family's prefill and serving launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_parser
+    from repro_torch.models.api import build, compute_params
+    from repro_torch.models.params import init_params
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    for family, arch, want_flash in FAMILIES:
+        cfg = get_config(arch)
+        model = build(cfg)
+        args = build_parser().parse_args(["--arch", arch,
+                                          *FAMILY_SERVE_ARGS])
+        t0 = time.perf_counter()
+        if family == "moe":
+            # f32 masters and a bf16 copy (~86 GB) do not fit the card:
+            # the tree is drawn in bf16, as JAX's launcher draws at
+            # param_dtype, and compute_params copies nothing
+            params = init_params(model.decls,
+                                 torch.Generator(device=dev).manual_seed(0),
+                                 dev, dtype_override=torch.bfloat16)
+            torch.cuda.synchronize()
+            how = "drawn on the card in bf16"
+            eng, st, serve, step_ms = None, None, None, None
+        else:
+            # the CLI path itself: the engine draws its f32 masters and
+            # keeps a bf16 copy
+            eng, st, serve, step_ms = _family_serve(torch, family, args,
+                                                    stamp)
+            params = eng.params
+            how = "drawn by the engine (f32 masters, a bf16 copy)"
+        print(f"[{family}] {arch} full width, {cfg.num_layers} layers: "
+              f"{cfg.param_count()} parameters {how} in "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  "
+              f"[{stamp}]", flush=True)
+        cparams = (eng._cparams if eng is not None
+                   else compute_params(params, cfg))
+        prefill = _family_prefill(torch, family, model, cparams, want_flash,
+                                  stamp)
+        del cparams
+        if eng is None:
+            eng, st, serve, step_ms = _family_serve(torch, family, args,
+                                                    stamp, params=params)
+            print(f"[check] {family}: the engine's first token is held "
+                  f"against the JAX engine's greedy streams on the CPU "
+                  f"(tests/test_torch_moe.py): a block prefill drops tokens "
+                  f"past an expert's capacity, decode drops none", flush=True)
+        else:
+            _family_f32_checks(torch, family, cfg, params)
+        out[family] = {"prefill": prefill["launches"], "serve": serve,
+                       "prefill_ms": prefill["ms"],
+                       "tokens_per_s": prefill["tokens_per_s"],
+                       "decode_step_ms": step_ms,
+                       "ttft_p50_ms": st["ttft_p50_ms"]}
+        del eng, params, model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    print(f"[families] phase 12 in {time.perf_counter() - t_phase:.1f} s  "
+          f"[{stamp}]", flush=True)
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2788,11 +3115,19 @@ def main() -> int:
         autotune["neighbor_agg_backward"]
     reservoir["path_launches"]["autotune"] = autotune["reservoir_topm"]
     fabric = phase_fabric(torch, stamp)
+    families = phase_families(torch, stamp)
     entry["fabric_launches"] = sum(n for k, n in fabric["parts"].items()
                                    if k != "train")
     entry["fabric_warmup_train_launches"] = fabric["parts"]["train"]
     entry["fabric_chaos_launches"] = fabric["chaos"]
     reservoir["path_launches"]["fabric"] = fabric["total"]["reservoir_topm"]
+    flash["path_launches"] = {f: families[f]["prefill"]["flash_attention"]
+                              for f in families}
+    flash["family_decode_launches"] = {
+        f: families[f]["serve"]["flash_attention"] for f in families}
+    reservoir["path_launches"]["lm_families"] = sum(
+        families[f][part]["reservoir_topm"] for f in families
+        for part in ("prefill", "serve"))
     entries += [flash, reservoir]
     for mod in ("jax", "repro"):
         if mod in sys.modules:

@@ -3,8 +3,9 @@ families' ``ModelConfig``.
 
 ``ModelConfig`` and ``ShapeConfig`` are copies of the JAX package's
 (``src/repro/configs/base.py``), fields and ``param_count`` unchanged.  The
-port registers the GNN configs (configs/gnn.py) and the dense LMs
-``qwen3-4b`` and ``llama3.2-3b``; the other LM families are not ported yet.
+port registers the GNN configs (configs/gnn.py) and the LMs of the
+dense, MoE, SSM and hybrid families; the encoder-decoder and VLM configs
+are not ported yet.
 """
 from __future__ import annotations
 

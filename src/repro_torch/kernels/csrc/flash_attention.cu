@@ -16,9 +16,22 @@
 // the softmax (16 per clock per SM) costs half as much again as the two
 // products of a tile: the design keeps both units fed.
 //
-// Which kernel runs where: bf16 at every head width (16, 32, 64, 128) is
-// the Hopper kernel below (namespace wg); f32 is the SIMT kernel (namespace
-// simt), which is off the prefill's path (no tensor-core type keeps f32).
+// Which kernel runs where: bf16 at every head width is the Hopper kernel
+// below (namespace wg); f32 is the SIMT kernel (namespace simt), which is
+// off the prefill's path (no tensor-core type keeps f32).
+//
+// Head widths.  Each kernel is a template of width DH in {16, 32, 64, 128};
+// the caller names the template a head width dh runs on (ops.py's
+// TEMPLATE_WIDTH: 8 runs the DH = 16 instance and 112 the DH = 128 one;
+// zamba2-7b and kimi-k2 have Dh = 112, glm4-9b's smoke config 8).  The
+// tensors keep their real width: the tensor maps and strides are dh's
+// (dh*2 and heads*dh*2 bytes, multiples of 16 for a dh that is a multiple
+// of 8), the boxes the template's, so TMA fills columns dh..DH-1 of every
+// tile with zeros, which add nothing to Q.K^T and give output columns that
+// are never stored; the f32 kernel's PAD instances load those columns as
+// zeros themselves (at dh = DH the unmasked instance runs).
+// The scale is dh^-1/2.  The cost: the products of a dh = 112 call run
+// over 128 columns, 128/112 of the arithmetic (2x at dh = 8).
 //
 // Shared by both.  A block (in the bf16 kernel, each work item of a
 // persistent block) owns one (batch, head) and a tile of query rows, and
@@ -79,13 +92,13 @@
 //      the host at every call (a few microseconds); a failed encode returns
 //      kEncodeError + its CUresult, which the wrapper raises.
 //   2. TMA: the maps are 4-D, (Dh, heads, S, B) innermost first, over the
-//      tensors' own strides (Dh*2, heads*Dh*2, S*heads*Dh*2 bytes: each a
-//      multiple of 16 at every width taken); boxes of min(Dh, 64) columns x
+//      tensors' own strides (dh*2, heads*dh*2, S*heads*dh*2 bytes: each a
+//      multiple of 16 at every width taken); boxes of min(DH, 64) columns x
 //      1 head x 128 rows x 1 batch, so a box row is exactly the swizzle
 //      span: 128-byte swizzle at Dh 64 and 128 (two boxes per row at 128),
 //      64-byte at Dh 32, 32-byte at Dh 16.  The global address is 16-byte
-//      aligned (the wrapper checks).  Rows >= S are zero-filled by TMA,
-//      which counts them in the transaction bytes.
+//      aligned (the wrapper checks).  Rows >= S and columns >= dh are
+//      zero-filled by TMA, which counts them in the transaction bytes.
 //   3. wgmma descriptors must describe exactly the layout TMA wrote, or the
 //      numbers are wrong without a fault.  Q and K are K-major: rows of
 //      (swizzle span) bytes, 8-row groups SBO = 8 x span apart, the k-step
@@ -557,7 +570,7 @@ __device__ __forceinline__ void produce(const Smem<DH>& sm, const CUtensorMap* t
 template <int DH>
 __device__ __forceinline__ void consume_item(const Smem<DH>& sm, __nv_bfloat16* __restrict__ o,
                                              int cw, int tid, int q0, int b, int h, int n_tiles,
-                                             int S, int H, int causal, float scale_log2,
+                                             int S, int H, int dh, int causal, float scale_log2,
                                              int& n, int item) {
   const int warp = tid >> 5, g = (tid & 31) >> 2, key0 = 2 * (tid & 3);
   const int wg_row0 = q0 + 64 * cw;
@@ -633,10 +646,11 @@ __device__ __forceinline__ void consume_item(const Smem<DH>& sm, __nv_bfloat16* 
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const float d_a = fmaxf(l_a, 1e-30f), d_b = fmaxf(l_b, 1e-30f);
-  const int64_t stride = static_cast<int64_t>(H) * DH;
-  __nv_bfloat16* ob = o + static_cast<int64_t>(b) * S * stride + h * DH + key0;
+  const int64_t stride = static_cast<int64_t>(H) * dh;
+  __nv_bfloat16* ob = o + static_cast<int64_t>(b) * S * stride + h * dh + key0;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
+    if (8 * j >= dh) break;   // columns dh.. of the template are padding
     if (row_a < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + row_a * stride + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j] / d_a, acc[4 * j + 1] / d_a);
@@ -648,14 +662,14 @@ __device__ __forceinline__ void consume_item(const Smem<DH>& sm, __nv_bfloat16* 
 
 template <int DH>
 __device__ __forceinline__ void consume(const Smem<DH>& sm, __nv_bfloat16* __restrict__ o,
-                                        int cw, int tid, int B, int S, int H, int causal,
+                                        int cw, int tid, int B, int S, int H, int dh, int causal,
                                         float scale_log2) {
   if (cw == 1) turn_pass(1);   // consumer 0 takes the first turn
   int n = 0, item = 0;
   Work w;
   for (int r = 0; r < rounds(S, B, H); ++r) {
     if (!w.at(r, S, B, H, causal)) continue;
-    consume_item<DH>(sm, o, cw, tid, w.q0, w.b, w.h, w.n_tiles, S, H, causal, scale_log2, n,
+    consume_item<DH>(sm, o, cw, tid, w.q0, w.b, w.h, w.n_tiles, S, H, dh, causal, scale_log2, n,
                      item);
     ++item;
   }
@@ -667,7 +681,7 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int B,
-                int S, int H, int Hkv, int causal, float scale_log2) {
+                int S, int H, int Hkv, int dh, int causal, float scale_log2) {
   extern __shared__ uint8_t smem_wg[];
   const Smem<DH> sm((smem_u32(smem_wg) + 1023u) & ~1023u);   // swizzle atoms: 1024 B
   if (threadIdx.x == 0) {
@@ -690,7 +704,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     if (threadIdx.x == 0) produce<DH>(sm, &tq, &tk, &tv, B, S, H, Hkv, causal);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume<DH>(sm, o, wgi - 1, threadIdx.x - 128 * wgi, B, S, H, causal, scale_log2);
+    consume<DH>(sm, o, wgi - 1, threadIdx.x - 128 * wgi, B, S, H, dh, causal, scale_log2);
   }
 }
 
@@ -709,24 +723,28 @@ constexpr int kPLD = kBK + 4;   // P tile row stride (floats)
 template <int DH>
 constexpr int smem_bytes() { return ((kBQ + 2 * kBK) * (DH + 4) + kBQ * kPLD) * 4; }
 
-template <int DH>
+// rows >= S and, in a PAD instance, columns >= dh (the template's padding)
+// are stored as zeros
+template <int DH, bool PAD>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t row_stride,
-                                          int s0, int rows, int S) {
+                                          int s0, int rows, int S, int dh) {
   constexpr int LD = DH + 4, VEC = DH / 4;
   for (int e = threadIdx.x; e < rows * VEC; e += kThreads) {
     const int r = e / VEC, c = e % VEC;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s0 + r < S)
+    if (s0 + r < S && (!PAD || c * 4 < dh))
       val = *reinterpret_cast<const float4*>(src + (s0 + r) * row_stride + c * 4);
     *reinterpret_cast<float4*>(dst + r * LD + c * 4) = val;
   }
 }
 
-template <int DH>
+// PAD: dh < DH, the columns dh..DH-1 are masked; else dh is DH, a constant
+template <int DH, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
-              int S, int H, int Hkv, int causal, float scale_log2) {
+              int S, int H, int Hkv, int dh_arg, int causal, float scale_log2) {
+  const int dh = PAD ? dh_arg : DH;
   constexpr int LD = DH + 4;     // smem row stride (floats): 16-byte rows, bank skew
   constexpr int NC = DH / 16;    // output columns per thread: tx + 16 c
   extern __shared__ float4 smem_f4[];
@@ -738,14 +756,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;   // rows 4 ty .. 4 ty + 3
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / (H / Hkv);
-  const int64_t q_stride = static_cast<int64_t>(H) * DH;
-  const int64_t kv_stride = static_cast<int64_t>(Hkv) * DH;
-  const float* qb = q + static_cast<int64_t>(b) * S * q_stride + h * DH;
-  const float* kb = k + static_cast<int64_t>(b) * S * kv_stride + hk * DH;
-  const float* vb = v + static_cast<int64_t>(b) * S * kv_stride + hk * DH;
-  float* ob = o + static_cast<int64_t>(b) * S * q_stride + h * DH;
+  const int64_t q_stride = static_cast<int64_t>(H) * dh;
+  const int64_t kv_stride = static_cast<int64_t>(Hkv) * dh;
+  const float* qb = q + static_cast<int64_t>(b) * S * q_stride + h * dh;
+  const float* kb = k + static_cast<int64_t>(b) * S * kv_stride + hk * dh;
+  const float* vb = v + static_cast<int64_t>(b) * S * kv_stride + hk * dh;
+  float* ob = o + static_cast<int64_t>(b) * S * q_stride + h * dh;
 
-  load_tile<DH>(Qs, qb, q_stride, q0, kBQ, S);
+  load_tile<DH, PAD>(Qs, qb, q_stride, q0, kBQ, S, dh);
   float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -759,8 +777,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();               // the previous tile's K, V and P are consumed
-    load_tile<DH>(Ks, kb, kv_stride, k0, kBK, S);
-    load_tile<DH>(Vs, vb, kv_stride, k0, kBK, S);
+    load_tile<DH, PAD>(Ks, kb, kv_stride, k0, kBK, S, dh);
+    load_tile<DH, PAD>(Vs, vb, kv_stride, k0, kBK, S, dh);
     __syncthreads();
 
     float sc[4][2];
@@ -846,7 +864,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= S) continue;
     const float lm = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) ob[row * q_stride + tx + 16 * c] = acc[i][c] / lm;
+    for (int c = 0; c < NC; ++c)
+      if (!PAD || tx + 16 * c < dh) ob[row * q_stride + tx + 16 * c] = acc[i][c] / lm;
   }
 }
 
@@ -886,12 +905,13 @@ EncodeTiled encoder() {
   return reinterpret_cast<EncodeTiled>(fn);
 }
 
-// (Dh, heads, S, B) over a contiguous (B, S, heads, Dh) bf16 tensor, boxes
-// of min(Dh, 64) columns x 1 head x 128 rows x 1 batch, swizzled by the box
-// row; rows past S read as zeros
+// (dh, heads, S, B) over a contiguous (B, S, heads, dh) bf16 tensor, boxes
+// of the template's min(DH, 64) columns x 1 head x 128 rows x 1 batch,
+// swizzled by the box row; rows past S and columns past dh read as zeros
+template <int DH>
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int dh, int heads, int S,
                 int B) {
-  const int span = dh * 2 < 128 ? dh * 2 : 128;
+  constexpr int span = wg::Tile<DH>::SPAN;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t row = static_cast<cuuint64_t>(heads) * dh * 2;
@@ -908,16 +928,16 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int dh, int h
 
 template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                 int Hkv, int causal, float scale_log2, cudaStream_t stream) {
+                 int Hkv, int dh, int causal, float scale_log2, cudaStream_t stream) {
   using T = wg::Tile<DH>;
   static const cudaError_t granted = grant(wg::flash_fwd_wgmma<DH>, T::SMEM);
   static const EncodeTiled fn = encoder();
   if (granted != cudaSuccess) return static_cast<int>(granted);
   if (fn == nullptr) return kEncodeError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
   CUtensorMap tq, tk, tv;
-  CUresult r = encode(fn, &tq, q, DH, H, S, B);
-  if (r == CUDA_SUCCESS) r = encode(fn, &tk, k, DH, Hkv, S, B);
-  if (r == CUDA_SUCCESS) r = encode(fn, &tv, v, DH, Hkv, S, B);
+  CUresult r = encode<DH>(fn, &tq, q, dh, H, S, B);
+  if (r == CUDA_SUCCESS) r = encode<DH>(fn, &tk, k, dh, Hkv, S, B);
+  if (r == CUDA_SUCCESS) r = encode<DH>(fn, &tv, v, dh, Hkv, S, B);
   if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
   int device = 0, sms = 0;
   cudaGetDevice(&device);
@@ -925,29 +945,30 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   const int items = (S + wg::kBM - 1) / wg::kBM * B * H;
   const int grid = items < sms ? items : sms;
   wg::flash_fwd_wgmma<DH><<<grid, wg::kThreads, T::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, Hkv, causal, scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, Hkv, dh, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
+template <int DH, bool PAD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-               int Hkv, int causal, float scale_log2, cudaStream_t stream) {
+               int Hkv, int dh, int causal, float scale_log2, cudaStream_t stream) {
   constexpr int smem = simt::smem_bytes<DH>();
-  static const cudaError_t granted = grant(simt::flash_fwd_f32<DH>, smem);
+  static const cudaError_t granted = grant(simt::flash_fwd_f32<DH, PAD>, smem);
   if (granted != cudaSuccess) return static_cast<int>(granted);
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  simt::flash_fwd_f32<DH><<<grid, simt::kThreads, smem, stream>>>(
+  simt::flash_fwd_f32<DH, PAD><<<grid, simt::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, Hkv, causal, scale_log2);
+      static_cast<float*>(o), S, H, Hkv, dh, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // one grant per kernel, at its first launch (thread-safe static initialisation)
 template <int DH>
 int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o, int B, int S,
-             int H, int Hkv, int causal, float scale_log2, cudaStream_t stream) {
-  return bf16 ? launch_wgmma<DH>(q, k, v, o, B, S, H, Hkv, causal, scale_log2, stream)
-              : launch_f32<DH>(q, k, v, o, B, S, H, Hkv, causal, scale_log2, stream);
+             int H, int Hkv, int dh, int causal, float scale_log2, cudaStream_t stream) {
+  if (bf16) return launch_wgmma<DH>(q, k, v, o, B, S, H, Hkv, dh, causal, scale_log2, stream);
+  return dh < DH ? launch_f32<DH, true>(q, k, v, o, B, S, H, Hkv, dh, causal, scale_log2, stream)
+                 : launch_f32<DH, false>(q, k, v, o, B, S, H, Hkv, dh, causal, scale_log2, stream);
 }
 
 }  // namespace
@@ -955,26 +976,30 @@ int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o, in
 // Returns 0 when the kernel was launched, else the CUDA error of the launch,
 // or kEncodeError (100000) + the CUresult of a failed tensor-map encode.
 // The caller has checked shapes, types, devices, contiguity and 16-byte
-// alignment; head_dim is 16, 32, 64 or 128 and B * H <= 65535.  scale_log2
-// is head_dim^-1/2 * log2(e).
+// alignment and B * H <= 65535, and names the template (16, 32, 64 or 128)
+// that runs head_dim, a multiple of 8 no wider than it (ops.py's
+// TEMPLATE_WIDTH).  scale_log2 is head_dim^-1/2 * log2(e), of the real
+// head_dim.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int batch, int seq, int heads, int kv_heads,
-                                      int head_dim, int bf16, int causal, float scale_log2,
-                                      void* stream) {
+                                      int head_dim, int width, int bf16, int causal,
+                                      float scale_log2, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return dispatch<16>(bf16, q, k, v, o, batch, seq, heads, kv_heads, causal, scale_log2, s);
-    case 32: return dispatch<32>(bf16, q, k, v, o, batch, seq, heads, kv_heads, causal, scale_log2, s);
-    case 64: return dispatch<64>(bf16, q, k, v, o, batch, seq, heads, kv_heads, causal, scale_log2, s);
-    case 128: return dispatch<128>(bf16, q, k, v, o, batch, seq, heads, kv_heads, causal, scale_log2, s);
+  const int d = head_dim;
+  if (d < 8 || d % 8 != 0 || d > width) return static_cast<int>(cudaErrorInvalidValue);
+  switch (width) {
+    case 16: return dispatch<16>(bf16, q, k, v, o, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
+    case 32: return dispatch<32>(bf16, q, k, v, o, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
+    case 64: return dispatch<64>(bf16, q, k, v, o, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
+    case 128: return dispatch<128>(bf16, q, k, v, o, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dynamic shared memory a launch grants (bytes), 0 for a width not taken;
-// ptxas reports static shared memory only.
-extern "C" int flash_attention_smem_bytes(int head_dim, int bf16) {
-  switch (head_dim) {
+// Dynamic shared memory a launch of the template of this width grants
+// (bytes), 0 for no template; ptxas reports static shared memory only.
+extern "C" int flash_attention_smem_bytes(int width, int bf16) {
+  switch (width) {
     case 16: return bf16 ? wg::Tile<16>::SMEM : simt::smem_bytes<16>();
     case 32: return bf16 ? wg::Tile<32>::SMEM : simt::smem_bytes<32>();
     case 64: return bf16 ? wg::Tile<64>::SMEM : simt::smem_bytes<64>();

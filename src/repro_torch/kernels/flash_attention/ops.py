@@ -12,7 +12,12 @@ model's ``_repeat_kv`` + ``_attend`` compute:
   * k/v may carry Hkv heads with ``H % Hkv == 0``: head h reads kv head
     ``h // (H // Hkv)``, with no repeated copy;
   * float32 or bfloat16 (q, k and v of one type); the output has q's type.
-On the card Dh is 16, 32, 64 or 128 and the inputs are contiguous.
+On the card Dh is one of ``HEAD_DIMS`` and the inputs are contiguous.
+Dh = 8 runs the kernels' 16-wide instance and Dh = 112 their 128-wide
+one, over the tensors as they are: the tensor maps carry the real width,
+TMA fills the missing columns of each tile with zeros and the stores stop
+at Dh (a Dh = 112 call does 128/112 of the arithmetic).  A CUDA tensor of
+another width raises; nothing pads it here.
 
 Bound: operations (``4·B·H·Dh·S(S+1)/2`` FLOP causal) at the prefill's
 shapes.  bf16 runs the Hopper kernel (TMA ring, ``wgmma``, warp-specialised
@@ -33,7 +38,11 @@ import torch
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128)
+# the head widths the card takes, each with the kernels' template width it
+# runs on (the narrowest of 16, 32, 64 and 128 that holds it); the CUDA
+# source is told the template at every launch
+TEMPLATE_WIDTH = {8: 16, 16: 16, 32: 32, 64: 64, 112: 128, 128: 128}
+HEAD_DIMS = tuple(TEMPLATE_WIDTH)
 ENCODE_ERROR = 100000      # the C function's code: this + a CUresult
 _fn = None
 
@@ -43,7 +52,7 @@ def _kernel():
     if _fn is None:
         from repro_torch.kernels.build import load
         fn = load("flash_attention").flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -93,7 +102,7 @@ def flash_attention(q, k, v, causal: bool = True):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), B, S, H, k.shape[2], Dh,
-                        int(q.dtype == torch.bfloat16), int(causal),
+                        TEMPLATE_WIDTH[Dh], int(q.dtype == torch.bfloat16), int(causal),
                         scale_log2, stream)
     if err >= ENCODE_ERROR:
         raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed: "

@@ -1,9 +1,14 @@
 """Serving entry point of the port — two engines behind one CLI.
 
-LM token decode (continuous batching over prompts, the dense LMs):
+LM token decode (continuous batching over prompts; the dense, MoE, SSM
+and hybrid LMs):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --smoke \
       --requests 16 --batch 4 --max-new 12
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke
+
+(``--arch`` qwen3-4b, llama3.2-3b, glm4-9b, minitron-8b, qwen2-moe-a2.7b,
+kimi-k2-1t-a32b, mamba2-1.3b or zamba2-7b.)
 
 Online GNN node inference over the training-side FeaturePlane (trains
 briefly to warm the parameters and the γ/Θ cache, serves node queries,
@@ -23,8 +28,8 @@ mid-serving trainer → replica weight refresh and a saturating burst:
       --replicas 2 --train-steps 4 --queries 64 --batch 4 --slo-p99-ms 600
 
 Everything runs on ``--device`` (default ``cuda``); ``--device cpu`` runs
-the plain versions of the kernels on the host.  The LM families other than
-dense are not ported yet.
+the plain versions of the kernels on the host.  The encoder-decoder and
+VLM families (whisper-medium, qwen2-vl-2b) are not ported yet.
 """
 from __future__ import annotations
 
@@ -48,10 +53,10 @@ def run_lm_serve(args, params=None) -> Dict:
 
     try:
         cfg = get_config(args.arch, smoke=args.smoke)
-    except KeyError:        # the other LM families are not registered yet
-        cfg = None
-    if getattr(cfg, "family", None) != "dense":
-        raise SystemExit(f"LM serving of --arch {args.arch}: {NOT_PORTED}")
+    except KeyError:        # encdec and vlm are not registered yet
+        raise SystemExit(f"LM serving of --arch {args.arch}: "
+                         f"{NOT_PORTED}") from None
+    # build() refuses a family or layer kind the port does not serve
     eng = Engine(cfg, params=params, batch=args.batch, max_len=args.max_len,
                  temperature=args.temperature, seed=args.seed,
                  device=args.device)

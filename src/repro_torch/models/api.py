@@ -1,13 +1,15 @@
 """Model API of the port's LM families: ``build(cfg)`` → :class:`Model`.
 
-A port of ``src/repro/models/api.py`` for ``family == "dense"``; the
-members are plain functions, parameters first:
+A port of ``src/repro/models/api.py`` for the ``dense``, ``moe``, ``ssm``
+and ``hybrid`` families; the members are plain functions, parameters
+first:
 
   * ``decls``                          parameter declarations
   * ``prefill(params, batch)``         → (logits, caches)  the block prefill
   * ``decode(params, caches, batch)``  → (logits, caches)  one decode step
   * ``cache_decls(batch, len)``        decode-cache declarations
 
+The pure-SSM LM (a Mamba2 stack) lives here, as in JAX.
 ``compute_params`` makes the one compute-dtype copy of the f32 master
 weights that a serving engine keeps.  The loss (training) and the dry-run's
 ``input_specs`` are not ported.
@@ -17,11 +19,70 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import hybrid as HY
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
+from repro_torch.models.params import ParamDecl, stack_decls
 
-NOT_PORTED = "not ported yet: the port serves the dense LMs (ROADMAP.md)"
+NOT_PORTED = ("not ported yet: the port serves the dense, MoE, SSM and "
+              "hybrid LMs; encdec and vlm are slice 7b (ROADMAP.md)")
+# leaves the JAX package reads in f32 from the f32 master at every use:
+# norm scales, the MoE router, the SSM's decay and step bias
+F32_LEAVES = ("scale", "router", "A_log", "dt_bias")
 
+
+# ---------------------------------------------------------------------------
+# Pure-SSM LM (Mamba2 stack)
+# ---------------------------------------------------------------------------
+
+def _ssm_decls(cfg):
+    return {
+        "embed": L.decls_embedding(cfg),
+        "layers": stack_decls({"ln": L.decls_rmsnorm(cfg.d_model),
+                               "block": SSM.decls_mamba2(cfg)},
+                              cfg.num_layers),
+        "ln_f": L.decls_rmsnorm(cfg.d_model),
+    }
+
+
+def _ssm_cache_decls(cfg, batch, cache_len):
+    d_inner, nheads, N, conv_dim = SSM.ssm_dims(cfg)
+    return {
+        "ssm": ParamDecl((cfg.num_layers, batch, nheads, cfg.ssm_head_dim, N),
+                         torch.float32, "zeros"),
+        "conv": ParamDecl((cfg.num_layers, batch, cfg.ssm_conv_width - 1,
+                           conv_dim), T._cdt(cfg), "zeros"),
+    }
+
+
+def _ssm_prefill(params, batch, cfg):
+    """Prompt pass producing final SSM/conv states per layer."""
+    h = L.embed(params["embed"], batch["tokens"], cfg, T._cdt(cfg))
+    fstates, tails = [], []
+    for i in range(cfg.num_layers):
+        h, fstate, tail = SSM.mamba2_residual_prefill(T._layer(params, i), h,
+                                                      cfg)
+        fstates.append(fstate)
+        tails.append(tail)
+    return T._logits(params, h[:, -1], cfg), {"ssm": torch.stack(fstates),
+                                              "conv": torch.stack(tails)}
+
+
+def _ssm_decode(params, caches, batch, cfg):
+    """One decode step; the states are written into ``caches`` in place."""
+    h = L.embed(params["embed"], batch["token"][:, None], cfg, T._cdt(cfg))
+    for i in range(cfg.num_layers):
+        h = SSM.mamba2_residual_decode(T._layer(params, i), h, cfg, caches, i)
+    return T._logits(params, h[:, 0], cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# Model wrapper
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class Model:
@@ -36,26 +97,44 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is {NOT_PORTED}")
-    if cfg.is_moe or not cfg.use_rope or cfg.mrope_sections \
-            or cfg.mlp_type != "swiglu":
-        raise NotImplementedError(f"{cfg.name}: MoE, NoPE, M-RoPE and "
+    fam = cfg.family
+    if fam in ("encdec", "vlm"):
+        raise NotImplementedError(f"family {fam!r} is {NOT_PORTED}")
+    if fam != "ssm" and (not cfg.use_rope or cfg.mrope_sections
+                         or cfg.mlp_type != "swiglu"):
+        raise NotImplementedError(f"{cfg.name}: NoPE, M-RoPE and "
                                   f"non-SwiGLU layers are {NOT_PORTED}")
-    return Model(cfg=cfg, decls=T.decls_lm(cfg),
-                 prefill=lambda p, b: T.prefill(p, b, cfg),
-                 decode=lambda p, c, b: T.decode_step(p, c, b, cfg),
-                 cache_decls_fn=lambda batch, n: T.cache_decls(cfg, batch, n))
+    if fam in ("dense", "moe"):
+        return Model(cfg=cfg, decls=T.decls_lm(cfg),
+                     prefill=lambda p, b: T.prefill(p, b, cfg),
+                     decode=lambda p, c, b: T.decode_step(p, c, b, cfg),
+                     cache_decls_fn=lambda batch, n: T.cache_decls(cfg, batch,
+                                                                   n))
+    if fam == "ssm":
+        return Model(cfg=cfg, decls=_ssm_decls(cfg),
+                     prefill=lambda p, b: _ssm_prefill(p, b, cfg),
+                     decode=lambda p, c, b: _ssm_decode(p, c, b, cfg),
+                     cache_decls_fn=lambda batch, n: _ssm_cache_decls(
+                         cfg, batch, n))
+    if fam == "hybrid":
+        return Model(cfg=cfg, decls=HY.decls_hybrid(cfg),
+                     prefill=lambda p, b: HY.prefill(p, b, cfg),
+                     decode=lambda p, c, b: HY.decode_step(p, c, b, cfg),
+                     cache_decls_fn=lambda batch, n: HY.cache_decls(cfg, batch,
+                                                                    n))
+    raise ValueError(f"unknown family {fam!r}")
 
 
 def compute_params(params, cfg: ModelConfig):
     """The weights in ``cfg.compute_dtype``: the values JAX's
-    ``.astype(x.dtype)`` gives at each use, made once.  Norm scales, which
-    the model reads in f32, stay as they are; at f32 nothing is copied."""
+    ``.astype(x.dtype)`` gives at each use, made once.  The leaves JAX
+    reads in f32 (``F32_LEAVES``: norm scales, the router, ``A_log``,
+    ``dt_bias``) stay as they are; a leaf already in the compute dtype is
+    not copied (``Tensor.to``), so a tree drawn in it costs nothing."""
     cdt = T._cdt(cfg)
 
     def cast(tree, key=None):
         if isinstance(tree, dict):
             return {k: cast(v, k) for k, v in tree.items()}
-        return tree if key == "scale" else tree.to(cdt)
+        return tree if key in F32_LEAVES else tree.to(cdt)
     return cast(params)

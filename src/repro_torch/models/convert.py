@@ -5,7 +5,11 @@ Both packages keep the same trees with the same layouts: the GNN's
 ``{"layers": [{name: array}]}`` with ``(din, dout)`` weights, and the LM's
 nested dicts (``embed.tok``, ``layers.{ln1,ln2}.scale``,
 ``layers.attn.{wq,wk,wv,wo,q_norm.scale,k_norm.scale}``,
-``layers.mlp.{w_gate,w_up,w_down}``, ``ln_f.scale``) stacked on a leading
+``layers.mlp.{w_gate,w_up,w_down}``, ``ln_f.scale``; MoE layers'
+``layers.moe.{router,w_gate,w_up,w_down,shared.{w_gate,w_up,w_down}}``;
+the SSM LM's ``layers.{ln,block.*}`` with ``block.{in_proj,conv_w,conv_b,
+A_log,D,dt_bias,norm.scale,out_proj}``; the hybrid's ``mamba.{ln,block.*}``
+and its one ``shared.{ln1,attn.*,ln2,mlp.*}``) stacked on a leading
 layer axis.  So the mapping is by name and nothing is transposed.  The
 PPO agent's nets (``core/autotune/ppo.py``) keep JAX's lists of
 ``{"w": (in, out), "b": (out,)}`` layers as ``MLP`` modules of the same

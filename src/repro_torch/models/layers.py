@@ -1,4 +1,4 @@
-"""Transformer building blocks of the dense LMs, in PyTorch.
+"""Transformer building blocks of the LMs, in PyTorch.
 
 Functional ports of ``src/repro/models/layers.py``: every function takes its
 parameter dict (declared by the ``decls_*`` functions) and tensors in the JAX

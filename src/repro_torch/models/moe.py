@@ -1,0 +1,131 @@
+"""Mixture-of-Experts layer: the JAX package's "gather-capacity" MoE.
+
+A port of ``src/repro/models/moe.py``, line for line, on one card (one
+data shard: ``DS = 1``):
+
+  1. router logits (T, E) in f32, the pad experts masked with -1e30; each
+     token's top-k experts by probability, their weights renormalised
+  2. per-expert scores (E, T): the routing weight where routed, -inf else
+  3. each expert's top-C tokens by score; the slots past an expert's
+     routed tokens are invalid and gather zeros
+  4. batched expert matmuls (E, C, D) @ (E, D, F)
+  5. each token's contributions summed back, then the shared experts
+
+Tokens beyond an expert's capacity C = cf·k·T/E (rounded up to a multiple
+of 8, at most T) are dropped, as in GShard; the residual carries them.
+
+Step 5 is JAX's scatter-add ``y.at[idx].add(out)``.  A scatter-add of
+floats on the card (``index_add_``) adds in whatever order its atomics
+land, so two prefills could differ in the last bit.  Here each token
+gathers its own contributions and adds them in one fixed order, its
+experts ascending: the order in which a sequential scatter over the
+expert-major slots adds them, in the output's dtype.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import decl
+
+PAD_LOGIT = -1e30
+
+
+def decls_moe(cfg):
+    D, Fd = cfg.d_model, cfg.d_ff
+    E = cfg.num_experts_padded
+    d = {"router": decl((D, E), scale=1.0),
+         "w_gate": decl((E, D, Fd)),
+         "w_up": decl((E, D, Fd)),
+         "w_down": decl((E, Fd, D))}
+    if cfg.shared_expert_ff:
+        S = cfg.shared_expert_ff
+        d["shared"] = {"w_gate": decl((D, S)), "w_up": decl((D, S)),
+                       "w_down": decl((S, D))}
+    return d
+
+
+def capacity(cfg, tokens_per_shard: int) -> int:
+    E = cfg.num_experts_padded
+    c = int(cfg.capacity_factor * cfg.moe_top_k * tokens_per_shard / E)
+    # a multiple of 8, at least 8 (the JAX package's sublane alignment)
+    c = max(8, -(-c // 8) * 8)
+    return min(c, tokens_per_shard)
+
+
+def combine(out, idx, valid, topi):
+    """The experts' outputs summed back per token: out (E, C, D), expert e's
+    slot c holding token idx[e, c] where valid[e, c]; topi (T, K) each
+    token's experts.  Returns (T, D) in out's dtype, each token's
+    contributions added in ascending expert order (JAX's
+    ``zeros.at[idx].add(out)`` over the expert-major slots, written as a
+    gather: no two threads add into one row)."""
+    E, C, D = out.shape
+    T, K = topi.shape
+    dev = out.device
+    # each token's slot in each expert's buffer (-1: not gathered there);
+    # an expert's C tokens are distinct, so no two writes meet
+    slot = torch.full((E, T), -1, dtype=torch.long, device=dev)
+    cols = torch.arange(C, device=dev).expand(E, C)
+    slot.scatter_(1, idx, torch.where(valid, cols, -1))
+    experts = topi.sort(dim=-1).values                               # (T, K)
+    c = slot[experts, torch.arange(T, device=dev)[:, None]]          # (T, K)
+    part = out.reshape(E * C, D)[(experts * C + c.clamp_min(0)).view(-1)]
+    part = torch.where((c >= 0).view(-1, 1), part,
+                       torch.zeros((), dtype=part.dtype, device=dev))
+    part = part.view(T, K, D)
+    y = part[:, 0]
+    for k in range(1, K):
+        y = y + part[:, k]
+    return y
+
+
+def moe_mlp(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) → (y (B, S, D), aux_loss f32 scalar)."""
+    B, S, D = x.shape
+    T = B * S
+    E, K = cfg.num_experts_padded, cfg.moe_top_k
+    C = capacity(cfg, T)
+    dev = x.device
+
+    xt = x.reshape(T, D)
+    logits = xt.float() @ p["router"].float()                        # (T, E)
+    if cfg.num_experts_padded > cfg.num_experts:
+        real = torch.arange(E, device=dev) < cfg.num_experts
+        logits = torch.where(real, logits,
+                             torch.full((), PAD_LOGIT, device=dev))
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, K, dim=-1)                        # (T, K)
+    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    onehot = F.one_hot(topi, E).float()                              # (T, K, E)
+    w_te = (onehot * topw[..., None]).sum(1)                         # (T, E)
+    scores = torch.where(w_te > 0, w_te,
+                         torch.full((), -torch.inf, device=dev)).T   # (E, T)
+
+    gathered_w, idx = torch.topk(scores, C, dim=-1)                  # (E, C)
+    valid = torch.isfinite(gathered_w)
+    gate_w = torch.where(valid, gathered_w, torch.zeros((), device=dev))
+
+    buf = xt[idx.reshape(-1)].view(E, C, D)
+    buf = buf * valid[..., None].to(buf.dtype)
+    g = torch.bmm(buf, p["w_gate"].to(buf.dtype))
+    u = torch.bmm(buf, p["w_up"].to(buf.dtype))
+    out = torch.bmm(F.silu(g) * u, p["w_down"].to(buf.dtype))       # (E, C, D)
+    out = out * gate_w[..., None].to(out.dtype)
+
+    y = combine(out, idx, valid, topi).view(B, S, D)
+
+    if cfg.shared_expert_ff:
+        sp = p["shared"]
+        sg = x @ sp["w_gate"].to(x.dtype)
+        su = x @ sp["w_up"].to(x.dtype)
+        y = y + (F.silu(sg) * su) @ sp["w_down"].to(x.dtype)
+
+    # load-balancing auxiliary loss (Switch): E * sum_e f_e * p_e
+    me = probs.mean(0)                                               # (E,)
+    fe = onehot.sum(1).mean(0)                                       # (E,)
+    aux = cfg.num_experts * torch.sum(me * fe) / max(K, 1)
+    return y, aux.float()

@@ -70,18 +70,23 @@ def unflatten(tree, flat) -> Any:
     return build(tree)
 
 
-def init_params(decls, generator: torch.Generator, device="cuda"):
+def init_params(decls, generator: torch.Generator, device="cuda",
+                dtype_override=None):
     """Materialize parameters on ``device``.  Random values are drawn on the
     generator's device from its one stream, leaves in ``leaves`` order: a
     CPU generator gives the same weights on every device, a CUDA generator
-    draws a full-width LM on the card."""
+    draws a full-width LM on the card.  ``dtype_override`` stores every
+    leaf in that dtype instead of its declared one (as the JAX package's
+    ``init_params`` does): a normal draw is made in f32, one leaf at a
+    time, and rounded."""
     gdev = generator.device
 
     def one(d: ParamDecl) -> torch.Tensor:
+        dt = dtype_override or d.dtype
         if d.init == "zeros":
-            return torch.zeros(d.shape, dtype=d.dtype, device=device)
+            return torch.zeros(d.shape, dtype=dt, device=device)
         if d.init == "ones":
-            return torch.ones(d.shape, dtype=d.dtype, device=device)
+            return torch.ones(d.shape, dtype=dt, device=device)
         if d.init == "normal":
             std = d.scale
         elif d.init == "scaled":        # fan-in scaled normal
@@ -90,7 +95,7 @@ def init_params(decls, generator: torch.Generator, device="cuda"):
         else:
             raise ValueError(f"unknown init {d.init!r}")
         t = torch.randn(d.shape, generator=generator, device=gdev).mul_(std)
-        return t.to(device=device, dtype=d.dtype)
+        return t.to(device=device, dtype=dt)
     return unflatten(decls, [one(d) for d in leaves(decls)])
 
 

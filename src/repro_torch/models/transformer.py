@@ -1,34 +1,36 @@
-"""Decoder-only dense LM: declarations, block prefill and decode step.
+"""Decoder-only LM (dense and MoE): declarations, block prefill and
+decode step.
 
-A port of the dense half of ``src/repro/models/transformer.py``.  The
+A port of the serving half of ``src/repro/models/transformer.py``.  The
 per-layer declarations are stacked with a leading layer axis, as in JAX,
 so parameters carry over by name (``models/convert.py``); JAX's
 ``lax.scan`` over that axis is a Python loop over the layer index here.
+A layer's MLP is ``moe.moe_mlp`` where the config has experts.
 
   prefill(params, batch) -> (last-token logits (B, V) f32, {"k", "v"})
   decode_step(params, caches, batch) -> (logits (B, V) f32, caches)
 
-MoE layers, the vision prefix and learned position embeddings belong to
-families the port does not serve yet (see ``models/api.py``).
+The vision prefix and learned position embeddings belong to families the
+port does not serve yet (see ``models/api.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models.moe import decls_moe, moe_mlp
 from repro_torch.models.params import ParamDecl, stack_decls, tree_map
-
-MOE = "MoE layers are not ported yet: the port serves the dense LMs " \
-      "(ROADMAP.md, the LM families slice)"
 
 
 def decls_layer(cfg):
+    d = {"ln1": L.decls_rmsnorm(cfg.d_model),
+         "attn": L.decls_attention(cfg),
+         "ln2": L.decls_rmsnorm(cfg.d_model)}
     if cfg.is_moe:
-        raise NotImplementedError(MOE)
-    return {"ln1": L.decls_rmsnorm(cfg.d_model),
-            "attn": L.decls_attention(cfg),
-            "ln2": L.decls_rmsnorm(cfg.d_model),
-            "mlp": L.decls_mlp(cfg)}
+        d["moe"] = decls_moe(cfg)
+    else:
+        d["mlp"] = L.decls_mlp(cfg)
+    return d
 
 
 def decls_lm(cfg):
@@ -52,13 +54,16 @@ def _positions(batch, cfg, B, S, device):
     return pos
 
 
-def _layer(params, i):
+def _layer(params, i, stack: str = "layers"):
     """Layer ``i``'s parameters: views into the stacked tree."""
-    return tree_map(lambda a: a[i], params["layers"])
+    return tree_map(lambda a: a[i], params[stack])
 
 
 def _mlp_residual(lp, h, cfg):
-    return h + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
+    hn = L.rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    m = (moe_mlp(lp["moe"], hn, cfg)[0] if cfg.is_moe
+         else L.mlp(lp["mlp"], hn, cfg))
+    return h + m
 
 
 def _logits(params, h, cfg):

@@ -1,15 +1,22 @@
-"""Batched decode engine (continuous batching) for the dense LMs.
+"""Batched decode engine (continuous batching) for the LM families the port
+serves: dense, MoE, SSM and hybrid.
 
 A port of ``src/repro/serve/engine.py``: per-request prefill into a free
 cache slot, then one decode step per iteration for the whole batch;
-finished requests free their slot and waiting prompts join.  Greedy or
+finished requests free their slot and waiting prompts join.  The cache
+tree is the model's (``Model.cache_decls``): KV caches, and for the SSM
+and hybrid families the f32 ``ssm`` states and the ``conv`` buffers,
+carried as they are.  As in JAX, a released slot's ``ssm`` / ``conv``
+state is not reset when a new request takes the slot, and while the slot
+is free every decode step still advances it (a step runs the whole batch).  Greedy or
 temperature sampling; temperature draws come from numpy's
 ``default_rng(seed)`` on the host, the stream the JAX engine draws from.
 
 Prefill is sequential, as in JAX: the prompt is fed through the decode step
-one token at a time.  The block prefill (``Model.prefill``, which runs the
-``flash_attention`` kernel) is the engine's oracle: the first greedy token
-equals the argmax of its logits.
+one token at a time.  The block prefill (``Model.prefill``, whose attention
+runs the ``flash_attention`` kernel) is the engine's oracle: the first
+greedy token equals the argmax of its logits (for MoE only where the block
+prefill drops no token past an expert's capacity).
 
 Parameters are f32 masters; the engine makes one compute-dtype copy at
 construction (``models.api.compute_params``): the values JAX's

@@ -1,9 +1,12 @@
 """KV-cache management for batched serving.
 
 Contiguous per-request rows inside the stacked (L, B, T, Hkv, Dh) cache the
-model families expose (models/*.cache_decls).  The manager tracks per-slot
-lengths and free slots so the engine can run continuous batching: finished
-requests release their row, new prompts prefill into it.
+model families expose (models/*.cache_decls), and the per-slot ``ssm`` and
+``conv`` states of the SSM and hybrid families.  The manager tracks
+per-slot lengths and free slots so the engine can run continuous batching:
+finished requests release their row, new prompts prefill into it.  A
+released row is not cleared: attention masks its stale keys by position,
+while an SSM state carries over into the next request (as in JAX).
 """
 from __future__ import annotations
 

@@ -536,13 +536,19 @@ def test_fused_train_step_on_card_matches_cpu(card):
 # (B, S, H, Hkv, Dh, causal): the qwen3-4b prefill, odd lengths, a
 # non-causal tile, the smoke head width and the JAX kernel test's shapes;
 # the edges of the bf16 kernel's 128-row tiles (a partial diagonal, one row
-# past a tile, a partial last KV tile), Dh=64 non-causal and one kv head
+# past a tile, a partial last KV tile), Dh=64 non-causal and one kv head;
+# the widths run on a wider template: Dh=112 (the zamba2-7b prefill, GQA
+# as kimi-k2's, ragged and non-causal) and Dh=8 (glm4-9b's smoke config)
 FLASH_SHAPES = [(2, 4096, 32, 8, 128, True), (1, 37, 4, 2, 128, True),
                 (1, 1000, 4, 1, 64, True), (1, 256, 2, 2, 128, False),
                 (2, 130, 4, 2, 16, True), (2, 128, 3, 3, 32, False),
                 (1, 1, 2, 2, 64, True), (1, 127, 4, 2, 128, True),
                 (1, 129, 4, 2, 128, True), (2, 4097, 8, 2, 128, True),
-                (1, 300, 4, 2, 64, False), (1, 513, 8, 1, 128, True)]
+                (1, 300, 4, 2, 64, False), (1, 513, 8, 1, 128, True),
+                (2, 4096, 32, 32, 112, True), (1, 257, 8, 2, 112, True),
+                (1, 300, 4, 2, 112, False), (1, 1, 2, 2, 112, True),
+                (2, 130, 8, 2, 8, True), (1, 200, 4, 4, 8, False),
+                (1, 1, 2, 1, 8, True)]
 # f32: the JAX kernel test's tolerance.  bf16 is held to ``bf16_excess``
 # (ref.py): per element rtol 1e-2 plus the bound of rounding P to bf16,
 # 2^-8 (P |v|), and per row 1e-2 of the row's norm; a fixed atol would
@@ -579,7 +585,9 @@ def test_flash_attention_kernel_matches_plain(card, shape, dtype):
 
 
 @pytest.mark.parametrize("shape", [(2, 4096, 32, 8, 128, True),
-                                   (1, 1000, 4, 2, 64, False)],
+                                   (1, 1000, 4, 2, 64, False),
+                                   (2, 1000, 8, 2, 112, True),
+                                   (1, 300, 4, 4, 8, False)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_flash_attention_bf16_kernel_is_deterministic(card, shape):
     # no atomics: every output element is one block's sum in a fixed order
@@ -650,6 +658,63 @@ def test_lm_prefill_and_engine_on_card_match_cpu(card, arch):
         eng.run_to_completion()
         streams.append({r.rid: r.out_tokens for r in eng.completed})
     assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+                                  "mamba2-1.3b", "zamba2-7b", "glm4-9b"])
+def test_lm_families_on_card_match_cpu(card, arch):
+    # the MoE, SSM and hybrid families (and glm4's Dh 8) at f32: the block
+    # prefill through the kernel on the card against the CPU's plain
+    # version, the engine's greedy streams equal, a slot reused
+    import repro_torch.kernels.flash_attention.ops as fa
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import Engine, Request
+    cfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+    model = build(cfg)
+    params = {dev: init_params(model.decls, torch.Generator().manual_seed(0),
+                               dev) for dev in ("cpu", card)}
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    launches = fa.flash_attention.launches
+    got, _ = model.prefill(params[card], {"tokens": toks.to(card)})
+    torch.cuda.synchronize()
+    attn = {"ssm": 0, "hybrid": cfg.num_layers // cfg.shared_attn_every}
+    assert fa.flash_attention.launches - launches == attn.get(
+        cfg.family, cfg.num_layers)
+    want, _ = model.prefill(params["cpu"], {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    streams = []
+    for dev in ("cpu", card):
+        eng = Engine(cfg, params=params[dev], batch=2, max_len=32, device=dev)
+        rng = np.random.default_rng(0)
+        for rid in range(5):
+            eng.submit(Request(rid=rid, prompt=rng.integers(
+                1, cfg.vocab_size, 6).astype(np.int32), max_new_tokens=4))
+        eng.run_to_completion()
+        streams.append({r.rid: r.out_tokens for r in eng.completed})
+    assert streams[0] == streams[1]
+
+
+def test_moe_prefill_on_card_is_deterministic(card):
+    # the experts' outputs are summed back per token in a fixed order (a
+    # gather, no atomics): two bf16 prefills are bit-equal, drops included
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build, compute_params
+    from repro_torch.models.params import init_params
+    cfg = get_config("qwen2-moe-a2.7b", smoke=True).replace(
+        capacity_factor=0.5)
+    model = build(cfg)
+    params = compute_params(init_params(
+        model.decls, torch.Generator().manual_seed(0), card), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (4, 512), device=card,
+                         generator=torch.Generator(card).manual_seed(2))
+    first, c1 = model.prefill(params, {"tokens": toks})
+    second, c2 = model.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert all(torch.equal(c1[n], c2[n]) for n in ("k", "v"))
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jx_flash
 from repro.kernels.flash_attention.ref import attention_ref as jx_ref
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro.models import layers as JL
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, flash_attention
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      bf16_excess,
                                                      flash_attention_ref)
@@ -154,3 +155,43 @@ def test_contract_is_checked(bad):
         v = v[:, :8]
     with pytest.raises((TypeError, ValueError)):
         flash_attention(q, k, v)
+
+
+# the widths the card kernels run on a wider template (Dh 8 on the 16-wide
+# instance, 112 on the 128-wide one): glm4-9b's smoke config (H 8, Hkv 2)
+# and the zamba2-7b / kimi-k2 heads, GQA, causal and not, odd lengths;
+# held against the JAX model's ``_attend`` with kv repeated and the scale
+# of the real width
+@pytest.mark.parametrize("B,S,H,Hkv,Dh", [(2, 64, 8, 2, 8), (1, 37, 4, 4, 8),
+                                         (1, 70, 4, 4, 112),
+                                         (2, 33, 8, 2, 112)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wider_template_widths_match_jax_attend(B, S, H, Hkv, Dh, causal):
+    q, k, v = _qkv(B, S, H, Dh, Hkv=Hkv, seed=Dh + S)
+    rep = [jnp.repeat(jnp.asarray(a), H // Hkv, axis=2) for a in (k, v)]
+    mask = (lambda qi, ki: qi[:, None] >= ki[None, :]) if causal else None
+    want = JL._attend(jnp.asarray(q), *rep, mask, Dh ** -0.5)
+    np.testing.assert_allclose(_port(q, k, v, causal), np.asarray(want),
+                               **F32)
+
+
+def test_head_dims_contract():
+    # every width a served config gives the prefill is taken on the card:
+    # glm4-9b's smoke Dh 8, the 16-128 power-of-two widths, zamba2-7b's and
+    # kimi-k2's 112; each is a multiple of 8, so the tensor maps' strides
+    # (Dh·2 and H·Dh·2 bytes) stay multiples of 16, and each runs on the
+    # narrowest of the 16/32/64/128 templates that holds it
+    from repro_torch.configs import ModelConfig, get_config, list_archs
+    from repro_torch.kernels.flash_attention.ops import TEMPLATE_WIDTH
+    assert HEAD_DIMS == (8, 16, 32, 64, 112, 128) == tuple(TEMPLATE_WIDTH)
+    assert all(d % 8 == 0 and d <= 128 for d in HEAD_DIMS)
+    assert TEMPLATE_WIDTH == {d: min(w for w in (16, 32, 64, 128) if w >= d)
+                              for d in HEAD_DIMS}
+    served = 0
+    for arch in list_archs():
+        for smoke in (False, True):
+            cfg = get_config(arch, smoke=smoke)
+            if isinstance(cfg, ModelConfig) and cfg.family != "ssm":
+                assert cfg.head_dim in HEAD_DIMS, (arch, smoke, cfg.head_dim)
+                served += 1
+    assert served == 14         # 7 archs with attention, full and smoke

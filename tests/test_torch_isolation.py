@@ -48,7 +48,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "distributed.collectives", "core.multipart",
                  "core.autotune", "core.autotune.space",
                  "core.autotune.pareto", "core.autotune.surrogate",
-                 "core.autotune.ppo", "core.autotune.controller"):
+                 "core.autotune.ppo", "core.autotune.controller",
+                 "models.moe", "models.ssm", "models.hybrid",
+                 "configs.glm4_9b", "configs.minitron_8b",
+                 "configs.qwen2_moe_a2_7b", "configs.kimi_k2_1t_a32b",
+                 "configs.mamba2_1_3b", "configs.zamba2_7b"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["leaked"] == []
 

@@ -121,7 +121,7 @@ def test_launch_serve_runs_the_slice_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--arch", "mamba2-1.3b"],        # an LM family the port does not serve
+    ["--arch", "qwen2-vl-2b"],        # an LM family the port does not serve
     ["--arch", "whisper-medium"],     # and another (the fabric is ported)
 ])
 def test_unported_branches_refuse(argv):
