@@ -53,13 +53,16 @@ Phases; any failure exits non-zero:
    with the parent's kernel (parent, kernel, kernel, parent), and each
    profiled over ``PROFILE_CALLS`` calls for its own device time;
 6. flash_attention at the LM slices' shapes (the qwen3-4b, llama3.2-3b,
-   zamba2-7b and qwen2-moe-a2.7b prefills, bf16; the edges of its 128-row tiles, S = 127, 129 and 4097;
+   zamba2-7b, qwen2-moe-a2.7b and qwen2-vl-2b prefills, the whisper-medium
+   encoder (non-causal over 1500 frames) and decoder prefill, bf16; the
+   edges of its 128-row tiles, S = 127, 129 and 4097;
    Dh=64 at S=1000; the widths run on a wider template, Dh 112 and Dh 8,
    bf16 and f32, causal and not, GQA; odd lengths, f32 and non-causal):
    held against its plain version (bf16 by an output-scaled bound that
    must also refuse two faulty outputs, a skipped KV tile and a 3%
-   normaliser error), and the qwen3-4b, llama3.2-3b and zamba2-7b (Dh 112)
-   prefills timed as in phase 2 with ``F.scaled_dot_product_attention``
+   normaliser error), and the qwen3-4b, llama3.2-3b, zamba2-7b (Dh 112)
+   and qwen2-vl-2b (a GQA group of 6) prefills and the whisper-medium
+   encoder timed as in phase 2 with ``F.scaled_dot_product_attention``
    as the yardstick (the port never calls it), each with its TFLOP/s and
    share of the bound (Dh 112 also against the 128-wide template's work);
 7. the LM serving slice at full width — qwen3-4b with seeded weights on the
@@ -172,18 +175,37 @@ Phases; any failure exits non-zero:
    batch 4 (prompts <= 32, 8 new tokens, no kernel launched, every token
    in range) and the decode step's time (median of 30) and profile; for
    zamba2 and mamba2 at f32 on a 64-token prompt, at full depth every
-   flash_attention call against the plain version on its own inputs, then
-   (zamba2 cut to 12 layers: its seeded 81-layer stack is chaotic) the
-   prefill through the kernel against the plain attention and the
-   engine's first token against the prefill's argmax (the MoE engine is
+   flash_attention call against the plain version on its own inputs, the
+   chaos of the seeded stack (the logits' move under 1e-6 relative noise
+   on the embedding table, at full depth and at the cut), then (zamba2 cut
+   to 12 layers: its seeded 81-layer stack is chaotic) the prefill through
+   the kernel against the plain attention and the engine's first token
+   against the prefill's argmax (the MoE engine is
    held against the JAX engine's streams in the CPU tests instead: a block
-   prefill drops tokens past an expert's capacity, decode drops none).
+   prefill drops tokens past an expert's capacity, decode drops none);
+   each decode step's device busy time and idle share;
+13. the encoder-decoder and VLM families at full width, whisper-medium and
+   qwen2-vl-2b through the CLI path (``run_lm_serve``: f32 masters, a bf16
+   copy), as phase 12: 4 requests served at batch 4 (no kernel launched)
+   and the decode step; a bf16 block prefill, whisper's of
+   ``audio_embeds (2, 1500, 1024)`` N(0, 1) and ``tokens (2, 448)`` (48
+   flash_attention launches: 24 non-causal in the encoder, 24 causal in the
+   decoder), qwen2-vl's of ``tokens (2, 4096)`` with ``vision_embeds (2,
+   1024, 1536)`` and Qwen2-VL's grid positions (28), each call of the
+   warm-up held against the plain version, the counted run compared bit
+   for bit and profiled; at f32 on a 64-token prompt, as phase 12 (every
+   call in situ at full depth, the chaos probe, the whole prefill at the
+   depth ``F32_CHECK_LAYERS`` allows: both seeded stacks are chaotic, so
+   qwen2-vl's runs 3 layers and whisper's 1 + 1, its noise on the audio
+   embeddings), qwen2-vl's engine's first token against the prefill's
+   argmax, whisper's engine's greedy streams on the card against the same
+   engine's on the CPU (the engine never encodes).
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels (the
-``flash_attention`` entry with ``path_launches`` of phase 12's prefills)
-and the last line is ``{"ok": true, "device": {...}}``.  Imports nothing
-of JAX or of the JAX package.
+``flash_attention`` entry with ``path_launches`` of phases 12 and 13's
+prefills) and the last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -1633,8 +1655,9 @@ def _bf16_bound_rejects_faults(torch, out, q, k, v):
 
 def phase_flash(torch, stamp: str) -> dict:
     """flash_attention at the LM slices' shapes against its plain version,
-    timed at the qwen3-4b, llama3.2-3b and zamba2-7b prefills; returns the
-    JSON entry (the qwen3-4b prefill's numbers, the others beside them)."""
+    timed at the qwen3-4b, llama3.2-3b, zamba2-7b and qwen2-vl-2b prefills
+    and the whisper-medium encoder; returns the JSON entry (the qwen3-4b
+    prefill's numbers, the others beside them)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1645,8 +1668,11 @@ def phase_flash(torch, stamp: str) -> dict:
     rate = hbm_rate(torch.cuda.get_device_name(0))
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     B, S = PREFILL_SHAPE
-    # (label, B, S, H, Hkv, Dh, dtype, causal, timed): the three timed
-    # prefills and the qwen2-moe-a2.7b prefill's shape; the edges of the
+    # (label, B, S, H, Hkv, Dh, dtype, causal, timed): the timed prefills
+    # (qwen3-4b, llama3.2-3b, zamba2-7b; the whisper-medium encoder,
+    # non-causal over 1500 frames, a ragged last KV tile; qwen2-vl-2b, a
+    # GQA group of 6) and the qwen2-moe-a2.7b and whisper-medium decoder
+    # prefills' shapes; the edges of the
     # bf16 kernel's 128-row tiles (a partial diagonal, one row past a tile,
     # a partial last KV tile) and its Dh=64 instance; odd lengths, f32 and
     # non-causal; the widths run on a wider template, Dh 112 (zamba2-7b,
@@ -1656,6 +1682,9 @@ def phase_flash(torch, stamp: str) -> dict:
              ("llama3_prefill", B, S, 24, 8, 128, bf16, True, True),
              ("zamba2_prefill", B, S, 32, 32, 112, bf16, True, True),
              ("qwen2_moe_prefill", B, S, 16, 16, 128, bf16, True, False),
+             ("whisper_encoder", B, 1500, 16, 16, 64, bf16, False, True),
+             ("qwen2vl_prefill", B, S, 12, 2, 128, bf16, True, True),
+             ("whisper_decoder", B, 448, 16, 16, 64, bf16, True, False),
              ("s257_dh112_gqa_bf16", 1, 257, 8, 2, 112, bf16, True, False),
              ("s300_dh112_full_bf16", 1, 300, 4, 2, 112, bf16, False, False),
              ("s257_dh112_f32", 1, 257, 8, 2, 112, torch.float32, True,
@@ -1746,14 +1775,17 @@ def phase_flash(torch, stamp: str) -> dict:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:60",
             "max_abs_err": max_err, **timed_at["qwen3_prefill"],
             "llama3_2_3b_prefill": brief("llama3_prefill"),
-            "zamba2_7b_prefill": brief("zamba2_prefill")}
+            "zamba2_7b_prefill": brief("zamba2_prefill"),
+            "whisper_medium_encoder": brief("whisper_encoder"),
+            "qwen2_vl_2b_prefill": brief("qwen2vl_prefill")}
 
 
 def _profile(torch, fn, stamp: str, label: str, calls: int = 1):
     """Device time per call of ``fn`` by kernel (``torch.profiler``), over a
-    window of ``calls`` calls. A window of a few microseconds of device work
-    now and then comes back with no device events, so an empty window is
-    profiled again, up to ``PROFILE_TRIES`` windows, before the phase fails."""
+    window of ``calls`` calls; returns the device busy ms per call.  A
+    window of a few microseconds of device work now and then comes back
+    with no device events, so an empty window is profiled again, up to
+    ``PROFILE_TRIES`` windows, before the phase fails."""
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1773,6 +1805,7 @@ def _profile(torch, fn, stamp: str, label: str, calls: int = 1):
                     for k, t, c in rows[:8])
     print(f"[profile] {label}: device busy {busy:.3f} ms per call over "
           f"{calls} call(s); top: {top}  [{stamp}]", flush=True)
+    return busy
 
 
 def phase_lm(torch, stamp: str) -> dict:
@@ -2787,22 +2820,26 @@ DECODE_STEPS = 30      # the decode step's time is the median of these
 
 
 def _family_prefill(torch, family: str, model, cparams, want_flash: int,
-                    stamp: str) -> dict:
-    """A bf16 block prefill of PREFILL_SHAPE: one warm-up, in which every
-    flash_attention call is held against the plain version on its own
-    inputs (``bf16_excess``), then one counted run (counts zeroed just
-    before, read just after); the two outputs compared bit for bit (an MoE
-    must be bit-equal: its sum back over the experts is a gather in a
-    fixed order); one profiled.  Returns the launches, seconds and
-    tokens/s."""
+                    stamp: str, batch=None) -> dict:
+    """A bf16 block prefill of ``batch`` (default: tokens of PREFILL_SHAPE):
+    one warm-up, in which every flash_attention call is held against the
+    plain version on its own inputs (``bf16_excess``), then one counted run
+    (counts zeroed just before, read just after); the two outputs compared
+    bit for bit (an MoE must be bit-equal: its sum back over the experts is
+    a gather in a fixed order); one profiled.  Returns the launches,
+    seconds and tokens/s (an encoder's frames counted with the tokens)."""
     from repro_torch.kernels.flash_attention.ref import bf16_excess
     from repro_torch.models import layers
     cfg = model.cfg
     dev = torch.device("cuda")
-    B, S = PREFILL_SHAPE
-    gen = torch.Generator(device=dev).manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
-                                     generator=gen, device=dev)}
+    if batch is None:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, PREFILL_SHAPE,
+                                         generator=gen, device=dev)}
+    B, S = batch["tokens"].shape
+    frames = (batch["audio_embeds"].shape[0] * batch["audio_embeds"].shape[1]
+              if "audio_embeds" in batch else 0)
+    what = f"tokens ({B}, {S})" + (f" and {frames} frames" if frames else "")
     kernel, excess = layers.flash_attention, []
 
     def in_situ(q, k, v, causal=True):
@@ -2817,7 +2854,7 @@ def _family_prefill(torch, family: str, model, cparams, want_flash: int,
         finally:
             layers.flash_attention = kernel
         worst = max(excess, default=0.0)
-        print(f"[check] {family} bf16 prefill ({B}, {S}): {len(excess)} "
+        print(f"[check] {family} bf16 prefill of {what}: {len(excess)} "
               f"flash_attention calls, each against the plain version on "
               f"its own inputs, worst {worst:.3f} of the bf16 bound",
               flush=True)
@@ -2836,8 +2873,10 @@ def _family_prefill(torch, family: str, model, cparams, want_flash: int,
             "reservoir_topm": 0}
     same = (torch.equal(first, logits)
             and all(torch.equal(caches1[k], caches[k]) for k in caches))
-    print(f"[{family}] {cfg.name} prefill tokens ({B}, {S}) bf16: "
-          f"{dt * 1e3:.1f} ms, {B * S / dt:.0f} tokens/s; launches "
+    n = B * S + frames
+    print(f"[{family}] {cfg.name} prefill of {what} bf16: "
+          f"{dt * 1e3:.1f} ms, {n / dt:.0f} tokens/s"
+          + (" (frames and tokens)" if frames else "") + "; launches "
           f"{launches} (expected {want}); two prefills bit-equal: {same}; "
           f"caches {{{', '.join(f'{k}: {tuple(v.shape)}' for k, v in caches.items())}}}"
           f"  [{stamp}]", flush=True)
@@ -2852,8 +2891,8 @@ def _family_prefill(torch, family: str, model, cparams, want_flash: int,
     del first, caches1, logits, caches
     with torch.no_grad():
         _profile(torch, lambda: model.prefill(cparams, batch), stamp,
-                 f"{family}: one prefill of ({B}, {S})")
-    return {"launches": launches, "ms": dt * 1e3, "tokens_per_s": B * S / dt}
+                 f"{family}: one prefill of {what}")
+    return {"launches": launches, "ms": dt * 1e3, "tokens_per_s": n / dt}
 
 
 def _family_serve(torch, family: str, args, stamp: str, params=None):
@@ -2884,6 +2923,9 @@ def _family_serve(torch, family: str, args, stamp: str, params=None):
     step = {"token": torch.ones(args.batch, dtype=torch.int32, device=dev),
             "pos": torch.full((args.batch,), args.max_len // 2,
                               dtype=torch.int32, device=dev)}
+    if eng.cfg.mrope_sections:     # each slot's position on all 3 streams
+        step["positions"] = step["pos"][None, :, None].expand(
+            3, args.batch, 1)
     times = []
     with torch.no_grad():
         for _ in range(DECODE_STEPS):
@@ -2893,9 +2935,9 @@ def _family_serve(torch, family: str, args, stamp: str, params=None):
             times.append((time.perf_counter() - t0) * 1e3)
         if not bool(torch.isfinite(lg).all()):
             fail(f"{family} decode-step logits are not finite")
-        _profile(torch, lambda: eng.model.decode(eng._cparams, eng.kv.caches,
-                                                 step), stamp,
-                 f"{family}: one decode step at batch {args.batch}")
+        busy = _profile(torch, lambda: eng.model.decode(
+            eng._cparams, eng.kv.caches, step), stamp,
+            f"{family}: one decode step at batch {args.batch}")
     times.sort()
     step_ms = times[len(times) // 2]
     print(f"[{family}] serving {args.requests} requests at batch "
@@ -2904,43 +2946,99 @@ def _family_serve(torch, family: str, args, stamp: str, params=None):
           f"{st['ttft_p50_ms']:.1f} ms p99 {st['ttft_p99_ms']:.1f} ms; decode "
           f"step (batch {args.batch}, position {args.max_len // 2}) median "
           f"of {DECODE_STEPS} {step_ms:.2f} ms (min {times[0]:.2f}, max "
-          f"{times[-1]:.2f}); launches {launches}  [{stamp}]",
+          f"{times[-1]:.2f}), device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / step_ms:.1%}; launches {launches}  [{stamp}]",
           flush=True)
     return eng, st, launches, step_ms
 
 
-# phase 12's f32 checks of the whole prefill run the hybrid at a cut depth:
-# with seeded weights the 81-layer zamba2-7b stack is chaotic (PERF.md:
-# 1e-6 relative noise on the embedding table moved its logits by
-# about a quarter of their largest on the H100, under 1e-3 at 12 layers),
-# so no two f32 summation orders agree to LOGITS_REL_TOL there.  At full
-# depth each attention call is held against the plain version on its own
-# inputs.
-HYBRID_F32_CHECK_LAYERS = 12
+# the f32 checks of the whole prefill run a seeded stack at a cut depth
+# where it is chaotic: 1e-6 relative noise on its input moves the logits
+# of the 81-layer zamba2-7b by about a quarter of their largest, of the
+# 28-layer qwen2-vl-2b by all of it (2e-4 at 3 layers) and of the 24 + 24-
+# layer whisper-medium by more (1e-4 at 1 + 1), on the H100 (PERF.md), so
+# no two f32 summation orders agree to LOGITS_REL_TOL there.  The probe is
+# printed at full depth and at the cut.  At full depth each attention call
+# is held against the plain version on its own inputs.
+F32_CHECK_LAYERS = {"hybrid": 12, "vlm": 3, "encdec": 1}
+# the stacked layer trees a cut takes (default: "layers")
+LAYER_STACKS = {"hybrid": ("mamba",), "encdec": ("encoder", "decoder")}
+CHAOS_NOISE = 1e-6     # relative noise on the input of the chaos probe
 
 
-def _family_f32_checks(torch, family: str, cfg, params):
-    """f32 on a 64-token prompt.  At full depth: every flash_attention call
-    of the prefill against the plain version on the same inputs.  At
-    ``HYBRID_F32_CHECK_LAYERS`` for the hybrid, at full depth for the SSM:
-    the prefill through the kernel against the
-    prefill with ``layers.flash_attention`` swapped for its plain version,
-    and the engine's first greedy token against the prefill's argmax (the
-    sequential recurrence against the chunked SSD)."""
-    import numpy as np
+def cut_depth(family: str, cfg, params, n: int):
+    """The config and parameters at n layers (the encoder-decoder: n
+    encoder and n decoder layers), as views of the full stacks."""
+    from repro_torch.models.params import tree_map
+    stacks = {k: tree_map(lambda a: a[:n], params[k])
+              for k in LAYER_STACKS.get(family, ("layers",))}
+    more = {"encoder_layers": n} if family == "encdec" else {}
+    return cfg.replace(num_layers=n, **more), {**params, **stacks}
 
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+def prefill_with(torch, cfg, params, batch, attend):
+    """The block prefill's logits with ``layers.flash_attention`` swapped
+    for ``attend``."""
     from repro_torch.models import layers
     from repro_torch.models.api import build
-    from repro_torch.models.params import tree_map
-    from repro_torch.serve.engine import Engine, Request
+    kernel = layers.flash_attention
+    layers.flash_attention = attend
+    try:
+        with torch.no_grad():
+            return build(cfg).prefill(params, batch)[0]
+    finally:
+        layers.flash_attention = kernel
+
+
+def _noisy(torch, x, seed: int):
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    return x * (1 + CHAOS_NOISE * torch.randn(x.shape, generator=gen,
+                                               device=x.device))
+
+
+def f32_inputs(torch, family: str, cfg):
+    """The f32 checks' inputs: a 64-token prompt (numpy), its prefill batch
+    (the VLM's text-only, its positions ``arange`` on all three streams, as
+    the engine feeds them; whisper's over 1500 audio frames N(0, 1)) and
+    the chaos probe's perturbation, ``noisy(params, batch) -> (params,
+    batch)``: CHAOS_NOISE relative noise on the audio embeddings, or on the
+    embedding table."""
+    import numpy as np
     dev = torch.device("cuda")
-    cfg32 = cfg.replace(compute_dtype="float32")
     prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, 64
                                                ).astype(np.int32)
-    toks = {"tokens": torch.from_numpy(prompt)[None].to(dev)}
-    kernel = layers.flash_attention
-    calls = []
+    batch = {"tokens": torch.from_numpy(prompt)[None].to(dev)}
+    if family == "encdec":
+        gen = torch.Generator(device=dev).manual_seed(2)
+        batch["audio_embeds"] = torch.randn(
+            (1, cfg.encoder_seq, cfg.d_model), generator=gen, device=dev)
+
+        def noisy(p, b):
+            return p, {**b, "audio_embeds": _noisy(torch, b["audio_embeds"],
+                                                   3)}
+        return prompt, batch, noisy
+    if cfg.mrope_sections:
+        batch["positions"] = torch.arange(64, device=dev)[None, None].expand(
+            3, 1, 64)
+
+    def noisy(p, b):
+        return {**p, "embed": {**p["embed"], "tok": _noisy(
+            torch, p["embed"]["tok"], 3)}}, b
+    return prompt, batch, noisy
+
+
+def _f32_checks(torch, family: str, cfg, params):
+    """The f32 prefill of ``f32_inputs``: every flash_attention call at
+    full depth against the plain version on its own inputs; the chaos
+    probe (the prefill with its input perturbed, both through the plain
+    attention) at full depth and at ``F32_CHECK_LAYERS``; the prefill
+    through the kernel against the one through the plain attention at
+    that depth.  Returns the prompt, the cut config and parameters and
+    the kernel's logits."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers
+    kernel, calls = layers.flash_attention, []
+    prompt, batch, noisy = f32_inputs(torch, family, cfg)
 
     def in_situ(q, k, v, causal=True):
         out = kernel(q, k, v, causal)
@@ -2948,48 +3046,85 @@ def _family_f32_checks(torch, family: str, cfg, params):
         calls.append(float((out - ref).abs().max() / ref.abs().max()))
         return out
 
-    full = build(cfg32)
-    with torch.no_grad():
-        layers.flash_attention = in_situ
-        try:
-            full.prefill(params, toks)
-        finally:
-            layers.flash_attention = kernel
+    def depth(m):
+        return f"{m} + {m}" if family == "encdec" else f"{m}"
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    prefill_with(torch, cfg32, params, batch, in_situ)
     worst = max(calls, default=0.0)
-    print(f"[check] {family} f32 prefill of 64 tokens, {cfg.num_layers} "
-          f"layers: {len(calls)} flash_attention calls, each against the "
-          f"plain version on its own inputs, worst max |diff| / max |out| "
+    print(f"[check] {family} f32 prefill of 64 tokens, "
+          f"{depth(cfg.num_layers)} layers: "
+          f"{len(calls)} flash_attention calls, each against the plain "
+          f"version on its own inputs, worst max |diff| / max |out| "
           f"{worst:.2e} (tolerance {LOGITS_REL_TOL})", flush=True)
     if worst > LOGITS_REL_TOL:
         fail(f"a {family} flash_attention call differs from the plain "
              f"version on its own inputs")
-    n = HYBRID_F32_CHECK_LAYERS if family == "hybrid" else cfg.num_layers
-    if n < cfg.num_layers:
-        cfg32 = cfg32.replace(num_layers=n)
-        stack = "mamba" if family == "hybrid" else "layers"
-        params = {**params, stack: tree_map(lambda a: a[:n], params[stack])}
-    m32 = build(cfg32)
-    with torch.no_grad():
-        got, _ = m32.prefill(params, toks)
-        layers.flash_attention = flash_attention_ref
-        try:
-            want, _ = m32.prefill(params, toks)
-        finally:
-            layers.flash_attention = kernel
+    n = F32_CHECK_LAYERS.get(family, cfg.num_layers)
+    for m in sorted({cfg.num_layers, n}, reverse=True):
+        c, p = cut_depth(family, cfg32, params, m)
+        base = prefill_with(torch, c, p, batch, flash_attention_ref)
+        moved = prefill_with(torch, c, *noisy(p, batch), flash_attention_ref)
+        print(f"[chaos] {family} f32 at {depth(m)} layers: {CHAOS_NOISE:g} "
+              f"relative noise on the input moves the logits "
+              f"{float((moved - base).abs().max() / base.abs().max()):.2e} of "
+              f"their largest", flush=True)
+    c, p = cut_depth(family, cfg32, params, n)
+    got = prefill_with(torch, c, p, batch, kernel)
+    want = prefill_with(torch, c, p, batch, flash_attention_ref)
     rel = float((got - want).abs().max() / want.abs().max())
-    eng = Engine(cfg32, params=params, batch=1, max_len=128, device=dev)
-    eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=1))
-    eng.run_to_completion()
-    first, top = eng.completed[0].out_tokens[0], int(got[0].argmax())
-    print(f"[check] {family} f32 prefill of 64 tokens, {n} layers: kernel vs "
-          f"plain attention max |diff| / max |logit| = {rel:.2e} (tolerance "
-          f"{LOGITS_REL_TOL}); engine first token {first}, prefill argmax {top}", flush=True)
+    print(f"[check] {family} f32 prefill of 64 tokens, {depth(n)} layers: "
+          f"kernel vs plain attention max |diff| / max |logit| = {rel:.2e} "
+          f"(tolerance {LOGITS_REL_TOL})", flush=True)
     if not (rel <= LOGITS_REL_TOL and bool(torch.isfinite(got).all())):
         fail(f"the {family} f32 prefill through the kernel differs from "
              f"the plain one")
+    return prompt, c, p, got
+
+
+def _family_f32_checks(torch, family: str, cfg, params):
+    """``_f32_checks``, then at the cut depth the engine's first greedy
+    token against the prefill's argmax (for the SSM families the
+    sequential recurrence against the chunked SSD)."""
+    from repro_torch.serve.engine import Engine, Request
+    prompt, c, p, got = _f32_checks(torch, family, cfg, params)
+    eng = Engine(c, params=p, batch=1, max_len=128, device="cuda")
+    eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=1))
+    eng.run_to_completion()
+    first, top = eng.completed[0].out_tokens[0], int(got[0].argmax())
+    print(f"[check] {family} f32 engine at {c.num_layers} layers: first "
+          f"token {first}, prefill argmax {top}", flush=True)
     if first != top:
         fail(f"the {family} engine's first token is not the prefill's "
              f"argmax")
+
+
+def _encdec_f32_checks(torch, cfg, params):
+    """whisper-medium: ``_f32_checks``, then the engine's greedy streams on
+    the card against the same engine's on the CPU from the same f32
+    masters (the engine never encodes: its cross caches are zero, so its
+    first token is no prefill's argmax)."""
+    import numpy as np
+
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.engine import Engine, Request
+    _f32_checks(torch, "encdec", cfg, params)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    streams, host = [], tree_map(lambda t: t.cpu(), params)
+    for where, p in (("cuda", params), ("cpu", host)):
+        eng = Engine(cfg32, params=p, batch=2, max_len=32, device=where)
+        rng = np.random.default_rng(0)
+        for rid in range(2):
+            eng.submit(Request(rid=rid, prompt=rng.integers(
+                1, cfg.vocab_size, 4).astype(np.int32), max_new_tokens=4))
+        eng.run_to_completion()
+        streams.append({r.rid: r.out_tokens for r in eng.completed})
+    print(f"[check] encdec f32 engine at {cfg.encoder_layers} + "
+          f"{cfg.num_layers} layers, 2 requests at batch 2: greedy streams "
+          f"on the card {streams[0]}, on the CPU {streams[1]}", flush=True)
+    if streams[0] != streams[1]:
+        fail("the encdec engine's greedy streams differ between the card "
+             "and the CPU")
 
 
 def phase_families(torch, stamp: str) -> dict:
@@ -3060,6 +3195,92 @@ def phase_families(torch, stamp: str) -> dict:
     return out
 
 
+# phase 13: (family, arch, flash_attention launches of its block prefill:
+# whisper-medium 24 non-causal in the encoder and 24 causal in the decoder)
+ENCDEC_VLM = (("encdec", "whisper-medium", 48), ("vlm", "qwen2-vl-2b", 28))
+WHISPER_TOKENS = 448   # whisper's own decoder cap
+VISION_SIDE = 32       # the 1024 stubbed patches as a 32 x 32 grid at t = 0
+
+
+def grid_positions(torch, B: int, S: int, vp: int, side: int, dev):
+    """(3, B, S) int32, as Qwen2-VL builds them: the vp patches a side x side
+    grid at t = 0 (h = i // side, w = i % side), text token j >= vp at
+    side + (j - vp) on all three streams."""
+    i = torch.arange(S, device=dev)
+    text = side + i - vp
+    t = torch.where(i < vp, 0, text)
+    h = torch.where(i < vp, i // side, text)
+    w = torch.where(i < vp, i % side, text)
+    return torch.stack([t, h, w])[:, None].expand(3, B, S).to(torch.int32)
+
+
+def _encdec_vlm_batch(torch, family: str, cfg, dev) -> dict:
+    """The bf16 block prefill's inputs: whisper's audio embeddings
+    (B, 1500, D) N(0, 1) and tokens (B, 448); qwen2-vl's tokens (B, 4096),
+    vision embeddings (B, 1024, D) N(0, 1) and grid positions."""
+    from repro_torch.models.api import VISION_PREFIX
+    B, S = PREFILL_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if family == "encdec":
+        return {"audio_embeds": torch.randn(
+                    (B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                    device=dev),
+                "tokens": torch.randint(0, cfg.vocab_size,
+                                        (B, WHISPER_TOKENS), generator=gen,
+                                        device=dev)}
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device=dev),
+            "vision_embeds": torch.randn((B, VISION_PREFIX, cfg.d_model),
+                                         generator=gen, device=dev),
+            "positions": grid_positions(torch, B, S, VISION_PREFIX,
+                                        VISION_SIDE, dev)}
+
+
+def phase_encdec_vlm(torch, stamp: str) -> dict:
+    """The encoder-decoder and VLM families at full width (phase 13), each
+    through the CLI path (``run_lm_serve``: f32 masters and a bf16 copy);
+    returns each family's prefill and serving launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_parser
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    for family, arch, want_flash in ENCDEC_VLM:
+        cfg = get_config(arch)
+        args = build_parser().parse_args(["--arch", arch,
+                                          *FAMILY_SERVE_ARGS])
+        t0 = time.perf_counter()
+        eng, st, serve, step_ms = _family_serve(torch, family, args, stamp)
+        print(f"[{family}] {arch} full width, {cfg.encoder_layers} + "
+              f"{cfg.num_layers} layers: {cfg.param_count()} parameters "
+              f"drawn by the engine (f32 masters, a bf16 copy), served in "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  "
+              f"[{stamp}]", flush=True)
+        batch = _encdec_vlm_batch(torch, family, cfg, dev)
+        prefill = _family_prefill(torch, family, eng.model, eng._cparams,
+                                  want_flash, stamp, batch)
+        del batch
+        if family == "encdec":
+            _encdec_f32_checks(torch, cfg, eng.params)
+        else:
+            _family_f32_checks(torch, family, cfg, eng.params)
+        out[family] = {"prefill": prefill["launches"], "serve": serve,
+                       "prefill_ms": prefill["ms"],
+                       "tokens_per_s": prefill["tokens_per_s"],
+                       "decode_step_ms": step_ms,
+                       "ttft_p50_ms": st["ttft_p50_ms"]}
+        del eng
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    print(f"[encdec-vlm] phase 13 in {time.perf_counter() - t_phase:.1f} s  "
+          f"[{stamp}]", flush=True)
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3116,6 +3337,7 @@ def main() -> int:
     reservoir["path_launches"]["autotune"] = autotune["reservoir_topm"]
     fabric = phase_fabric(torch, stamp)
     families = phase_families(torch, stamp)
+    families.update(phase_encdec_vlm(torch, stamp))
     entry["fabric_launches"] = sum(n for k, n in fabric["parts"].items()
                                    if k != "train")
     entry["fabric_warmup_train_launches"] = fabric["parts"]["train"]

@@ -3,9 +3,8 @@ families' ``ModelConfig``.
 
 ``ModelConfig`` and ``ShapeConfig`` are copies of the JAX package's
 (``src/repro/configs/base.py``), fields and ``param_count`` unchanged.  The
-port registers the GNN configs (configs/gnn.py) and the LMs of the
-dense, MoE, SSM and hybrid families; the encoder-decoder and VLM configs
-are not ported yet.
+port registers the GNN configs (configs/gnn.py) and the LMs of every
+family: dense, MoE, SSM, hybrid, encoder-decoder and VLM.
 """
 from __future__ import annotations
 

@@ -1,14 +1,15 @@
 """Serving entry point of the port — two engines behind one CLI.
 
-LM token decode (continuous batching over prompts; the dense, MoE, SSM
-and hybrid LMs):
+LM token decode (continuous batching over prompts; every LM family):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --smoke \
       --requests 16 --batch 4 --max-new 12
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b
 
 (``--arch`` qwen3-4b, llama3.2-3b, glm4-9b, minitron-8b, qwen2-moe-a2.7b,
-kimi-k2-1t-a32b, mamba2-1.3b or zamba2-7b.)
+kimi-k2-1t-a32b, mamba2-1.3b, zamba2-7b, whisper-medium or qwen2-vl-2b.)
 
 Online GNN node inference over the training-side FeaturePlane (trains
 briefly to warm the parameters and the γ/Θ cache, serves node queries,
@@ -28,8 +29,7 @@ mid-serving trainer → replica weight refresh and a saturating burst:
       --replicas 2 --train-steps 4 --queries 64 --batch 4 --slo-p99-ms 600
 
 Everything runs on ``--device`` (default ``cuda``); ``--device cpu`` runs
-the plain versions of the kernels on the host.  The encoder-decoder and
-VLM families (whisper-medium, qwen2-vl-2b) are not ported yet.
+the plain versions of the kernels on the host.
 """
 from __future__ import annotations
 
@@ -39,9 +39,6 @@ import time
 from typing import Dict
 
 import numpy as np
-
-NOT_PORTED = "not ported yet — see ROADMAP.md"
-
 
 def run_lm_serve(args, params=None) -> Dict:
     """Serve ``args.requests`` random prompts through the decode engine.
@@ -53,10 +50,8 @@ def run_lm_serve(args, params=None) -> Dict:
 
     try:
         cfg = get_config(args.arch, smoke=args.smoke)
-    except KeyError:        # encdec and vlm are not registered yet
-        raise SystemExit(f"LM serving of --arch {args.arch}: "
-                         f"{NOT_PORTED}") from None
-    # build() refuses a family or layer kind the port does not serve
+    except KeyError:
+        raise SystemExit(f"LM serving: unknown --arch {args.arch}") from None
     eng = Engine(cfg, params=params, batch=args.batch, max_len=args.max_len,
                  temperature=args.temperature, seed=args.seed,
                  device=args.device)

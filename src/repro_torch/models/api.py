@@ -1,8 +1,9 @@
 """Model API of the port's LM families: ``build(cfg)`` → :class:`Model`.
 
-A port of ``src/repro/models/api.py`` for the ``dense``, ``moe``, ``ssm``
-and ``hybrid`` families; the members are plain functions, parameters
-first:
+A port of ``src/repro/models/api.py`` for every LM family: ``dense``,
+``moe``, ``vlm`` (the dense model with M-RoPE and a vision prefix),
+``ssm``, ``hybrid`` and ``encdec``; the members are plain functions,
+parameters first:
 
   * ``decls``                          parameter declarations
   * ``prefill(params, batch)``         → (logits, caches)  the block prefill
@@ -22,17 +23,18 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 from repro_torch.models.params import ParamDecl, stack_decls
 
-NOT_PORTED = ("not ported yet: the port serves the dense, MoE, SSM and "
-              "hybrid LMs; encdec and vlm are slice 7b (ROADMAP.md)")
+VISION_PREFIX = 1024  # stubbed patch-embedding prefix length (vlm prefill)
 # leaves the JAX package reads in f32 from the f32 master at every use:
-# norm scales, the MoE router, the SSM's decay and step bias
-F32_LEAVES = ("scale", "router", "A_log", "dt_bias")
+# norm scales and LayerNorm biases, the MoE router, the SSM's decay and
+# step bias
+F32_LEAVES = ("scale", "bias", "router", "A_log", "dt_bias")
 
 
 # ---------------------------------------------------------------------------
@@ -98,13 +100,7 @@ class Model:
 
 def build(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam in ("encdec", "vlm"):
-        raise NotImplementedError(f"family {fam!r} is {NOT_PORTED}")
-    if fam != "ssm" and (not cfg.use_rope or cfg.mrope_sections
-                         or cfg.mlp_type != "swiglu"):
-        raise NotImplementedError(f"{cfg.name}: NoPE, M-RoPE and "
-                                  f"non-SwiGLU layers are {NOT_PORTED}")
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "moe", "vlm"):
         return Model(cfg=cfg, decls=T.decls_lm(cfg),
                      prefill=lambda p, b: T.prefill(p, b, cfg),
                      decode=lambda p, c, b: T.decode_step(p, c, b, cfg),
@@ -122,15 +118,22 @@ def build(cfg: ModelConfig) -> Model:
                      decode=lambda p, c, b: HY.decode_step(p, c, b, cfg),
                      cache_decls_fn=lambda batch, n: HY.cache_decls(cfg, batch,
                                                                     n))
+    if fam == "encdec":
+        return Model(cfg=cfg, decls=ED.decls_encdec(cfg),
+                     prefill=lambda p, b: ED.prefill(p, b, cfg),
+                     decode=lambda p, c, b: ED.decode_step(p, c, b, cfg),
+                     cache_decls_fn=lambda batch, n: ED.cache_decls(cfg, batch,
+                                                                    n))
     raise ValueError(f"unknown family {fam!r}")
 
 
 def compute_params(params, cfg: ModelConfig):
     """The weights in ``cfg.compute_dtype``: the values JAX's
     ``.astype(x.dtype)`` gives at each use, made once.  The leaves JAX
-    reads in f32 (``F32_LEAVES``: norm scales, the router, ``A_log``,
-    ``dt_bias``) stay as they are; a leaf already in the compute dtype is
-    not copied (``Tensor.to``), so a tree drawn in it costs nothing."""
+    reads in f32 (``F32_LEAVES``: norm scales, LayerNorm biases, the
+    router, ``A_log``, ``dt_bias``) stay as they are; a leaf already in the
+    compute dtype is not copied (``Tensor.to``), so a tree drawn in it
+    costs nothing."""
     cdt = T._cdt(cfg)
 
     def cast(tree, key=None):

@@ -9,8 +9,12 @@ nested dicts (``embed.tok``, ``layers.{ln1,ln2}.scale``,
 ``layers.moe.{router,w_gate,w_up,w_down,shared.{w_gate,w_up,w_down}}``;
 the SSM LM's ``layers.{ln,block.*}`` with ``block.{in_proj,conv_w,conv_b,
 A_log,D,dt_bias,norm.scale,out_proj}``; the hybrid's ``mamba.{ln,block.*}``
-and its one ``shared.{ln1,attn.*,ln2,mlp.*}``) stacked on a leading
-layer axis.  So the mapping is by name and nothing is transposed.  The
+and its one ``shared.{ln1,attn.*,ln2,mlp.*}``; the encoder-decoder's
+``pos_enc``, ``pos_dec``, ``encoder.{ln1,attn.*,ln2,mlp.*}``,
+``decoder.{ln1,attn.*,ln_x,xattn.*,ln2,mlp.*}``, ``ln_enc`` and ``ln_f``,
+each LayerNorm a ``{scale,bias}``, its MLPs ``{w_up,w_down}`` (GELU); a
+no-RoPE LM's ``pos_emb``) stacked on a leading layer axis.  So the
+mapping is by name and nothing is transposed.  The
 PPO agent's nets (``core/autotune/ppo.py``) keep JAX's lists of
 ``{"w": (in, out), "b": (out,)}`` layers as ``MLP`` modules of the same
 layout.  The JAX side is handed over as numpy arrays (``np.asarray`` of

@@ -4,14 +4,17 @@ Functional ports of ``src/repro/models/layers.py``: every function takes its
 parameter dict (declared by the ``decls_*`` functions) and tensors in the JAX
 package's layouts, so the two are compared like for like.  Attention is
 flat-head: q ``(B, S, H, Dh)``, k/v ``(B, S, Hkv, Dh)``, head h reading kv
-head ``h // (H // Hkv)``; RoPE, optional qk-norm (Qwen3), SwiGLU.
+head ``h // (H // Hkv)``; RMSNorm and LayerNorm, RoPE, M-RoPE (Qwen2-VL)
+and NoPE, optional qk-norm (Qwen3), SwiGLU, GELU and relu² MLPs.
 
-Self-attention over a whole sequence (the block prefill) runs the
-hand-written ``flash_attention`` kernel; single-token decode against the KV
-cache is plain torch, as the JAX package's is jnp outside any Pallas kernel.
+Self-attention over a whole sequence (the block prefill, causal or not)
+runs the hand-written ``flash_attention`` kernel; single-token decode
+against the KV cache and cross attention against an encoder's k/v are plain
+torch, as the JAX package's are jnp outside any Pallas kernel (its kernel
+takes only Sq = Skv, and so does the port's).
 
-Not ported: M-RoPE, layernorm, cross attention and the loss (other families
-and training); ``constrain`` (sharding hints) has nothing to do on one card.
+Not ported: the loss (training); ``constrain`` (sharding hints) has nothing
+to do on one card.
 """
 from __future__ import annotations
 
@@ -46,6 +49,22 @@ def rmsnorm(p, x, eps=1e-6):
     return (x * p["scale"].float()).to(dt)
 
 
+def decls_layernorm(d):
+    return {"scale": decl((d,), init="ones"),
+            "bias": decl((d,), init="zeros")}
+
+
+def layernorm(p, x, eps=1e-5):
+    """In f32 with the population variance, ``scale`` and ``bias`` read in
+    f32 (JAX's ``layernorm``); every caller passes ``cfg.norm_eps``."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * p["scale"].float() + p["bias"].float()).to(dt)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))
@@ -55,6 +74,29 @@ def apply_rope(x, positions, theta: float):
     """x (..., S, H, Dh); positions broadcastable to (..., S)."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)          # (Dh/2,)
     ang = positions[..., None].float() * freqs                 # (..., S, Dh/2)
+    cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_angles(positions, freqs, sections):
+    """positions (3, ..., S), freqs (Dh/2,) → angles (..., S, Dh/2):
+    frequency slot f reads the (t | h | w) stream its section assigns
+    (``sections``: half-dim sizes summing to Dh/2).  JAX selects the stream
+    with a one-hot einsum (``x·1 + y·0 + z·0``, exact in f32); the gather
+    here gives the same angles bit for bit."""
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=freqs.device),
+        torch.tensor(sections, device=freqs.device))            # (Dh/2,)
+    return positions.float()[sec_id].movedim(0, -1) * freqs
+
+
+def apply_mrope(x, positions, theta: float, sections):
+    """M-RoPE (Qwen2-VL): x (B, S, H, Dh), positions (3, B, S), the (t, h, w)
+    streams."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (Dh/2,)
+    ang = mrope_angles(positions, freqs, sections)              # (B, S, Dh/2)
     cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -101,7 +143,13 @@ def _project_qkv(p, x, cfg, positions):
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if cfg.use_rope:
+    if cfg.use_rope and cfg.mrope_sections:
+        if positions.dim() != x.dim():
+            raise ValueError(f"M-RoPE needs positions (3, B, S), the (t, h, "
+                             f"w) streams; got {tuple(positions.shape)}")
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -167,32 +215,71 @@ def attention_decode(p, x, cfg, cache_k, cache_v, pos, positions=None):
     at = posb.clamp(max=T - 1)
     cache_k[bidx, at] = torch.where(keep, k[:, 0], cache_k[bidx, at])
     cache_v[bidx, at] = torch.where(keep, v[:, 0], cache_v[bidx, at])
-    kr, vr = _repeat_kv(cache_k, H), _repeat_kv(cache_v, H)
-    scores = torch.einsum("bqhe,bshe->bhqs", q, kr) * (cfg.head_dim ** -0.5)
-    scores = scores.float()
     mask = torch.arange(T, device=x.device)[None, :] <= posb[:, None]   # (B,T)
-    scores = torch.where(mask[:, None, None, :], scores,
-                         torch.full((), NEG_INF, device=x.device))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqs,bshe->bqhe", probs, vr)
+    out = _attend(q, _repeat_kv(cache_k, H), _repeat_kv(cache_v, H), cfg,
+                  mask[:, None, None, :])
     y = _proj(out.flatten(2), p["wo"].to(x.dtype).flatten(0, 1))
     return y, cache_k, cache_v
 
 
+def _attend(q, k, v, cfg, mask=None):
+    """Plain attention, q (B,Sq,H,Dh) against k/v (B,Skv,H,Dh): scores in
+    q's dtype, scaled, then softmax in f32 (masked where ``mask``, which
+    broadcasts to (B,H,Sq,Skv), is False)."""
+    scores = torch.einsum("bqhe,bshe->bhqs", q, k) * (cfg.head_dim ** -0.5)
+    scores = scores.float()
+    if mask is not None:
+        scores = torch.where(mask, scores,
+                             torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshe->bqhe", probs, v)
+
+
+def attention_cross(p, x, enc_kv, cfg):
+    """Cross attention of x (B, Sq, D) against an encoder's precomputed
+    ``(k, v)`` (B, Skv, Hkv, Dh), unmasked; plain torch, as the decode
+    step's."""
+    k, v = enc_kv
+    q = _proj(x, p["wq"].to(x.dtype))
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    H = eff_heads(cfg)
+    out = _attend(q, _repeat_kv(k, H), _repeat_kv(v, H), cfg)
+    return _proj(out.flatten(2), p["wo"].to(x.dtype).flatten(0, 1))
+
+
+def cross_kv(p, enc_out, cfg):
+    """The encoder output (B, Skv, D) → cross-attention (k, v)."""
+    k = _proj(enc_out, p["wk"].to(enc_out.dtype))
+    v = _proj(enc_out, p["wv"].to(enc_out.dtype))
+    if cfg.qk_norm:
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return k, v
+
+
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU) and embeddings
+# MLP (SwiGLU, GELU, relu²) and embeddings
 # ---------------------------------------------------------------------------
 
 def decls_mlp(cfg):
     D, Fd = cfg.d_model, cfg.d_ff
-    return {"w_gate": decl((D, Fd)), "w_up": decl((D, Fd)),
-            "w_down": decl((Fd, D))}
+    if cfg.mlp_type == "swiglu":
+        return {"w_gate": decl((D, Fd)), "w_up": decl((D, Fd)),
+                "w_down": decl((Fd, D))}
+    return {"w_up": decl((D, Fd)), "w_down": decl((Fd, D))}
 
 
 def mlp(p, x, cfg):
-    g = x @ p["w_gate"].to(x.dtype)
-    u = x @ p["w_up"].to(x.dtype)
-    return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+    if "w_gate" in p:
+        g = x @ p["w_gate"].to(x.dtype)
+        u = x @ p["w_up"].to(x.dtype)
+        h = F.silu(g) * u
+    else:
+        h = x @ p["w_up"].to(x.dtype)
+        # jax.nn.gelu's default is the tanh form
+        h = (F.gelu(h, approximate="tanh") if cfg.mlp_type == "gelu"
+             else F.relu(h).square())
+    return h @ p["w_down"].to(x.dtype)
 
 
 def decls_embedding(cfg):

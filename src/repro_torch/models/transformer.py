@@ -1,4 +1,4 @@
-"""Decoder-only LM (dense and MoE): declarations, block prefill and
+"""Decoder-only LM (dense, MoE and VLM): declarations, block prefill and
 decode step.
 
 A port of the serving half of ``src/repro/models/transformer.py``.  The
@@ -10,8 +10,12 @@ A layer's MLP is ``moe.moe_mlp`` where the config has experts.
   prefill(params, batch) -> (last-token logits (B, V) f32, {"k", "v"})
   decode_step(params, caches, batch) -> (logits (B, V) f32, caches)
 
-The vision prefix and learned position embeddings belong to families the
-port does not serve yet (see ``models/api.py``).
+The VLM (Qwen2-VL) is this model with M-RoPE: its prefill takes
+``vision_embeds (B, VP, D)``, precomputed patch embeddings (the vision
+frontend is a stub in both packages) written over the first VP token rows,
+and ``positions (3, B, S)``, the (t, h, w) streams; a decode step takes
+``positions (3, B, 1)``.  A config without RoPE adds a learned ``pos_emb``
+row per position.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.moe import decls_moe, moe_mlp
-from repro_torch.models.params import ParamDecl, stack_decls, tree_map
+from repro_torch.models.params import ParamDecl, decl, stack_decls, tree_map
 
 
 def decls_layer(cfg):
@@ -34,17 +38,37 @@ def decls_layer(cfg):
 
 
 def decls_lm(cfg):
-    return {"embed": L.decls_embedding(cfg),
-            "layers": stack_decls(decls_layer(cfg), cfg.num_layers),
-            "ln_f": L.decls_rmsnorm(cfg.d_model)}
+    d = {"embed": L.decls_embedding(cfg),
+         "layers": stack_decls(decls_layer(cfg), cfg.num_layers),
+         "ln_f": L.decls_rmsnorm(cfg.d_model)}
+    if not cfg.use_rope:
+        d["pos_emb"] = decl((cfg.max_seq, cfg.d_model), init="normal",
+                            scale=0.02)
+    return d
 
 
 def _cdt(cfg) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+def table_rows(table, idx):
+    """``table[idx]`` with an index past the table clamped to its last row,
+    as JAX's gather clamps it."""
+    return table[idx.clamp(max=table.shape[0] - 1)]
+
+
 def _embed_input(params, batch, cfg):
-    return L.embed(params["embed"], batch["tokens"], cfg, _cdt(cfg))
+    h = L.embed(params["embed"], batch["tokens"], cfg, _cdt(cfg))
+    if "vision_embeds" in batch:
+        ve = batch["vision_embeds"]                           # (B, VP, D)
+        h[:, :ve.shape[1]] = ve.to(h.dtype)
+    if "pos_emb" in params:
+        pe, pos = params["pos_emb"].to(h.dtype), batch.get("positions")
+        if pos is not None and pos.dim() == 2:
+            h = h + table_rows(pe, pos)                       # (B, S, D)
+        else:
+            h = h + pe[:h.shape[1]][None]
+    return h
 
 
 def _positions(batch, cfg, B, S, device):
@@ -80,8 +104,9 @@ def cache_decls(cfg, batch: int, cache_len: int):
 
 
 def prefill(params, batch, cfg):
-    """Forward over the prompt ``batch["tokens"] (B, S)``, returning the
-    last token's logits and the KV caches ``(L, B, S, Hkv, Dh)``."""
+    """Forward over the prompt ``batch["tokens"] (B, S)`` (with
+    ``vision_embeds`` and ``positions`` for the VLM), returning the last
+    token's logits and the KV caches ``(L, B, S, Hkv, Dh)``."""
     h = _embed_input(params, batch, cfg)
     B, S, _ = h.shape
     positions = _positions(batch, cfg, B, S, h.device)
@@ -98,15 +123,21 @@ def prefill(params, batch, cfg):
 
 
 def decode_step(params, caches, batch, cfg):
-    """One decode step.  batch: {"token": (B,), "pos": (B,)}.  The new k/v
-    are written into ``caches`` in place (``layers.attention_decode``);
-    the same dict is returned."""
-    h = _embed_input(params, {"tokens": batch["token"][:, None]}, cfg)
+    """One decode step.  batch: {"token": (B,), "pos": (B,)}, and for M-RoPE
+    ``positions (3, B, 1)``.  The new k/v are written into ``caches`` in
+    place (``layers.attention_decode``); the same dict is returned."""
+    ebatch = {"tokens": batch["token"][:, None]}
+    if "positions" in batch:
+        ebatch["positions"] = batch["positions"]
+    elif "pos_emb" in params:
+        ebatch["positions"] = batch["pos"][:, None]
+    h = _embed_input(params, ebatch, cfg)
     pos = batch["pos"]
+    rope_positions = batch.get("positions") if cfg.mrope_sections else None
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         a, _, _ = L.attention_decode(
             lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg,
-            caches["k"][i], caches["v"][i], pos)
+            caches["k"][i], caches["v"][i], pos, positions=rope_positions)
         h = _mlp_residual(lp, h + a, cfg)
     return _logits(params, h[:, 0], cfg), caches

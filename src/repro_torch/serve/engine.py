@@ -1,22 +1,28 @@
-"""Batched decode engine (continuous batching) for the LM families the port
-serves: dense, MoE, SSM and hybrid.
+"""Batched decode engine (continuous batching) for every LM family: dense,
+MoE, VLM, SSM, hybrid and encoder-decoder.
 
 A port of ``src/repro/serve/engine.py``: per-request prefill into a free
 cache slot, then one decode step per iteration for the whole batch;
 finished requests free their slot and waiting prompts join.  The cache
-tree is the model's (``Model.cache_decls``): KV caches, and for the SSM
-and hybrid families the f32 ``ssm`` states and the ``conv`` buffers,
-carried as they are.  As in JAX, a released slot's ``ssm`` / ``conv``
-state is not reset when a new request takes the slot, and while the slot
-is free every decode step still advances it (a step runs the whole batch).  Greedy or
-temperature sampling; temperature draws come from numpy's
+tree is the model's (``Model.cache_decls``): KV caches, for the SSM
+and hybrid families the f32 ``ssm`` states and the ``conv`` buffers, and
+for the encoder-decoder the cross-attention ``xk`` / ``xv``, carried as
+they are.  As in JAX, the engine never runs the encoder: a served
+encoder-decoder request attends to the zero cross caches
+``cache_decls`` makes.  An M-RoPE model's decode step gets each slot's
+position on all three streams, ``positions (3, B, 1)``.  As in JAX, a
+released slot's ``ssm`` / ``conv`` state is not reset when a new request
+takes the slot, and while the slot is free every decode step still
+advances it (a step runs the whole batch).  Greedy or temperature
+sampling; temperature draws come from numpy's
 ``default_rng(seed)`` on the host, the stream the JAX engine draws from.
 
 Prefill is sequential, as in JAX: the prompt is fed through the decode step
 one token at a time.  The block prefill (``Model.prefill``, whose attention
 runs the ``flash_attention`` kernel) is the engine's oracle: the first
 greedy token equals the argmax of its logits (for MoE only where the block
-prefill drops no token past an expert's capacity).
+prefill drops no token past an expert's capacity; not for the
+encoder-decoder, whose block prefill encodes audio the engine never sees).
 
 Parameters are f32 masters; the engine makes one compute-dtype copy at
 construction (``models.api.compute_params``): the values JAX's
@@ -99,8 +105,12 @@ class Engine(EngineBase):
             toks[s] = t
         for s, p in slot_pos.items():
             pos[s] = p
-        return {"token": torch.from_numpy(toks).to(self.device),
-                "pos": torch.from_numpy(pos).to(self.device)}
+        batch = {"token": torch.from_numpy(toks).to(self.device),
+                 "pos": torch.from_numpy(pos).to(self.device)}
+        if self.cfg.mrope_sections:
+            batch["positions"] = batch["pos"][None, :, None].expand(
+                3, self.batch, 1)
+        return batch
 
     # ------------------------------------------------------------------
     def step(self) -> int:

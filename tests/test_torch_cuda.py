@@ -538,7 +538,10 @@ def test_fused_train_step_on_card_matches_cpu(card):
 # the edges of the bf16 kernel's 128-row tiles (a partial diagonal, one row
 # past a tile, a partial last KV tile), Dh=64 non-causal and one kv head;
 # the widths run on a wider template: Dh=112 (the zamba2-7b prefill, GQA
-# as kimi-k2's, ragged and non-causal) and Dh=8 (glm4-9b's smoke config)
+# as kimi-k2's, ragged and non-causal) and Dh=8 (glm4-9b's smoke config);
+# the whisper-medium encoder (non-causal over 1500 frames: a ragged last KV
+# tile no causal mask hides) and decoder prefills, and the qwen2-vl-2b
+# prefill (a GQA group of 6)
 FLASH_SHAPES = [(2, 4096, 32, 8, 128, True), (1, 37, 4, 2, 128, True),
                 (1, 1000, 4, 1, 64, True), (1, 256, 2, 2, 128, False),
                 (2, 130, 4, 2, 16, True), (2, 128, 3, 3, 32, False),
@@ -548,7 +551,8 @@ FLASH_SHAPES = [(2, 4096, 32, 8, 128, True), (1, 37, 4, 2, 128, True),
                 (2, 4096, 32, 32, 112, True), (1, 257, 8, 2, 112, True),
                 (1, 300, 4, 2, 112, False), (1, 1, 2, 2, 112, True),
                 (2, 130, 8, 2, 8, True), (1, 200, 4, 4, 8, False),
-                (1, 1, 2, 1, 8, True)]
+                (1, 1, 2, 1, 8, True), (2, 1500, 16, 16, 64, False),
+                (2, 448, 16, 16, 64, True), (2, 4096, 12, 2, 128, True)]
 # f32: the JAX kernel test's tolerance.  bf16 is held to ``bf16_excess``
 # (ref.py): per element rtol 1e-2 plus the bound of rounding P to bf16,
 # 2^-8 (P |v|), and per row 1e-2 of the row's norm; a fixed atol would
@@ -586,6 +590,7 @@ def test_flash_attention_kernel_matches_plain(card, shape, dtype):
 
 @pytest.mark.parametrize("shape", [(2, 4096, 32, 8, 128, True),
                                    (1, 1000, 4, 2, 64, False),
+                                   (2, 1500, 16, 16, 64, False),
                                    (2, 1000, 8, 2, 112, True),
                                    (1, 300, 4, 4, 8, False)],
                          ids=lambda s: "x".join(map(str, s)))
@@ -695,6 +700,116 @@ def test_lm_families_on_card_match_cpu(card, arch):
         eng.run_to_completion()
         streams.append({r.rid: r.out_tokens for r in eng.completed})
     assert streams[0] == streams[1]
+
+
+def _fan_in_params(model, device):
+    """``init_params`` (seed 0, drawn on the CPU) with the attention
+    weights rescaled to N(0, 1 / their whole fan-in): the initializer reads
+    the fan-in of ``wq``/``wk``/``wv`` (D, heads, Dh) from the heads and of
+    ``wo`` (H, Dh, D) from Dh, which makes a seeded encoder-decoder stack
+    amplify rounding far past the f32 tolerance between two devices."""
+    from repro_torch.models.params import init_params
+    params = init_params(model.decls, torch.Generator().manual_seed(0), "cpu")
+
+    def fix(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                fix(v)
+            elif k in ("wq", "wk", "wv"):
+                v.mul_((v.shape[-2] / v.shape[-3]) ** 0.5)
+            elif k == "wo":
+                v.mul_(v.shape[-3] ** -0.5)
+    fix(params)
+    return {k: _to(v, device) for k, v in params.items()}
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _encdec_vlm_batch(cfg, device, B=2, S=40):
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g)}
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                            generator=g)
+    else:       # 16 patches, a 4 x 4 grid, then the text from position 4
+        i = torch.arange(S)
+        text = 4 + i - 16
+        batch["vision_embeds"] = torch.randn((B, 16, cfg.d_model),
+                                             generator=g)
+        batch["positions"] = torch.stack([
+            torch.where(i < 16, 0, text), torch.where(i < 16, i // 4, text),
+            torch.where(i < 16, i % 4, text)])[:, None].expand(3, B, S)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-2b"])
+def test_encdec_and_vlm_on_card_match_cpu(card, arch):
+    # f32: the block prefill through the kernel on the card (whisper: the
+    # encoder's non-causal calls and the decoder's causal ones) against
+    # the CPU's plain version, every cache leaf too; the engine's greedy
+    # streams equal, a slot reused
+    import repro_torch.kernels.flash_attention.ops as fa
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    from repro_torch.serve.engine import Engine, Request
+    cfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+    model = build(cfg)
+    params = {dev: _fan_in_params(model, dev) for dev in ("cpu", card)}
+    launches = fa.flash_attention.launches
+    got, got_c = model.prefill(params[card], _encdec_vlm_batch(cfg, card))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - launches == (
+        cfg.encoder_layers + cfg.num_layers)
+    want, want_c = model.prefill(params["cpu"], _encdec_vlm_batch(cfg, "cpu"))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for name in want_c:
+        torch.testing.assert_close(got_c[name].cpu(), want_c[name],
+                                   atol=1e-4, rtol=1e-4)
+    streams = []
+    for dev in ("cpu", card):
+        eng = Engine(cfg, params=params[dev], batch=2, max_len=32, device=dev)
+        rng = np.random.default_rng(0)
+        for rid in range(5):
+            eng.submit(Request(rid=rid, prompt=rng.integers(
+                1, cfg.vocab_size, 6).astype(np.int32), max_new_tokens=4))
+        eng.run_to_completion()
+        streams.append({r.rid: r.out_tokens for r in eng.completed})
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-2b"])
+def test_encdec_and_vlm_bf16_prefill_on_card(card, arch):
+    # bf16: every flash_attention call of the prefill within the bf16 bound
+    # of the plain version on its own inputs, and two prefills bit-equal
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import bf16_excess
+    from repro_torch.models import layers
+    from repro_torch.models.api import build, compute_params
+    cfg = get_config(arch, smoke=True)
+    model = build(cfg)
+    params = compute_params(_fan_in_params(model, card), cfg)
+    batch = _encdec_vlm_batch(cfg, card, S=min(300, cfg.max_seq))
+    kernel, excess = layers.flash_attention, []
+
+    def in_situ(q, k, v, causal=True):
+        out = kernel(q, k, v, causal)
+        excess.append(max(bf16_excess(out, q, k, v, causal)))
+        return out
+    layers.flash_attention = in_situ
+    try:
+        first, c1 = model.prefill(params, batch)
+    finally:
+        layers.flash_attention = kernel
+    second, c2 = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    assert len(excess) == cfg.encoder_layers + cfg.num_layers
+    assert max(excess) <= 1
+    assert torch.equal(first, second)
+    assert all(torch.equal(c1[n], c2[n]) for n in c1)
 
 
 def test_moe_prefill_on_card_is_deterministic(card):

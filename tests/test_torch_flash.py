@@ -177,10 +177,11 @@ def test_wider_template_widths_match_jax_attend(B, S, H, Hkv, Dh, causal):
 
 def test_head_dims_contract():
     # every width a served config gives the prefill is taken on the card:
-    # glm4-9b's smoke Dh 8, the 16-128 power-of-two widths, zamba2-7b's and
-    # kimi-k2's 112; each is a multiple of 8, so the tensor maps' strides
-    # (Dh·2 and H·Dh·2 bytes) stay multiples of 16, and each runs on the
-    # narrowest of the 16/32/64/128 templates that holds it
+    # glm4-9b's smoke Dh 8, the 16-128 power-of-two widths (whisper-medium's
+    # 64 and qwen2-vl-2b's 128 among them), zamba2-7b's and kimi-k2's 112;
+    # each is a multiple of 8, so the tensor maps' strides (Dh·2 and
+    # H·Dh·2 bytes) stay multiples of 16, and each runs on the narrowest of
+    # the 16/32/64/128 templates that holds it
     from repro_torch.configs import ModelConfig, get_config, list_archs
     from repro_torch.kernels.flash_attention.ops import TEMPLATE_WIDTH
     assert HEAD_DIMS == (8, 16, 32, 64, 112, 128) == tuple(TEMPLATE_WIDTH)
@@ -194,4 +195,4 @@ def test_head_dims_contract():
             if isinstance(cfg, ModelConfig) and cfg.family != "ssm":
                 assert cfg.head_dim in HEAD_DIMS, (arch, smoke, cfg.head_dim)
                 served += 1
-    assert served == 14         # 7 archs with attention, full and smoke
+    assert served == 18         # 9 archs with attention, full and smoke

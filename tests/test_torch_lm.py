@@ -212,25 +212,47 @@ def test_cli_serves_every_request_on_cpu(capsys):
 
 
 def test_cli_defaults_to_cuda_and_refuses_other_families():
+    # every LM family is served now; only an arch that is not registered is
+    # refused
     args = cli.build_parser().parse_args(["--arch", "qwen3-4b"])
     assert args.device == "cuda"
     assert (args.requests, args.batch, args.max_len, args.max_new,
             args.prompt_len, args.temperature) == (8, 4, 128, 12, 8, 0.0)
-    # the encoder-decoder and VLM families are the ones left unported
     for arch in ("whisper-medium", "qwen2-vl-2b"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(["--arch", arch, "--smoke", "--device", "cpu"])
+        assert cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--requests", "2", "--max-new", "2"]) == 0
+    with pytest.raises(SystemExit, match="unknown --arch"):
+        cli.main(["--arch", "no-such-lm", "--smoke", "--device", "cpu"])
 
 
 def test_build_refuses_non_dense_families():
-    # the families and layer kinds the port does not serve yet: encdec,
-    # vlm, and attention layers with NoPE, M-RoPE or a non-SwiGLU MLP
-    _, cfg = _cfgs("qwen3-4b")
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(cfg.replace(family=family))
-    for kw in (dict(use_rope=False), dict(mrope_sections=(8, 4, 4)),
-               dict(mlp_type="gelu"), dict(family="moe", use_rope=False),
-               dict(family="hybrid", mlp_type="relu2")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(cfg.replace(**kw))
+    # the encdec and vlm families and the layer kinds they brought (NoPE
+    # with pos_emb, M-RoPE, the GELU and relu² MLPs) build with the JAX
+    # package's declarations, and the dense-stack variants' prefill matches
+    # JAX's
+    for arch in ("whisper-medium", "qwen2-vl-2b"):
+        jcfg, cfg = _cfgs(arch)
+        assert build(cfg).cfg.family == jcfg.family
+        jd = jax.tree.map(lambda d: d.shape, jx_build(jcfg).decls,
+                          is_leaf=lambda d: hasattr(d, "axes"))
+        assert tree_map(lambda d: d.shape, build(cfg).decls) == jd
+    toks = _tokens(get_config("qwen3-4b", smoke=True), 2, 12)
+    mrope = np.broadcast_to(np.arange(12), (3, 2, 12)).astype(np.int32)
+    for arch, kw in (("qwen3-4b", dict(use_rope=False)),
+                     ("qwen3-4b", dict(mrope_sections=(2, 3, 3))),
+                     ("qwen3-4b", dict(mlp_type="gelu")),
+                     ("qwen3-4b", dict(family="moe", use_rope=False)),
+                     ("zamba2-7b", dict(mlp_type="relu2"))):
+        jcfg, cfg = _cfgs(arch, **kw)
+        jd = jax.tree.map(lambda d: d.shape, jx_build(jcfg).decls,
+                          is_leaf=lambda d: hasattr(d, "axes"))
+        assert tree_map(lambda d: d.shape, build(cfg).decls) == jd
+        jp, tp = _params(jcfg)
+        batch = {"tokens": toks}
+        if cfg.mrope_sections:
+            batch["positions"] = mrope
+        jl, _ = jx_build(jcfg).prefill(jp, {k: jnp.asarray(v)
+                                            for k, v in batch.items()})
+        tl, _ = build(cfg).prefill(tp, {k: torch.from_numpy(v)
+                                        for k, v in batch.items()})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **F32)

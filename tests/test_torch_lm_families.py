@@ -1,7 +1,7 @@
 """The LM families slice as a whole: the dense glm4-9b (smoke Dh 8, kv 2)
 and minitron-8b against the JAX package's model and engine, and the
-launcher serving every arch of the dense, MoE, SSM and hybrid families
-(``--smoke --device cpu``) and refusing the encoder-decoder and VLM ones.
+launcher serving every arch of the dense, MoE, SSM, hybrid,
+encoder-decoder and VLM families (``--smoke --device cpu``).
 
 Tolerances: ``tests/test_torch_lm.py``'s, atol = rtol = 1e-4 at
 ``compute_dtype="float32"``; greedy streams identical."""
@@ -108,15 +108,28 @@ def test_cli_serves_every_new_arch_on_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-2b"])
-def test_cli_refuses_encdec_and_vlm(arch):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        cli.main(["--arch", arch, "--smoke", "--device", "cpu"])
+def test_cli_refuses_encdec_and_vlm(arch, capsys):
+    # the encoder-decoder and VLM families are served: every request done,
+    # every token in range, the family's cache tree kept
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+            "--batch", "2", "--max-new", "3"]
+    rep = cli.run_lm_serve(cli.build_parser().parse_args(argv))
+    eng = rep["engine"]
+    assert rep["stats"]["completed"] == 3 and rep["stats"]["tokens"] == 9
+    assert all(r.status == "done" and len(r.out_tokens) == 3
+               and all(0 <= t < eng.cfg.vocab_size for t in r.out_tokens)
+               for r in eng.completed)
+    want = {"k", "v"} | ({"xk", "xv"} if eng.cfg.family == "encdec"
+                         else set())
+    assert set(eng.kv.caches) == want
+    assert "[result] 3 requests, 9 tokens" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SERVED + ["whisper-medium", "qwen2-vl-2b"])
 def test_compute_params_keeps_the_f32_reads(arch):
-    # JAX reads norm scales, the router, A_log and dt_bias in f32 from the
-    # f32 master at every use; everything else in the compute dtype
+    # JAX reads norm scales, LayerNorm biases, the router, A_log and
+    # dt_bias in f32 from the f32 master at every use; everything else in
+    # the compute dtype
     _, cfg = _cfgs(arch, compute_dtype="bfloat16")
     params = init_params(build(cfg).decls, torch.Generator().manual_seed(0),
                          "cpu")
@@ -134,5 +147,6 @@ def test_compute_params_keeps_the_f32_reads(arch):
             assert torch.equal(copy, master.bfloat16())
     walk(params, compute_params(params, cfg))
     want = {"scale"} | ({"router"} if cfg.is_moe else set()) | (
-        {"A_log", "dt_bias"} if cfg.family in ("ssm", "hybrid") else set())
+        {"A_log", "dt_bias"} if cfg.family in ("ssm", "hybrid") else set()) | (
+        {"bias"} if cfg.family == "encdec" else set())
     assert set(kept) == want
