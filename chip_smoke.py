@@ -16,7 +16,10 @@ Phases; any failure exits non-zero:
    ``neighbor_agg`` backward's and the ``reservoir_topm`` kernels.  Fails
    if the bf16 kernel at Dh=128 has no ``HGMMA``, if a bf16 or reservoir
    kernel spills, or if the backward or a reservoir kernel adds a float
-   atomically; a machine with no ``cuobjdump`` gets a line saying so;
+   atomically; the same for the ``flash_attention`` backward's kernels
+   (``csrc/flash_attention_bwd.cu``: registers, spills, shared memory,
+   SASS atomics; fails on a spill or a float atomic); a machine with no
+   ``cuobjdump`` gets a line saying so;
 2. cache_gather — call the wrapper at the shapes the serving path gives
    it (its 4,096- and 128-row chunks among them), hold the result bit-exact
    against its plain PyTorch version, then time kernel, plain version and
@@ -199,12 +202,50 @@ Phases; any failure exits non-zero:
    qwen2-vl's runs 3 layers and whisper's 1 + 1, its noise on the audio
    embeddings), qwen2-vl's engine's first token against the prefill's
    argmax, whisper's engine's greedy streams on the card against the same
-   engine's on the CPU (the engine never encodes).
+   engine's on the CPU (the engine never encodes);
+14. LM training at full width and full depth — (a) the
+   ``flash_attention`` backward kernel alone: at every head width, causal
+   and full, GQA and ragged lengths, f32 and bf16, the forward's ``O``
+   and log-sum-exp held first against ``flash_attention_ref`` (``O`` by
+   the f32 tolerance or the bf16 bound, the log-sum-exp within 1e-5 of
+   its row's scale), then the backward against ``flash_attention_bwd_ref``
+   fed the reference's own ``O`` and log-sum-exp (f32 within 1e-5 of the
+   largest gradient entry; bf16 within 2^-6 of it over the whole tensors
+   and no worse than twice the plain version's own bf16 error against an
+   f64 autograd witness), run twice bit-equal, the forward's ``O``
+   bit-equal with and without its log-sum-exp; timed (as phase 2) at
+   llama3.2-3b's prefill (2, 4096, 24, 8, 128) and at the train step's
+   (8, 128, 24, 8, 128), bf16 causal, beside the plain version, SDPA's
+   backward (forward + backward less the forward) and the bound (2.5 x
+   the forward's FLOP); (b) ``repro_torch.launch.train --arch
+   llama3.2-3b --steps 6 --batch 8 --seq 128 --workers 2`` through
+   ``run_lm`` (seeded f32 masters on the card, AdamW updated in place,
+   remat "dots", checkpoints at steps 2, 4 and 6, keep 2, asynchronous),
+   its ``--ckpt-dir`` on the filesystem (``build/`` or TMPDIR) with the
+   most room, the free bytes and the host memory for two snapshots
+   printed first (fails without room for one checkpoint; with room for
+   fewer than three, steps 2 and 4 are removed once verified, so keep 2
+   prunes nothing); launches zeroed just before and read just after (56
+   ``flash_attention`` and 28 backward a step, nothing else), finite
+   losses and gradient norms, steps/s and tokens/s over steps 2-6, each
+   step's seconds, peak memory, the checkpoint snapshot, write and wait
+   seconds (``CheckpointManager`` wrapped by this script), the committed
+   steps, and step 6 read back and compared leaf by leaf with the run's
+   final state; (c) the first step's 28 calls held in situ as in (a);
+   (d) two more steps, one with a ``grad_transform`` that fails on a
+   non-finite gradient, one profiled (device busy, idle share); (e) a
+   full-width llama3.2-3b cut to 2 layers in f32: loss and every gradient
+   through the kernels against the same through the plain attention on
+   the card, within 1e-4 with the attention weights at their whole
+   fan-in; as seeded (largest score printed) against the same step on
+   the CPU, no further from it than twice the plain card path is.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels (the
 ``flash_attention`` entry with ``path_launches`` of phases 12 and 13's
-prefills) and the last line is ``{"ok": true, "device": {...}}``.
+prefills and the forward's ``train_launches`` of phase 14; the backward's
+own entry, ``flash_attention_bwd``) and the last line is ``{"ok": true,
+"device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -321,6 +362,7 @@ def phase_build(stamp: str):
     print(f"[build] {sources()} (compiled {built}) in "
           f"{time.perf_counter() - t0:.2f} s  [{stamp}]", flush=True)
     flash_report()
+    flash_bwd_report()
     gnn_report("segment_agg")
     gnn_report("fused_gather_agg")
     gnn_report("gather")
@@ -418,17 +460,18 @@ FLOAT_ATOMIC = re.compile(r"\b(?:RED|REDG|ATOM|ATOMG|ATOMS)\.[\w.]*?\.B?F(?:16|3
 ANY_ATOMIC = re.compile(r"\b(?:RED|REDG|ATOM|ATOMG|ATOMS)\.")
 
 
-def float_atomics(lib: Path, prefix: str):
+def float_atomics(lib: Path, prefix: str, rename=None):
     """The float atomic instructions (``REDG.E.ADD.F32`` ...) in the SASS of
-    the kernels of ``lib`` whose short name starts with ``prefix``, by
-    kernel, and a line with every kernel's atomic counts; None when no
-    cuobjdump is found."""
+    the kernels of ``lib`` whose short name (``rename``, by default
+    ``_short_name``, of the mangled one) starts with ``prefix``, by kernel,
+    and a line with every kernel's atomic counts; None when no cuobjdump is
+    found."""
     lines = sass_lines(lib)
     if lines is None:
         return None
     floats, counts = {}, {}
     for mangled, line in lines:
-        name = _short_name(mangled)
+        name = (rename or _short_name)(mangled)
         if not name.startswith(prefix):
             continue
         n_any, n_float = counts.get(name, (0, 0))
@@ -3281,6 +3324,629 @@ def phase_encdec_vlm(torch, stamp: str) -> dict:
     return out
 
 
+# phase 14: LM training at full width and full depth
+TRAIN_ARCH = "llama3.2-3b"
+LM_TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "6", "--batch", "8",
+                 "--seq", "128", "--workers", "2"]
+# flash_attention_bwd timed at llama3.2-3b's prefill (B, S, H, Hkv, Dh),
+# causal bf16, and at the train step's own shape
+BWD_TIMED = (("llama3_prefill", (2, 4096, 24, 8, 128)),
+             ("llama3_train_step", (8, 128, 24, 8, 128)))
+# held against the plain version: every head width (8 and 112 on the 16-
+# and 128-wide templates), causal and full, GQA, ragged lengths
+BWD_CASES = [(2, 37, 4, 2, 8, True), (1, 200, 4, 4, 8, False),
+             (2, 130, 4, 1, 16, True), (2, 65, 6, 2, 32, True),
+             (2, 1500, 4, 4, 64, False), (1, 257, 8, 2, 112, True),
+             (1, 300, 4, 2, 112, False), (2, 1000, 8, 2, 128, True),
+             (8, 128, 24, 8, 128, True), (2, 4096, 24, 8, 128, True)]
+BWD_F32_REL = 1e-5         # f32 backward: |kernel - plain| / max |grad|
+# bf16 backward over whole tensors: the kernel rounds to bf16 once (2^-8
+# of an entry), the plain version not at all; each lies within 2^-7 of the
+# f64 gradient (the f64 check's factor 2), so they differ by at most 2^-6
+BWD_BF16_REL = 4 * 2.0 ** -8
+LSE_REL = 1e-5             # the forward's log-sum-exp (``_hold_fwd``)
+TRAIN_F32_LAYERS = 2       # the f32 kernel-vs-plain step at full width
+TRAIN_REL_TOL = 1e-4
+
+
+def _bwd_kernel_name(mangled: str) -> str:
+    """``flash_bwd_dkv<64,bf16>`` for the mangled name of that instance."""
+    m = re.search(r"(flash_bwd_\w+?)ILi(\d+)E(f|13__nv_bfloat16)E", mangled)
+    return (f"{m.group(1)}<{m.group(2)},"
+            f"{'f32' if m.group(3) == 'f' else 'bf16'}>" if m else mangled)
+
+
+def flash_bwd_report():
+    """ptxas's registers, spills and the granted shared memory of each
+    flash_attention backward kernel, and the atomics in their SASS
+    (``float_atomics``); fails on a spill or a float atomic."""
+    import ctypes
+
+    from repro_torch.kernels.build import BUILD_DIR, load
+    smem = load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for name, info in sorted(ptxas_report("flash_attention_bwd",
+                                          _bwd_kernel_name).items()):
+        width = int(re.search(r"<(\d+)", name).group(1)) if "<" in name else 0
+        print(f"[build] {name}: ptxas {info.get('used', 'not reported')}; "
+              f"{info.get('spills', 'spills not reported')}; dynamic shared "
+              f"memory {smem(width, int('dkv' in name))} B", flush=True)
+        spilled = re.search(r"(\d+) bytes spill stores", info.get("spills", ""))
+        if spilled and int(spilled.group(1)) > 0:
+            fail(f"{name} spills registers: {info['spills']}")
+    floats = float_atomics(BUILD_DIR / "libflash_attention_bwd.so",
+                           "flash_bwd", _bwd_kernel_name)
+    if floats is None:
+        print("[build] no cuobjdump on this machine (toolkit or triton): "
+              "the float-atomic check of flash_attention_bwd was not made",
+              flush=True)
+    elif floats:
+        fail(f"the flash_attention backward adds floats atomically: {floats}")
+
+
+def _bwd_inputs(torch, shape, dtype, seed=0):
+    """(q, k, v, o, lse, do, causal): seeded inputs, and the forward
+    kernel's output and log-sum-exp."""
+    from repro_torch.kernels.flash_attention.ops import _forward
+    B, S, H, Hkv, Dh, causal = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(s, generator=g, device="cuda").to(dtype)
+                   for s in ((B, S, H, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh),
+                             (B, S, H, Dh)))
+    o, lse = _forward(q, k, v, causal, with_lse=True)
+    return q, k, v, o, lse, do, causal
+
+
+def _exact_attention(torch, q, k, v, causal: bool):
+    """The attention of q (B, S, H, Dh), k/v (B, S, Hkv, Dh) in f64, kv
+    repeated: o (B, S, H, Dh) and the rows' log-sum-exp (B, H, S).
+    Differentiable by autograd: the f64 witness of the backward."""
+    B, S, H, Dh = q.shape
+    G = H // k.shape[2]
+    qd, kd, vd = (t.double().transpose(1, 2) for t in
+                  (q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+    sc = qd @ kd.transpose(-1, -2) * Dh ** -0.5
+    if causal:
+        keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(sc, -1)
+    return (torch.exp(sc - lse[..., None]) @ vd).transpose(1, 2), lse
+
+
+def _hold_fwd(torch, q, k, v, o, lse, causal, label: str):
+    """The forward's O and log-sum-exp, as the backward receives them,
+    against ``flash_attention_ref`` on the same inputs: O within
+    FLASH_F32_ATOL (f32) or the bf16 bound (``bf16_excess``); each row's
+    log-sum-exp within LSE_REL of the largest of 1, |lse| and the row's
+    Cauchy-Schwarz bound on its scores (|q| max |k| Dh^-1/2: a score's f32
+    rounding grows with it).  Returns the reference's (o, lse)."""
+    from repro_torch.kernels.flash_attention.ref import (bf16_excess,
+                                                         flash_attention_ref)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, causal, with_lse=True)
+    B, S, H, Dh = q.shape
+    G = H // k.shape[2]
+    k_top = k.float().norm(dim=-1).amax(1).repeat_interleave(G, 1)  # (B, H)
+    row = q.float().norm(dim=-1).transpose(1, 2) * k_top[..., None] \
+        * Dh ** -0.5
+    scale = torch.maximum(lse_ref.abs(), row).clamp_min(1)
+    lse_x = float(((lse - lse_ref).abs() / scale).max())
+    if q.dtype == torch.float32:
+        o_err = float((o - o_ref).abs().max())
+        o_ok = o_err <= FLASH_F32_ATOL
+        how = f"O max_abs_err={o_err} (limit {FLASH_F32_ATOL})"
+    else:
+        elem, rw = bf16_excess(o, q, k, v, causal)
+        o_ok = max(elem, rw) <= 1
+        how = f"O bf16 bound: element {elem:.3f}, row {rw:.3f} of the limits"
+    print(f"[kernel] flash_attention with log-sum-exp {label}: {how}; lse "
+          f"{lse_x:.3e} of the row scale (limit {LSE_REL})", flush=True)
+    if not (o_ok and lse_x <= LSE_REL and bool(torch.isfinite(lse).all())):
+        fail(f"flash_attention's O or log-sum-exp disagrees with the plain "
+             f"version at {label}")
+    return o_ref, lse_ref
+
+
+def _hold_bwd(torch, args, got, label: str) -> float:
+    """Holds a backward's (dq, dk, dv) against ``flash_attention_bwd_ref``
+    on the same inputs and returns the max abs difference.  The forward's
+    O and log-sum-exp in ``args`` are held first (``_hold_fwd``), and the
+    plain backward reads the plain forward's own, so a fault of the
+    forward cannot cancel out.  f32: within BWD_F32_REL of the largest
+    gradient entry; bf16: within BWD_BF16_REL of it over the whole tensors,
+    and each gradient's error against an f64 witness (``_exact_attention``
+    under autograd) no worse than twice the plain version's own (computed
+    in f32, rounded to bf16), on batch 0 and kv head 0's group of q heads
+    where the whole f64 problem is large (the group is a problem of its
+    own: its dq reads that kv head alone)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    q, k, v, o, lse, do = (t.detach() for t in args[:6])
+    causal = args[6]
+    got = tuple(t.detach() for t in got)
+    o_ref, lse_ref = _hold_fwd(torch, q, k, v, o, lse, causal, label)
+    plain = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                    o_ref.float(), lse_ref, do.float(), causal)
+    err = max(float((a.float() - b).abs().max()) for a, b in zip(got, plain))
+    top = max(float(b.abs().max()) for b in plain)
+    if q.dtype == torch.float32:
+        ok = err <= BWD_F32_REL * top
+        how = f"{err / top:.3e} of the largest entry (limit {BWD_F32_REL})"
+    else:
+        B, S, H, _ = q.shape
+        G = H // k.shape[2]
+        if B * H * S * S > 2**27:
+            part = (slice(0, 1), slice(None), slice(0, G))
+            kvp = (slice(0, 1), slice(None), slice(0, 1))
+            q, o_ref, do = (t[part] for t in (q, o_ref, do))
+            k, v = k[kvp], v[kvp]
+            got = (got[0][part], got[1][kvp], got[2][kvp])
+            plain = (plain[0][part], plain[1][kvp], plain[2][kvp])
+        with torch.enable_grad():
+            leaves64 = [t.double().requires_grad_() for t in (q, k, v)]
+            o64, _ = _exact_attention(torch, *leaves64, causal)
+            exact = torch.autograd.grad(o64, leaves64, do.double())
+        del o64, leaves64
+        ratio = 0.0
+        for a, p, e in zip(got, plain, exact):
+            own = float((p.to(a.dtype).double() - e).abs().max())
+            mine = float((a.double() - e).abs().max())
+            ratio = max(ratio, mine / max(2 * own, 1e-6 * top))
+        ok = ratio <= 1 and err <= BWD_BF16_REL * top
+        how = (f"{err / top:.3e} of the largest entry (limit "
+               f"{BWD_BF16_REL}); error against f64 {ratio:.3f} of twice "
+               f"the plain version's own bf16 error")
+    print(f"[kernel] flash_attention_bwd {label}: max_abs_err={err} ({how})",
+          flush=True)
+    if not (ok and all(bool(torch.isfinite(t).all()) for t in got)):
+        fail(f"flash_attention_bwd disagrees with its plain version at "
+             f"{label}")
+    return err
+
+
+def _time_bwd(torch, label, shape, flush, rate, stamp) -> dict:
+    """The backward at a timed shape (bf16, causal): kernel, plain version
+    and SDPA's backward (forward + backward less the forward, the port never
+    calls it) beside the bound, each the median of TIMED_LAUNCHES calls with
+    L2 flushed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    B, S, H, Hkv, Dh = shape
+    args = _bwd_inputs(torch, (*shape, True), torch.bfloat16)
+    q, k, v, o, lse, do, _ = args
+    flops = 2.5 * 4 * B * H * Dh * S * (S + 1) // 2
+    nbytes = ((3 * q.numel() + 4 * k.numel() + o.numel()) * q.element_size()
+              + lse.numel() * 4)          # q k v o do in, dq dk dv out
+    t_f, t_b = flops / BF16_FLOP_PER_S * 1e3, nbytes / rate * 1e3
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa(grad: bool):
+        with torch.set_grad_enabled(grad):
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=Hkv != H)
+            if grad:
+                torch.autograd.grad(out, (qt, kt, vt), dot)
+    before = flash_attention_bwd.launches
+    t = {"ms": time_ms(torch, lambda: flash_attention_bwd(*args), flush),
+         "plain_ms": time_ms(torch, lambda: flash_attention_bwd_ref(*args),
+                             flush),
+         "bound_ms": max(t_f, t_b),
+         "bound_by": "operations" if t_f >= t_b else "bytes"}
+    flash_attention_bwd.launches = before       # timing is not the path
+    fwd_bwd = time_ms(torch, lambda: sdpa(True), flush)
+    fwd = time_ms(torch, lambda: sdpa(False), flush)
+    t["library_ms"] = fwd_bwd - fwd
+    print(f"[time] flash_attention_bwd {label} q ({B}, {S}, {H}, {Dh}) kv "
+          f"heads {Hkv} bf16 causal: kernel {t['ms']} ms "
+          f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{t['bound_ms'] / t['ms']:.1%} of the bound), plain "
+          f"{t['plain_ms']} ms, scaled_dot_product_attention backward "
+          f"{t['library_ms']} ms (forward + backward {fwd_bwd} ms less the "
+          f"forward {fwd} ms); bound {t['bound_ms']} ms by {t['bound_by']}: "
+          f"{flops} FLOP at {BF16_FLOP_PER_S / 1e12} TFLOP/s = {t_f} ms, "
+          f"{nbytes} B at {rate / 1e12} TB/s = {t_b} ms  [{stamp}]",
+          flush=True)
+    return t
+
+
+def _ckpt_room(torch, ckpt_bytes: int, stamp: str):
+    """(directory, keep): a checkpoint directory inside the checkout
+    (``build/``) or under TMPDIR, whichever filesystem has more free bytes,
+    and whether the run's checkpoints can stay there.  Keep 2 needs room
+    for 3 (two committed, one being written); where the disk holds fewer,
+    the phase verifies and then removes each committed checkpoint but the
+    last (``_verify_and_drop``; the program is unchanged, but its keep-2
+    pruning then finds nothing to prune), so room for one must be there.
+    Fails unless it is, and unless the host's available memory holds two
+    host copies (a new snapshot while the last one is written) and then
+    the last checkpoint read back."""
+    cands = [ROOT / "build" / "ckpt_lm",
+             Path(tempfile.gettempdir()) / "repro_torch_ckpt_lm"]
+    free = {c: shutil.disk_usage(c.parent if c.parent.exists() else ROOT).free
+            for c in cands}
+    best = max(cands, key=lambda c: free[c])
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    keep = free[best] >= 3 * ckpt_bytes
+    print(f"[train] checkpoint: params, m and v in f32 = {ckpt_bytes} B a "
+          f"save; keep 2 needs up to 3 on disk at once ({3 * ckpt_bytes} B); "
+          f"free: " + ", ".join(f"{c.parent} {free[c]} B" for c in cands)
+          + f"; host memory available {avail} B for up to 2 host copies "
+          f"({2 * ckpt_bytes} B); "
+          + ("the checkpoints stay" if keep else
+             "too little disk for keep 2: each committed checkpoint but "
+             "the last is verified, then removed by this script; the last "
+             "is read back and compared leaf by leaf")
+          + f"  [{stamp}]", flush=True)
+    if free[best] < 1.05 * ckpt_bytes:
+        fail(f"no filesystem with room for one checkpoint of {ckpt_bytes} B "
+             f"(largest free: {free[best]} B at {best.parent})")
+    if avail < 2 * ckpt_bytes:
+        fail(f"host memory available ({avail} B) holds fewer than two "
+             f"checkpoint snapshots of {ckpt_bytes} B")
+    shutil.rmtree(best, ignore_errors=True)
+    return best, keep
+
+
+@contextlib.contextmanager
+def _verify_and_drop(n_leaves: int, keep: bool, last: int, log: list):
+    """Wrap ``CheckpointManager._write``: time the write and, once it has
+    committed, check the step's ``_COMMITTED`` marker, its manifest's leaf
+    count and its bytes on disk (appended to ``log`` as (step, seconds,
+    bytes)); unless ``keep``, then remove the step's directory, except the
+    ``last`` step's, which the phase reads back.  Restored on exit."""
+    from repro_torch.train.checkpoint import CheckpointManager
+    write = CheckpointManager._write
+
+    def wrapped(self, step, host_state, extra):
+        t0 = time.perf_counter()
+        write(self, step, host_state, extra)
+        dt = time.perf_counter() - t0
+        d = self.dir / f"step_{step:09d}"
+        if self._error is None:
+            manifest = json.loads((d / "MANIFEST.json").read_text())
+            if not (d / "_COMMITTED").exists() or \
+                    len(manifest["leaves"]) != n_leaves:
+                self._error = RuntimeError(f"checkpoint step {step} is not "
+                                           f"whole")
+            log.append((step, dt, sum(f.stat().st_size
+                                      for f in d.iterdir())))
+            if not keep and step != last:
+                shutil.rmtree(d)
+    CheckpointManager._write = wrapped
+    try:
+        yield
+    finally:
+        CheckpointManager._write = write
+
+
+def _read_back(torch, ckpt, state, stamp: str):
+    """Restores the last committed checkpoint onto the host and holds it
+    leaf by leaf against the run's final state on the card (params, AdamW's
+    m and v, bit for bit; the step count equal)."""
+    from repro_torch.models.params import leaves, tree_map
+    t0 = time.perf_counter()
+    # host leaves of the state's shapes that hold no memory of their own
+    template = tree_map(lambda x: torch.zeros(()).expand(x.shape)
+                        if isinstance(x, torch.Tensor) else x, state)
+    back, step = ckpt.restore(template)
+    t_read = time.perf_counter() - t0
+    n, bad = 0, []
+    for group in state:
+        for a, b in zip(leaves(back[group]), leaves(state[group])):
+            same = (torch.equal(a, b.cpu()) if isinstance(b, torch.Tensor)
+                    else a == b)
+            n += 1
+            if not same:
+                bad.append(f"{group} leaf {n}")
+    del back
+    print(f"[check] checkpoint step {step} read back in {t_read:.1f} s: "
+          f"{n} leaves, each equal to the run's final state on the card="
+          f"{not bad}  [{stamp}]", flush=True)
+    if bad:
+        fail(f"the checkpoint of step {step} differs from the run's state: "
+             f"{bad[:5]}")
+
+
+def _whole_fan_in(params):
+    """The attention weights of a seeded tree rescaled in place to N(0, 1 /
+    their whole fan-in): the initializer (JAX's) reads the fan-in of
+    ``wq``/``wk``/``wv`` (L, D, heads, Dh) from the heads and of ``wo``
+    (L, H, Dh, D) from Dh, which leaves the seeded stack's scores in the
+    thousands (``tests/test_torch_cuda.py``'s ``_fan_in_params``)."""
+    for name, w in params["layers"]["attn"].items():
+        if name in ("wq", "wk", "wv"):
+            w.mul_((w.shape[-2] / w.shape[-3]) ** 0.5)
+        elif name == "wo":
+            w.mul_(w.shape[-3] ** -0.5)
+
+
+def _f32_step_vs_plain(torch, stamp: str):
+    """A full-width llama3.2-3b cut to TRAIN_F32_LAYERS layers, f32, seeded
+    on the card: loss and every gradient through the flash kernels (forward
+    and backward) against the same through the plain attention on the
+    card.  With the seeded weights the scores reach the thousands, where
+    one f32 ulp of a score moves its probability by ~1e-3; there the same
+    step on the CPU (the port's CPU path, plain attention) is the witness:
+    the kernels' distance to it is held to no more than twice the plain
+    card path's own, or TRAIN_REL_TOL.  With the attention weights at
+    their whole fan-in the kernels are held to TRAIN_REL_TOL of the plain
+    card path directly."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers
+    from repro_torch.models.api import build
+    from repro_torch.models.params import init_params, leaves, unflatten
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TRAIN_F32_LAYERS,
+                                         compute_dtype="float32")
+    model = build(cfg)
+    params = init_params(model.decls,
+                         torch.Generator(device="cuda").manual_seed(1), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (8, 129), generator=g,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    top_score = [0.0]
+
+    def plain_attention(q, k, v, causal=True):
+        # flash_attention_ref, noting the largest |score| it sees
+        with torch.no_grad():
+            kr = k.repeat_interleave(q.shape[2] // k.shape[2], 2)
+            sc = torch.einsum("bqhd,bkhd->bhqk", q, kr) * q.shape[-1] ** -0.5
+            if causal:
+                sc = sc.tril()
+            top_score[0] = max(top_score[0], float(sc.abs().max()))
+        return flash_attention_ref(q, k, v, causal)
+
+    def run(tree, data, attention=None):
+        p_l = [p.detach().requires_grad_() for p in leaves(tree)]
+        flash = layers.flash_attention
+        layers.flash_attention = attention or flash
+        try:
+            loss, _ = model.loss_fn(unflatten(tree, p_l), data)
+            grads = torch.autograd.grad(loss, p_l)
+        finally:
+            layers.flash_attention = flash
+        return float(loss.detach()), grads
+
+    def gap(a_run, b_run):
+        (la, ga), (lb, gb) = a_run, b_run
+        worst = max(float((a.to(b.device) - b).abs().max()
+                          / b.abs().max().clamp(min=1e-30))
+                    for a, b in zip(ga, gb))
+        return abs(la - lb) / abs(lb), worst
+
+    def kernel_and_plain(label):
+        before = flash_attention_bwd.launches
+        kern = run(params, batch)
+        launched = flash_attention_bwd.launches - before
+        top_score[0] = 0.0
+        plain = run(params, batch, plain_attention)
+        dl, worst = gap(kern, plain)
+        print(f"[check] f32 train step at full width, {TRAIN_F32_LAYERS} "
+              f"layers, {label}: loss {kern[0]} (kernel) vs {plain[0]} "
+              f"(plain attention), rel {dl:.2e}; gradients (every leaf) max "
+              f"|diff| / max |grad| {worst:.2e}; largest |score| "
+              f"{top_score[0]:.1f}; {launched} backward launches  [{stamp}]",
+              flush=True)
+        if launched != TRAIN_F32_LAYERS:
+            fail(f"the f32 train step launched flash_attention_bwd "
+                 f"{launched} times, not {TRAIN_F32_LAYERS}")
+        return kern, plain, dl, worst
+
+    kern, plain, dl, worst = kernel_and_plain("seeded weights")
+    t0 = time.perf_counter()
+    cpu = run(unflatten(params, [p.cpu() for p in leaves(params)]),
+              {k: t.cpu() for k, t in batch.items()})
+    (dl_k, w_k), (dl_p, w_p) = gap(kern, cpu), gap(plain, cpu)
+    print(f"[check] the same step on the CPU (plain attention, f32, "
+          f"{time.perf_counter() - t0:.1f} s) as witness: kernels vs CPU "
+          f"loss rel {dl_k:.2e}, gradients {w_k:.2e}; plain attention on "
+          f"the card vs CPU loss rel {dl_p:.2e}, gradients {w_p:.2e} "
+          f"(limit: each of the kernels' gaps at most max({TRAIN_REL_TOL}, "
+          f"twice the plain card path's))  [{stamp}]", flush=True)
+    del kern, plain, cpu
+    if dl_k > max(TRAIN_REL_TOL, 2 * dl_p) or \
+            w_k > max(TRAIN_REL_TOL, 2 * w_p):
+        fail("at the seeded weights the f32 train step through the kernels "
+             "lies further from the CPU witness than the plain attention "
+             "on the card does")
+    with torch.no_grad():
+        _whole_fan_in(params)
+    _, _, dl, worst = kernel_and_plain(f"attention weights at their whole "
+                                       f"fan-in (limit {TRAIN_REL_TOL})")
+    if dl > TRAIN_REL_TOL or worst > TRAIN_REL_TOL:
+        fail("the f32 train step through the kernels disagrees with the "
+             "plain attention")
+
+
+def phase_lm_train(torch, stamp: str) -> dict:
+    """LM training at full width and full depth (phase 14); returns the
+    flash_attention_bwd JSON entry and the launches of the forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.train import build_parser, run_lm
+    from repro_torch.models.api import build
+    from repro_torch.models.params import leaves
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import SyntheticTokens, to_device
+    from repro_torch.train.trainer import make_train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+
+    # (a) the backward kernel alone: held, deterministic, O unchanged by
+    # the log-sum-exp, and timed
+    errs = []
+    for shape in BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _bwd_inputs(torch, shape, dtype)
+            q, k, v, o, lse, do, causal = args
+            if not torch.equal(o, fa._forward(q, k, v, causal, False)):
+                fail(f"flash_attention's O changes with the log-sum-exp at "
+                     f"{shape} {dtype}")
+            got = fa.flash_attention_bwd(*args)
+            again = fa.flash_attention_bwd(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"two flash_attention_bwd runs differ at {shape} {dtype}")
+            errs.append(_hold_bwd(torch, args, got,
+                                  f"{'x'.join(map(str, shape))} {dtype}"))
+            del args, got, again
+    print(f"[check] flash_attention_bwd: {2 * len(BWD_CASES)} cases held, "
+          f"each run twice bit-equal; O bit-equal with and without the "
+          f"log-sum-exp", flush=True)
+    timed = {label: _time_bwd(torch, label, shape, flush, rate, stamp)
+             for label, shape in BWD_TIMED}
+    del flush
+    torch.cuda.empty_cache()
+
+    # (b) the CLI path at full width: the seeded f32 masters, AdamW, 6
+    # steps through the supervisor, checkpoints at 2, 4 and 6
+    cfg = get_config(TRAIN_ARCH)
+    n_params = cfg.param_count()
+    ckpt_bytes = 3 * 4 * n_params
+    ckpt_dir, keep = _ckpt_room(torch, ckpt_bytes, stamp)
+    args = build_parser().parse_args([*LM_TRAIN_ARGS, "--ckpt-dir",
+                                      str(ckpt_dir)])
+    recorded = []
+    bwd, backward = fa.flash_attention_bwd, fa.FlashAttention.backward
+
+    def record(ctx, do):
+        # FlashAttention.backward, keeping the first step's calls (a
+        # checkpointed tensor unpacks once, so this is the whole backward)
+        q, k, v, o, lse = ctx.saved_tensors
+        call = (q, k, v, o, lse, do.contiguous(), ctx.causal)
+        if len(recorded) < cfg.num_layers:
+            recorded.append(call)
+        return (*bwd(*call), None)
+    ck_log, writes = [], []
+    n_leaves = 3 * len(leaves(build(cfg).decls)) + 1      # params, m, v, count
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts()
+    bwd.launches = 0
+    fa.FlashAttention.backward = staticmethod(record)
+    try:
+        with _verify_and_drop(n_leaves, keep, args.steps, writes), \
+                _timed(torch, CheckpointManager, ("save", "wait"), ck_log):
+            out = run_lm(args)
+    finally:
+        fa.FlashAttention.backward = staticmethod(backward)
+    launches = counts()
+    launches["flash_attention_bwd"] = bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    steps = len(hist)
+    want = {"flash_attention": 2 * cfg.num_layers * steps,
+            "flash_attention_bwd": cfg.num_layers * steps}
+    print(f"[train] {TRAIN_ARCH} full width, {cfg.num_layers} layers, "
+          f"{n_params} parameters: launches {launches} over {steps} steps "
+          f"(predicted {want}: remat 'dots' recomputes each layer's forward "
+          f"once in the backward)  [{stamp}]", flush=True)
+    if any(launches[k] != n for k, n in want.items()) or any(
+            n for k, n in launches.items() if k not in want):
+        fail(f"train launches {launches}, expected {want} and nothing else")
+    losses = [h[1] for h in hist]
+    gnorms = [h[2] for h in hist]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"non-finite loss or gradient norm: {losses} {gnorms}")
+    tokens = args.batch * args.seq
+    step_s = [h[4] - h[3] for h in hist]
+    window = hist[-1][4] - hist[0][4]           # steps 2..6, wall
+    saves = [s for n, s, *_ in ck_log if n == "save"]
+    waits = [s for n, s, *_ in ck_log if n == "wait"]
+    print(f"[train] losses {losses}; gradient norms {gnorms}", flush=True)
+    print(f"[train] steps 2-{steps}: {(steps - 1) / window:.4f} steps/s, "
+          f"{(steps - 1) * tokens / window:.1f} tokens/s over {window:.3f} s "
+          f"wall (the checkpoint snapshots at steps 2 and 4 inside it); each "
+          f"step's own seconds {[round(s, 4) for s in step_s]} (median of "
+          f"steps 2-{steps} {sorted(step_s[1:])[(steps - 1) // 2]:.4f} s = "
+          f"{tokens / sorted(step_s[1:])[(steps - 1) // 2]:.1f} tokens/s); "
+          f"whole run {out['seconds']:.2f} s; peak memory allocated "
+          f"{peak} B ({peak / 2**30:.2f} GiB)  [{stamp}]", flush=True)
+    left = CheckpointManager(ckpt_dir).all_steps()
+    print(f"[train] checkpoints {out['report'].checkpoints} of {ckpt_bytes} "
+          f"B to {ckpt_dir}: save (host snapshot, on the step's thread) "
+          f"{[round(s, 3) for s in saves]} s; write (the background thread; "
+          f"step, s, bytes on disk) "
+          f"{[(st, round(s, 3), b) for st, s, b in writes]}; wait "
+          f"{[round(s, 3) for s in waits]} s; committed and verified steps "
+          f"{[w[0] for w in writes]}, left on disk {left}  [{stamp}]",
+          flush=True)
+    if out["report"].checkpoints != 3 or [w[0] for w in writes] != [2, 4, 6] \
+            or left != ([4, 6] if keep else [6]):
+        fail("the supervisor did not commit steps 2, 4 and 6 (keep 2)")
+    _read_back(torch, CheckpointManager(ckpt_dir), out["state"], stamp)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # (c) the first step's backward calls held in situ
+    for i, a in enumerate(recorded):
+        _hold_bwd(torch, a, bwd(*a), f"in situ, step 1 layer call {i}")
+    if len(recorded) != cfg.num_layers:
+        fail(f"recorded {len(recorded)} backward calls, not {cfg.num_layers}")
+    del recorded
+
+    # (d) two more steps from the run's state: every gradient finite (the
+    # grad_transform hook), then one profiled: device busy and idle share
+    state = out["state"]
+    data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq, seed=7,
+                           n_batches=2)
+
+    def finite(tree):
+        bad = [i for i, g in enumerate(leaves(tree))
+               if not bool(torch.isfinite(g).all())]
+        if bad:
+            fail(f"non-finite gradients in leaves {bad}")
+        return tree
+    step, _ = make_train_step(out["model"], cfg, grad_transform=finite)
+    step(state["params"], state["opt_state"], to_device(data.make(0), "cuda"))
+    print(f"[check] every one of the {len(leaves(state['params']))} leaves' "
+          f"gradients finite", flush=True)
+    step, _ = make_train_step(out["model"], cfg)
+    batch = to_device(data.make(1), "cuda")
+    busy = _profile(torch, lambda: step(state["params"], state["opt_state"],
+                                        batch), stamp, "one train step")
+    step_ms = sorted(step_s[1:])[(steps - 1) // 2] * 1e3
+    idle = 1 - busy / step_ms
+    print(f"[train] one profiled step: device busy {busy:.3f} ms against "
+          f"the median un-profiled step of {step_ms:.3f} ms (steps "
+          f"2-{steps}, data and copies included): idle {idle:.1%}  "
+          f"[{stamp}]", flush=True)
+    del out, state, step, batch
+    torch.cuda.empty_cache()
+
+    # (e) the f32 step through the kernels against the plain attention
+    _f32_step_vs_plain(torch, stamp)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[train] phase 14 in {time.perf_counter() - t_phase:.1f} s  "
+          f"[{stamp}]", flush=True)
+    prefill = timed["llama3_prefill"]
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:60",
+             "note": "the backward of that kernel's function; the TPU "
+                     "kernel has none (JAX differentiates jnp attention)",
+             "launches": launches["flash_attention_bwd"],
+             "max_abs_err": max(errs), **prefill,
+             "llama3_2_3b_train_step": timed["llama3_train_step"],
+             "train": {"steps_per_s": (steps - 1) / window,
+                       "tokens_per_s": (steps - 1) * tokens / window,
+                       "step_ms": step_ms, "device_busy_ms": busy,
+                       "idle_share": idle, "peak_bytes": peak,
+                       "ckpt_save_s": saves,
+                       "ckpt_write_s": [w[1] for w in writes],
+                       "ckpt_wait_s": waits}}
+    return {"entry": entry, "flash_attention": launches["flash_attention"]}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3338,6 +4004,8 @@ def main() -> int:
     fabric = phase_fabric(torch, stamp)
     families = phase_families(torch, stamp)
     families.update(phase_encdec_vlm(torch, stamp))
+    train_lm = phase_lm_train(torch, stamp)
+    flash["train_launches"] = train_lm["flash_attention"]
     entry["fabric_launches"] = sum(n for k, n in fabric["parts"].items()
                                    if k != "train")
     entry["fabric_warmup_train_launches"] = fabric["parts"]["train"]
@@ -3350,7 +4018,7 @@ def main() -> int:
     reservoir["path_launches"]["lm_families"] = sum(
         families[f][part]["reservoir_topm"] for f in families
         for part in ("prefill", "serve"))
-    entries += [flash, reservoir]
+    entries += [flash, train_lm["entry"], reservoir]
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")

@@ -126,6 +126,14 @@
 //      127 and 129 (a partial diagonal, one row past a tile), 1000 and 4097
 //      (a partial last KV tile) are held against the plain version.
 //
+// Log-sum-exp (the backward's input, csrc/flash_attention_bwd.cu).  Given a
+// non-null lse pointer, both kernels also store each row's log-sum-exp of
+// the scaled, masked scores, (B, H, S) f32 in natural log, from the running
+// max and sum of the online softmax: (m * scale_log2 + log2 l) * ln 2 (the
+// f32 kernel keeps m already in log2 units).  It is one store in the
+// epilogue: the arithmetic of O is untouched, and O is bit-equal with and
+// without the pointer.
+//
 // f32 (SIMT): per-thread f32 FMA.  256 threads, a tile of 64 query rows,
 // each thread owning 4 query rows x 2 keys of a 64 x 32 score tile and
 // 4 rows x Dh/16 columns of the output; Q, K, V and P staged in shared
@@ -140,6 +148,7 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
+constexpr float kLn2 = 0.69314718055994531f;
 constexpr int kBQ = 64;   // query rows per block of the f32 kernel
 
 __device__ __forceinline__ int tile_count(int S, int q0, int bk, int causal) {
@@ -569,7 +578,7 @@ __device__ __forceinline__ void produce(const Smem<DH>& sm, const CUtensorMap* t
 // tensor cores while this one exponentiates.
 template <int DH>
 __device__ __forceinline__ void consume_item(const Smem<DH>& sm, __nv_bfloat16* __restrict__ o,
-                                             int cw, int tid, int q0, int b, int h, int n_tiles,
+                                             float* __restrict__ lse, int cw, int tid, int q0, int b, int h, int n_tiles,
                                              int S, int H, int dh, int causal, float scale_log2,
                                              int& n, int item) {
   const int warp = tid >> 5, g = (tid & 31) >> 2, key0 = 2 * (tid & 3);
@@ -646,6 +655,11 @@ __device__ __forceinline__ void consume_item(const Smem<DH>& sm, __nv_bfloat16* 
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const float d_a = fmaxf(l_a, 1e-30f), d_b = fmaxf(l_b, 1e-30f);
+  if (lse != nullptr && key0 == 0) {   // the log-sum-exp of the scaled scores, natural log
+    float* lb = lse + (static_cast<int64_t>(b) * H + h) * S;
+    if (row_a < S) lb[row_a] = (r.m_a * scale_log2 + log2f(d_a)) * kLn2;
+    if (row_b < S) lb[row_b] = (r.m_b * scale_log2 + log2f(d_b)) * kLn2;
+  }
   const int64_t stride = static_cast<int64_t>(H) * dh;
   __nv_bfloat16* ob = o + static_cast<int64_t>(b) * S * stride + h * dh + key0;
 #pragma unroll
@@ -662,14 +676,14 @@ __device__ __forceinline__ void consume_item(const Smem<DH>& sm, __nv_bfloat16* 
 
 template <int DH>
 __device__ __forceinline__ void consume(const Smem<DH>& sm, __nv_bfloat16* __restrict__ o,
-                                        int cw, int tid, int B, int S, int H, int dh, int causal,
+                                        float* __restrict__ lse, int cw, int tid, int B, int S, int H, int dh, int causal,
                                         float scale_log2) {
   if (cw == 1) turn_pass(1);   // consumer 0 takes the first turn
   int n = 0, item = 0;
   Work w;
   for (int r = 0; r < rounds(S, B, H); ++r) {
     if (!w.at(r, S, B, H, causal)) continue;
-    consume_item<DH>(sm, o, cw, tid, w.q0, w.b, w.h, w.n_tiles, S, H, dh, causal, scale_log2, n,
+    consume_item<DH>(sm, o, lse, cw, tid, w.q0, w.b, w.h, w.n_tiles, S, H, dh, causal, scale_log2, n,
                      item);
     ++item;
   }
@@ -680,7 +694,8 @@ __device__ __forceinline__ void consume(const Smem<DH>& sm, __nv_bfloat16* __res
 template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int B,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int B,
                 int S, int H, int Hkv, int dh, int causal, float scale_log2) {
   extern __shared__ uint8_t smem_wg[];
   const Smem<DH> sm((smem_u32(smem_wg) + 1023u) & ~1023u);   // swizzle atoms: 1024 B
@@ -704,7 +719,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     if (threadIdx.x == 0) produce<DH>(sm, &tq, &tk, &tv, B, S, H, Hkv, causal);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume<DH>(sm, o, wgi - 1, threadIdx.x - 128 * wgi, B, S, H, dh, causal, scale_log2);
+    consume<DH>(sm, o, lse, wgi - 1, threadIdx.x - 128 * wgi, B, S, H, dh, causal, scale_log2);
   }
 }
 
@@ -742,7 +757,7 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t 
 template <int DH, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
               int S, int H, int Hkv, int dh_arg, int causal, float scale_log2) {
   const int dh = PAD ? dh_arg : DH;
   constexpr int LD = DH + 4;     // smem row stride (floats): 16-byte rows, bank skew
@@ -863,6 +878,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float lm = fmaxf(l[i], 1e-30f);
+    // m is in log2 units here (the scores were scaled by scale_log2)
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * S + row] = (m[i] + log2f(lm)) * kLn2;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       if (!PAD || tx + 16 * c < dh) ob[row * q_stride + tx + 16 * c] = acc[i][c] / lm;
@@ -927,7 +945,7 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int dh, int h
 }
 
 template <int DH>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int H,
                  int Hkv, int dh, int causal, float scale_log2, cudaStream_t stream) {
   using T = wg::Tile<DH>;
   static const cudaError_t granted = grant(wg::flash_fwd_wgmma<DH>, T::SMEM);
@@ -945,12 +963,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   const int items = (S + wg::kBM - 1) / wg::kBM * B * H;
   const int grid = items < sms ? items : sms;
   wg::flash_fwd_wgmma<DH><<<grid, wg::kThreads, T::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, Hkv, dh, causal, scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, S, H, Hkv, dh, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH, bool PAD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int H,
                int Hkv, int dh, int causal, float scale_log2, cudaStream_t stream) {
   constexpr int smem = simt::smem_bytes<DH>();
   static const cudaError_t granted = grant(simt::flash_fwd_f32<DH, PAD>, smem);
@@ -958,17 +976,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   simt::flash_fwd_f32<DH, PAD><<<grid, simt::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, Hkv, dh, causal, scale_log2);
+      static_cast<float*>(o), lse, S, H, Hkv, dh, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // one grant per kernel, at its first launch (thread-safe static initialisation)
 template <int DH>
-int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o, int B, int S,
-             int H, int Hkv, int dh, int causal, float scale_log2, cudaStream_t stream) {
-  if (bf16) return launch_wgmma<DH>(q, k, v, o, B, S, H, Hkv, dh, causal, scale_log2, stream);
-  return dh < DH ? launch_f32<DH, true>(q, k, v, o, B, S, H, Hkv, dh, causal, scale_log2, stream)
-                 : launch_f32<DH, false>(q, k, v, o, B, S, H, Hkv, dh, causal, scale_log2, stream);
+int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o, float* lse, int B,
+             int S, int H, int Hkv, int dh, int causal, float scale_log2, cudaStream_t stream) {
+  if (bf16)
+    return launch_wgmma<DH>(q, k, v, o, lse, B, S, H, Hkv, dh, causal, scale_log2, stream);
+  return dh < DH
+             ? launch_f32<DH, true>(q, k, v, o, lse, B, S, H, Hkv, dh, causal, scale_log2, stream)
+             : launch_f32<DH, false>(q, k, v, o, lse, B, S, H, Hkv, dh, causal, scale_log2, stream);
 }
 
 }  // namespace
@@ -979,19 +999,21 @@ int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o, in
 // alignment and B * H <= 65535, and names the template (16, 32, 64 or 128)
 // that runs head_dim, a multiple of 8 no wider than it (ops.py's
 // TEMPLATE_WIDTH).  scale_log2 is head_dim^-1/2 * log2(e), of the real
-// head_dim.
+// head_dim.  lse, when not null, receives each row's log-sum-exp of the
+// scaled, masked scores, (batch, heads, seq) f32 in natural log (the
+// backward's input); o is the same with or without it.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int batch, int seq, int heads, int kv_heads,
+                                      float* lse, int batch, int seq, int heads, int kv_heads,
                                       int head_dim, int width, int bf16, int causal,
                                       float scale_log2, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const int d = head_dim;
   if (d < 8 || d % 8 != 0 || d > width) return static_cast<int>(cudaErrorInvalidValue);
   switch (width) {
-    case 16: return dispatch<16>(bf16, q, k, v, o, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
-    case 32: return dispatch<32>(bf16, q, k, v, o, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
-    case 64: return dispatch<64>(bf16, q, k, v, o, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
-    case 128: return dispatch<128>(bf16, q, k, v, o, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
+    case 16: return dispatch<16>(bf16, q, k, v, o, lse, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
+    case 32: return dispatch<32>(bf16, q, k, v, o, lse, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
+    case 64: return dispatch<64>(bf16, q, k, v, o, lse, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
+    case 128: return dispatch<128>(bf16, q, k, v, o, lse, batch, seq, heads, kv_heads, d, causal, scale_log2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

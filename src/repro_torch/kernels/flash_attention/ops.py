@@ -24,9 +24,19 @@ shapes.  bf16 runs the Hopper kernel (TMA ring, ``wgmma``, warp-specialised
 consumers) at every Dh, f32 the SIMT kernel; see the note in the CUDA
 source for both designs.
 
+Gradient (training): when grad is enabled and an input requires it, the
+call goes through ``FlashAttention``, a ``torch.autograd.Function``.  Its
+forward launches the same kernel with a pointer for each row's log-sum-exp
+(``(B, H, S)`` f32, natural log; ``O`` is bit-equal to the call without
+it) and saves ``q, k, v, o, lse``; its backward is
+``flash_attention_bwd``: the hand-written kernels of
+``kernels/csrc/flash_attention_bwd.cu`` (deterministic, no float atomics;
+the TPU kernel has no backward: JAX differentiates its jnp attention).
+
 A tensor on the CPU takes the plain version (``ref.py``); a CUDA tensor
-launches the kernel or raises.  ``flash_attention.launches`` counts kernel
-launches, and nothing else.
+launches the kernel or raises.  ``flash_attention.launches`` counts forward
+kernel launches, ``flash_attention_bwd.launches`` backward ones (one a
+call: the C entry launches its two kernels), and nothing else.
 """
 from __future__ import annotations
 
@@ -35,7 +45,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the head widths the card takes, each with the kernels' template width it
@@ -44,19 +55,23 @@ _DTYPES = (torch.float32, torch.bfloat16)
 TEMPLATE_WIDTH = {8: 16, 16: 16, 32: 32, 64: 64, 112: 128, 128: 128}
 HEAD_DIMS = tuple(TEMPLATE_WIDTH)
 ENCODE_ERROR = 100000      # the C function's code: this + a CUresult
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name: str = "flash_attention"):
+    """The C entry of ``csrc/<name>.cu``: ``flash_attention_launch`` (q, k,
+    v, o, lse pointers) or ``flash_attention_bwd_launch`` (q, k, v, o, lse,
+    do, dq, dk, dv and the D scratch)."""
+    fn = _fns.get(name)
+    if fn is None:
         from repro_torch.kernels.build import load
-        fn = load("flash_attention").flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        fn = getattr(load(name), f"{name}_launch")
+        n_ptr = 5 if name == "flash_attention" else 10
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check(q, k, v):
@@ -78,14 +93,8 @@ def _check(q, k, v):
         raise ValueError("flash_attention inputs lie on different devices")
 
 
-def flash_attention(q, k, v, causal: bool = True):
-    """q (B, S, H, Dh), k/v (B, S, Hkv, Dh) → (B, S, H, Dh) in q's dtype."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
-                         f"{q.device}")
+def _check_card(q, k, v):
+    """What the kernels take on the card, beyond ``_check``."""
     B, S, H, Dh = q.shape
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention on cuda takes Dh in {HEAD_DIMS}, "
@@ -96,21 +105,116 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError("flash_attention needs 16-byte aligned q, k and v")
     if B * H > 65535:
         raise ValueError(f"flash_attention takes B·H <= 65535, not {B * H}")
+
+
+def _raise_on(err: int, what: str):
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed: "
+                           f"CUresult {err - ENCODE_ERROR}")
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """The forward on its device: ``o``, or ``(o, lse)`` with the rows'
+    log-sum-exp ``(B, H, S)`` f32."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal, with_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_card(q, k, v)
+    B, S, H, Dh = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     scale_log2 = Dh ** -0.5 * math.log2(math.e)
     with torch.cuda.device(q.device):         # the launch targets this card
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, S, H, k.shape[2], Dh,
-                        TEMPLATE_WIDTH[Dh], int(q.dtype == torch.bfloat16), int(causal),
+                        out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+                        B, S, H, k.shape[2], Dh, TEMPLATE_WIDTH[Dh],
+                        int(q.dtype == torch.bfloat16), int(causal),
                         scale_log2, stream)
-    if err >= ENCODE_ERROR:
-        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed: "
-                           f"CUresult {err - ENCODE_ERROR}")
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    _raise_on(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """The gradient of ``flash_attention``: q, o, do (B, S, H, Dh), k/v
+    (B, S, Hkv, Dh), lse (B, H, S) f32 from the forward → (dq, dk, dv) in
+    the inputs' dtype.  On the card: the kernels of
+    ``csrc/flash_attention_bwd.cu``, a q-tile kernel that forms
+    D = rowsum(dO∘O) and writes dQ, then a kv-tile kernel that walks the
+    group's q-heads and writes dK and dV once; on the CPU
+    ``flash_attention_bwd_ref``."""
+    _check(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"be q's {tuple(q.shape)}")
+    B, S, H, Dh = q.shape
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B}, {H}, {S}) float32, not "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"o and do must be {q.dtype}; got {o.dtype}, "
+                        f"{do.dtype}")
+    if any(t.device != q.device for t in (o, lse, do)):
+        raise ValueError("flash_attention_bwd inputs lie on different "
+                         "devices")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_card(q, k, v)
+    if not all(t.is_contiguous() for t in (o, lse, do)):
+        raise ValueError("flash_attention_bwd needs contiguous o, lse and do")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    d_rows = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel("flash_attention_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), d_rows.data_ptr(), B, S, H, k.shape[2], Dh,
+            TEMPLATE_WIDTH[Dh], int(q.dtype == torch.bfloat16), int(causal),
+            Dh ** -0.5, stream)
+    _raise_on(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward saves ``q, k, v``,
+    the output and its log-sum-exp; the backward is ``flash_attention_bwd``
+    (the kernel on the card, the plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q (B, S, H, Dh), k/v (B, S, Hkv, Dh) → (B, S, H, Dh) in q's dtype.
+    Differentiable through ``FlashAttention`` when grad is enabled and an
+    input requires it; otherwise the forward alone, with no log-sum-exp."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, with_lse=False)
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -25,7 +25,14 @@ episodes of ``--steps`` steps each):
       --sampling-device device --fused-gather-agg --autotune \
       --episodes-autotune 4 --steps 10
 
-The LM workloads are not ported yet.
+Any other ``--arch`` is an LM (``run_lm``, the JAX package's LM path):
+seeded f32 parameters, ``get_optimizer(cfg)``, ``make_train_step`` through
+the fault-tolerance supervisor over a ``PrefetchLoader`` of
+``SyntheticTokens``, with checkpoints every ``steps // 3`` steps (keep 2,
+written asynchronously):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
+      --steps 6 --batch 8 --seq 128 --workers 2 --ckpt-dir DIR
 """
 from __future__ import annotations
 
@@ -33,8 +40,6 @@ import argparse
 import tempfile
 import time
 from typing import Dict
-
-NOT_PORTED = "not ported yet — see ROADMAP.md"
 
 
 def run_gnn_multipartition(args, cfg, graph) -> Dict:
@@ -163,6 +168,65 @@ def run_gnn(args) -> Dict:
     return {"trainer": tr, "result": res}
 
 
+def run_lm(args) -> Dict:
+    """The LM training path: prints ``step k: loss=… gnorm=…`` and
+    ``[result] N steps in …s (… tok/s), checkpoints=…``.  Returns the
+    model, the final state, the supervisor's report, the history (step,
+    loss, gradient norm, host clock at the step's start and end) and the
+    seconds of the run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    from repro_torch.models.params import init_params
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import (PrefetchLoader, SyntheticTokens,
+                                        to_device)
+    from repro_torch.train.fault_tolerance import TrainSupervisor
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    model = build(cfg)
+    opt = get_optimizer(cfg)
+    step_fn, _ = make_train_step(model, cfg, opt)
+    params = init_params(model.decls,
+                         torch.Generator(device=args.device).manual_seed(
+                             args.seed), args.device,
+                         dtype_override=getattr(torch, cfg.param_dtype))
+    opt_state = opt.init(params)
+    data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq,
+                           seed=args.seed, n_batches=args.steps)
+    loader = PrefetchLoader(data, workers=args.workers)
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix=f"ckpt_{args.arch}_")
+    ckpt = CheckpointManager(ckpt_dir, keep=2, async_save=True)
+
+    state = {"params": params, "opt_state": opt_state}
+    it = iter(loader)
+    history = []
+
+    def one_step(state, step):
+        t_start = time.perf_counter()
+        batch = to_device(next(it), args.device)
+        p, o, metrics = step_fn(state["params"], state["opt_state"], batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        history.append((step, loss, gnorm, t_start, time.perf_counter()))
+        if step % max(args.steps // 10, 1) == 0:
+            print(f"  step {step}: loss={loss:.4f} gnorm={gnorm:.3f}",
+                  flush=True)
+        return {"params": p, "opt_state": o}
+
+    sup = TrainSupervisor(ckpt, ckpt_every=max(args.steps // 3, 1))
+    t0 = time.perf_counter()
+    state, rep = sup.run(state, one_step, args.steps)
+    dt = time.perf_counter() - t0
+    toks = args.steps * args.batch * args.seq
+    print(f"[result] {args.steps} steps in {dt:.1f}s "
+          f"({toks/dt:.0f} tok/s), checkpoints={rep.checkpoints}")
+    return {"model": model, "state": state, "report": rep,
+            "history": history, "seconds": dt}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -195,8 +259,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "between global steps on a mutating graph "
                          "(boundary-node migration; <= 0 disables)")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="checkpoint directory of the multi-partition path "
-                         "(default: a fresh temporary directory)")
+                    help="checkpoint directory of the multi-partition and "
+                         "LM paths (default: a fresh temporary directory)")
     ap.add_argument("--sampling-device", default=None,
                     choices=[None, "cpu", "device", "auto"],
                     help="feature-plane backend for batch generation: cpu "
@@ -210,14 +274,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--autotune", action="store_true",
                     help="run the online auto-tuning controller (§III-C)")
     ap.add_argument("--episodes-autotune", type=int, default=4)
+    # LM knobs
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--workers", type=int, default=2)
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if not args.arch.startswith("graphsage"):
-        raise SystemExit(f"LM training: {NOT_PORTED}")
-    run_gnn(args)
+    if args.arch.startswith("graphsage"):
+        run_gnn(args)
+    else:
+        run_lm(args)
     return 0
 
 

@@ -6,14 +6,15 @@ A port of ``src/repro/models/api.py`` for every LM family: ``dense``,
 parameters first:
 
   * ``decls``                          parameter declarations
+  * ``loss_fn(params, batch)``         → (loss, metrics)   training
   * ``prefill(params, batch)``         → (logits, caches)  the block prefill
   * ``decode(params, caches, batch)``  → (logits, caches)  one decode step
   * ``cache_decls(batch, len)``        decode-cache declarations
 
 The pure-SSM LM (a Mamba2 stack) lives here, as in JAX.
 ``compute_params`` makes the one compute-dtype copy of the f32 master
-weights that a serving engine keeps.  The loss (training) and the dry-run's
-``input_specs`` are not ported.
+weights that a serving engine keeps.  The dry-run's ``input_specs`` is not
+ported.
 """
 from __future__ import annotations
 
@@ -49,6 +50,22 @@ def _ssm_decls(cfg):
                               cfg.num_layers),
         "ln_f": L.decls_rmsnorm(cfg.d_model),
     }
+
+
+def _ssm_forward(params, batch, cfg):
+    h = L.embed(params["embed"], batch["tokens"], cfg, T._cdt(cfg))
+    body = T._remat(lambda h, lp: SSM.mamba2_residual(lp, h, cfg), cfg)
+    for lp in T._unstack(params["layers"], cfg.num_layers):
+        h = body(h, lp)
+    return (L.rmsnorm(params["ln_f"], h, cfg.norm_eps),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _ssm_loss(params, batch, cfg):
+    h, aux = _ssm_forward(params, batch, cfg)
+    loss = L.lm_loss(params["embed"], h, batch["targets"], cfg,
+                     batch.get("mask"))
+    return loss, {"loss": loss, "aux": aux}
 
 
 def _ssm_cache_decls(cfg, batch, cache_len):
@@ -90,6 +107,7 @@ def _ssm_decode(params, caches, batch, cfg):
 class Model:
     cfg: ModelConfig
     decls: Any
+    loss_fn: Callable
     prefill: Callable
     decode: Callable
     cache_decls_fn: Callable            # (batch, cache_len) -> decls
@@ -102,24 +120,28 @@ def build(cfg: ModelConfig) -> Model:
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         return Model(cfg=cfg, decls=T.decls_lm(cfg),
+                     loss_fn=lambda p, b: T.loss_fn(p, b, cfg),
                      prefill=lambda p, b: T.prefill(p, b, cfg),
                      decode=lambda p, c, b: T.decode_step(p, c, b, cfg),
                      cache_decls_fn=lambda batch, n: T.cache_decls(cfg, batch,
                                                                    n))
     if fam == "ssm":
         return Model(cfg=cfg, decls=_ssm_decls(cfg),
+                     loss_fn=lambda p, b: _ssm_loss(p, b, cfg),
                      prefill=lambda p, b: _ssm_prefill(p, b, cfg),
                      decode=lambda p, c, b: _ssm_decode(p, c, b, cfg),
                      cache_decls_fn=lambda batch, n: _ssm_cache_decls(
                          cfg, batch, n))
     if fam == "hybrid":
         return Model(cfg=cfg, decls=HY.decls_hybrid(cfg),
+                     loss_fn=lambda p, b: HY.loss_fn(p, b, cfg),
                      prefill=lambda p, b: HY.prefill(p, b, cfg),
                      decode=lambda p, c, b: HY.decode_step(p, c, b, cfg),
                      cache_decls_fn=lambda batch, n: HY.cache_decls(cfg, batch,
                                                                     n))
     if fam == "encdec":
         return Model(cfg=cfg, decls=ED.decls_encdec(cfg),
+                     loss_fn=lambda p, b: ED.loss_fn(p, b, cfg),
                      prefill=lambda p, b: ED.prefill(p, b, cfg),
                      decode=lambda p, c, b: ED.decode_step(p, c, b, cfg),
                      cache_decls_fn=lambda batch, n: ED.cache_decls(cfg, batch,

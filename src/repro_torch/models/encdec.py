@@ -1,7 +1,7 @@
 """Whisper-style encoder-decoder: declarations, encoder, block prefill and
 decode step.
 
-A port of ``src/repro/models/encdec.py`` (all but ``loss_fn``: training).
+A port of ``src/repro/models/encdec.py``.
 The conv/mel audio frontend is a stub in both packages: ``audio_embeds``
 are precomputed frame embeddings ``(B, encoder_seq, D)``.  The rest is the
 reference's: a bidirectional encoder, a causal decoder with cross
@@ -12,6 +12,7 @@ The encoder's self-attention runs ``flash_attention(causal=False)`` and the
 decoder prefill's runs it causal (``layers.attention_prefill``); the decode
 step's self-attention and all cross attention are plain torch.
 
+  loss_fn(params, {"audio_embeds", "tokens", "targets"}) -> (loss, metrics)
   encode(params, audio_embeds) -> encoder output (B, encoder_seq, D)
   prefill(params, {"audio_embeds", "tokens"}) -> (logits (B, V) f32,
                                                   {"k", "v", "xk", "xv"})
@@ -23,7 +24,8 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDecl, decl, stack_decls
-from repro_torch.models.transformer import _cdt, _layer, table_rows
+from repro_torch.models.transformer import (_cdt, _layer, _remat, _unstack,
+                                            table_rows)
 
 
 def decls_encdec(cfg):
@@ -63,14 +65,18 @@ def _mlp_residual(lp, h, cfg):
 
 
 def encode(params, audio_embeds, cfg):
-    """audio_embeds (B, S_enc, D), the stubbed frontend's output."""
+    """audio_embeds (B, S_enc, D), the stubbed frontend's output; the layer
+    body under ``cfg.remat`` when training."""
     h = audio_embeds.to(_cdt(cfg))
     h = h + params["pos_enc"].to(h.dtype)[None, :h.shape[1]]
-    for i in range(cfg.encoder_layers):
-        lp = _layer(params, i, "encoder")
+
+    def body(h, lp):
         h = h + L.attention(lp["attn"], _ln(lp["ln1"], h, cfg), cfg,
                             causal=False)
-        h = _mlp_residual(lp, h, cfg)
+        return _mlp_residual(lp, h, cfg)
+    body = _remat(body, cfg)
+    for lp in _unstack(params["encoder"], cfg.encoder_layers):
+        h = body(h, lp)
     return _ln(params["ln_enc"], h, cfg)
 
 
@@ -90,15 +96,29 @@ def _logits(params, h, cfg):
 
 
 def _decoder_fwd(params, tokens, enc_out, cfg):
-    """The teacher-forced decoder: final hidden states (B, S, D)."""
+    """The teacher-forced decoder: final hidden states (B, S, D); the
+    layer body under ``cfg.remat`` when training."""
     h = _embed_dec(params, tokens, cfg)
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i, "decoder")
+
+    def body(h, lp):
         h = h + L.attention(lp["attn"], _ln(lp["ln1"], h, cfg), cfg,
                             causal=True)
         h = _cross_residual(lp, h, L.cross_kv(lp["xattn"], enc_out, cfg), cfg)
-        h = _mlp_residual(lp, h, cfg)
+        return _mlp_residual(lp, h, cfg)
+    body = _remat(body, cfg)
+    for lp in _unstack(params["decoder"], cfg.num_layers):
+        h = body(h, lp)
     return _ln(params["ln_f"], h, cfg)
+
+
+def loss_fn(params, batch, cfg):
+    enc_out = encode(params, batch["audio_embeds"], cfg)
+    h = _decoder_fwd(params, batch["tokens"], enc_out, cfg)
+    loss = L.lm_loss(params["embed"], h, batch["targets"], cfg,
+                     batch.get("mask"))
+    return loss, {"loss": loss,
+                  "aux": torch.zeros((), dtype=torch.float32,
+                                     device=h.device)}
 
 
 def cache_decls(cfg, batch: int, cache_len: int):

@@ -6,8 +6,9 @@ grouping of the stack (``_groups``), the same pre-RMSNorm shared block on
 the running hidden state, one KV cache per application of it.  JAX's scan
 over a group's layers is a Python loop over the layer index.  The shared
 block's prefill attention is the ``flash_attention`` kernel
-(``layers.attention_prefill``); ``forward`` and ``loss_fn`` (training) are
-not ported.
+(``layers.attention_prefill``).  ``forward`` and ``loss_fn`` (training) run
+the Mamba layers under ``cfg.remat`` and the shared block as it is, as in
+JAX.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamDecl, stack_decls
-from repro_torch.models.transformer import _cdt, _layer, _logits
+from repro_torch.models.transformer import (_cdt, _layer, _logits, _remat,
+                                            _unstack)
 
 
 def n_attn_blocks(cfg) -> int:
@@ -68,6 +70,34 @@ def cache_decls(cfg, batch: int, cache_len: int):
 
 def _shared_mlp(sp, h, cfg):
     return h + L.mlp(sp["mlp"], L.rmsnorm(sp["ln2"], h, cfg.norm_eps), cfg)
+
+
+def forward(params, batch, cfg):
+    """tokens → final hidden states (B, S, D) and aux 0 (f32)."""
+    h = L.embed(params["embed"], batch["tokens"], cfg, _cdt(cfg))
+    B, Ssz, _ = h.shape
+    positions = torch.arange(Ssz, dtype=torch.int32,
+                             device=h.device)[None].expand(B, Ssz)
+    body = _remat(lambda h, lp: S.mamba2_residual(lp, h, cfg), cfg)
+    layers = _unstack(params["mamba"], cfg.num_layers)
+    for (start, size, has_attn) in _groups(cfg):
+        for i in range(start, start + size):
+            h = body(h, layers[i])
+        if has_attn:
+            sp = params["shared"]
+            h = h + L.attention(sp["attn"],
+                                L.rmsnorm(sp["ln1"], h, cfg.norm_eps), cfg,
+                                positions)
+            h = _shared_mlp(sp, h, cfg)
+    return (L.rmsnorm(params["ln_f"], h, cfg.norm_eps),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def loss_fn(params, batch, cfg):
+    h, aux = forward(params, batch, cfg)
+    loss = L.lm_loss(params["embed"], h, batch["targets"], cfg,
+                     batch.get("mask"))
+    return loss, {"loss": loss, "aux": aux}
 
 
 def prefill(params, batch, cfg):

@@ -13,13 +13,19 @@ against the KV cache and cross attention against an encoder's k/v are plain
 torch, as the JAX package's are jnp outside any Pallas kernel (its kernel
 takes only Sq = Skv, and so does the port's).
 
-Not ported: the loss (training); ``constrain`` (sharding hints) has nothing
-to do on one card.
+Training: ``attention`` is differentiable (``flash_attention`` goes through
+its ``torch.autograd.Function`` when an input requires grad: the forward
+kernel, then the hand-written backward kernel), and the loss is
+``lm_loss`` over ``softmax_xent``, chunked over the sequence with one
+``torch.utils.checkpoint`` a chunk where ``cfg.loss_chunk`` asks (JAX's
+``jax.checkpoint``).  ``constrain`` (sharding hints) has nothing to do on
+one card.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.params import decl
@@ -298,3 +304,57 @@ def unembed_matrix(p, cfg, dtype):
     if cfg.tie_embeddings:
         return p["tok"].to(dtype).T
     return p["out"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss: cross-entropy over the unembedding, chunked over the sequence
+# ---------------------------------------------------------------------------
+
+def _nll(logits, targets):
+    """Each token's negative log-likelihood in f32: lse - gold."""
+    logits = logits.float()
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def softmax_xent(logits, targets, mask=None):
+    """logits (..., V); targets (...) int; the mean negative log-likelihood
+    over valid tokens, in f32."""
+    nll = _nll(logits, targets)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _chunk_nll(hc, W, tc, mc):
+    """One chunk's (sum of nll, token count) in f32."""
+    nll = _nll(hc @ W, tc)
+    if mc is None:
+        return torch.sum(nll), torch.tensor(float(nll.numel()),
+                                            dtype=torch.float32,
+                                            device=nll.device)
+    return torch.sum(nll * mc), torch.sum(mc)
+
+
+def lm_loss(p_emb, h, targets, cfg, mask=None):
+    """Final hidden states (B, S, D) → the mean cross-entropy.  With
+    ``cfg.loss_chunk`` > 0 dividing S (and below it), the sequence is cut
+    into chunks whose logits are recomputed in the backward
+    (``torch.utils.checkpoint`` a chunk, JAX's ``jax.checkpoint``), so only
+    (B, loss_chunk, V) logits live at a time; the sums add chunk by chunk
+    in order, as JAX's scan does."""
+    W = unembed_matrix(p_emb, cfg, h.dtype)                   # (D, V)
+    B, S, _ = h.shape
+    chunk = cfg.loss_chunk
+    if not chunk or S <= chunk or S % chunk != 0:
+        return softmax_xent(h @ W, targets, mask)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        s, n = checkpoint(_chunk_nll, h[:, sl], W, targets[:, sl],
+                          None if mask is None else mask[:, sl],
+                          use_reentrant=False)
+        tot = tot + s
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

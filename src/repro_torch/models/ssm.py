@@ -157,6 +157,13 @@ def mamba2_block(p, h, cfg):
     return mamba2_prefill(p, h, cfg)[0]
 
 
+def mamba2_residual(lp, h, cfg):
+    """One layer of a Mamba2 stack over a whole sequence (training):
+    h + block(rmsnorm(h))."""
+    return h + mamba2_block(lp["block"], rmsnorm(lp["ln"], h, cfg.norm_eps),
+                            cfg)
+
+
 def mamba2_residual_prefill(lp, h, cfg):
     """One layer of a Mamba2 stack over the prompt: ``lp`` holds ``ln``
     and ``block``.  Returns (h + block(rmsnorm(h)), final state, conv

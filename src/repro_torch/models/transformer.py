@@ -1,14 +1,24 @@
-"""Decoder-only LM (dense, MoE and VLM): declarations, block prefill and
-decode step.
+"""Decoder-only LM (dense, MoE and VLM): declarations, forward and loss,
+block prefill and decode step.
 
-A port of the serving half of ``src/repro/models/transformer.py``.  The
+A port of ``src/repro/models/transformer.py``.  The
 per-layer declarations are stacked with a leading layer axis, as in JAX,
 so parameters carry over by name (``models/convert.py``); JAX's
 ``lax.scan`` over that axis is a Python loop over the layer index here.
 A layer's MLP is ``moe.moe_mlp`` where the config has experts.
 
+  loss_fn(params, batch) -> (loss + 0.01 aux, {"loss", "aux"})  [training]
   prefill(params, batch) -> (last-token logits (B, V) f32, {"k", "v"})
   decode_step(params, caches, batch) -> (logits (B, V) f32, caches)
+
+Training (``forward``) unbinds each stacked leaf once (``_unstack``: its
+backward stacks the layers' gradients once, where indexing ``a[i]`` per
+layer would allocate a zero gradient of the whole stack per layer and
+leaf) and applies ``cfg.remat`` to the layer body (``_remat``): ``"full"``
+a non-reentrant ``torch.utils.checkpoint`` a layer, ``"dots"`` a selective
+one that keeps the outputs of the matrix products (``aten.mm``, ``addmm``,
+``bmm``) and recomputes the rest, attention (the flash kernel) included:
+JAX's ``dots_with_no_batch_dims_saveable``.
 
 The VLM (Qwen2-VL) is this model with M-RoPE: its prefill takes
 ``vision_embeds (B, VP, D)``, precomputed patch embeddings (the vision
@@ -20,10 +30,12 @@ row per position.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.moe import decls_moe, moe_mlp
-from repro_torch.models.params import ParamDecl, decl, stack_decls, tree_map
+from repro_torch.models.params import (ParamDecl, decl, leaves, stack_decls,
+                                       tree_map, unflatten)
 
 
 def decls_layer(cfg):
@@ -83,6 +95,44 @@ def _layer(params, i, stack: str = "layers"):
     return tree_map(lambda a: a[i], params[stack])
 
 
+def _unstack(stacked, n: int):
+    """The ``n`` layers' parameter trees of a stacked tree, each leaf
+    unbound once along its layer axis (for training)."""
+    cols = [a.unbind(0) for a in leaves(stacked)]
+    return [unflatten(stacked, [c[i] for c in cols]) for i in range(n)]
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots():
+    """Selective-checkpoint contexts that keep the matrix products'
+    outputs and recompute every other op."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat(fn, cfg):
+    """``fn`` under ``cfg.remat`` (``"none"``, ``"full"`` or ``"dots"``),
+    as JAX's ``_remat``; with grad disabled (serving) ``fn`` runs as it
+    is."""
+    if cfg.remat not in ("full", "dots"):
+        return fn
+    extra = {"context_fn": _save_dots} if cfg.remat == "dots" else {}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **extra)
+    return run
+
+
 def _mlp_residual(lp, h, cfg):
     hn = L.rmsnorm(lp["ln2"], h, cfg.norm_eps)
     m = (moe_mlp(lp["moe"], hn, cfg)[0] if cfg.is_moe
@@ -94,6 +144,37 @@ def _logits(params, h, cfg):
     h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
     W = L.unembed_matrix(params["embed"], cfg, h.dtype)
     return (h @ W).float()
+
+
+def forward(params, batch, cfg):
+    """tokens → final hidden states (B, S, D) and the summed MoE auxiliary
+    loss (f32; 0 for a dense model)."""
+    h = _embed_input(params, batch, cfg)
+    B, S, _ = h.shape
+    positions = _positions(batch, cfg, B, S, h.device)
+
+    def body(h, aux, lp):
+        h = h + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                            cfg, positions)
+        hn = L.rmsnorm(lp["ln2"], h, cfg.norm_eps)
+        if cfg.is_moe:
+            m, a = moe_mlp(lp["moe"], hn, cfg)
+            return h + m, aux + a
+        return h + L.mlp(lp["mlp"], hn, cfg), aux
+
+    body = _remat(body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lp in _unstack(params["layers"], cfg.num_layers):
+        h, aux = body(h, aux, lp)
+    return L.rmsnorm(params["ln_f"], h, cfg.norm_eps), aux
+
+
+def loss_fn(params, batch, cfg):
+    """The training loss: (loss + 0.01 aux, {"loss", "aux"})."""
+    h, aux = forward(params, batch, cfg)
+    loss = L.lm_loss(params["embed"], h, batch["targets"], cfg,
+                     batch.get("mask"))
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def cache_decls(cfg, batch: int, cache_len: int):

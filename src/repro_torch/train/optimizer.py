@@ -1,52 +1,235 @@
-"""Functional AdamW, as the JAX package's ``train/optimizer.py:make_adamw``.
+"""Optimizers with the JAX package's arithmetic (``train/optimizer.py``):
+AdamW, Adafactor, SGD with momentum and Lion, and ``get_optimizer``.
 
-Not ``torch.optim.AdamW``: this one keeps the JAX package's b2 = 0.95,
-adds eps OUTSIDE ``sqrt(v / bc2)``, counts steps as an integer and works on
-parameter trees (dicts and lists of tensors), returning updates rather
-than writing into the parameters.
+Not ``torch.optim``: these keep the JAX package's constants and
+expressions (AdamW's b2 = 0.95 and eps OUTSIDE ``sqrt(v / bc2)``, bias
+corrections in f32, Adafactor's factored second moment and update-RMS
+clip), f32 state, an integer step ``count``, and work on parameter trees
+(dicts and lists of tensors) whose state mirrors the tree by name, as the
+checkpoint format needs.
+
+Every optimizer has ``update_(grads, state, params, lr)``, in place: each
+leaf's state and parameter are written where they lie, under
+``torch.no_grad()``, and ``grads`` (a list in ``leaves`` order) gives up
+each gradient once it is used.  This is what JAX's donated ``jit``
+(``donate_argnums=(0, 1)``) does for the LM step: no second copy of the
+state or the parameters.  An elementwise update runs on flat slices of at
+most ``SLICE`` elements to bound its temporaries.
+
+AdamW also keeps the JAX package's functional form, ``update(grads, state,
+params, lr)`` → (updates, new_state), which the GNN trainers use; its
+``update_`` gives the same numbers bit for bit on the CPU (the same
+operations in the same order).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.models.params import leaves, unflatten
 
+SLICE = 1 << 26    # elements of one slice of an elementwise in-place update
+
 
 class Optimizer(NamedTuple):
     name: str
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, Any], Tuple[Any, Any]]
+    update_: Callable[[List[Optional[torch.Tensor]], Any, Any, Any], None]
+    # the functional form (AdamW only)
+    update: Optional[Callable[[Any, Any, Any, Any], Tuple[Any, Any]]] = None
 
+
+def _zeros(params):
+    return unflatten(params, [torch.zeros_like(p, dtype=torch.float32)
+                              for p in leaves(params)])
+
+
+def _slices(*ts):
+    """Aligned flat slices of at most ``SLICE`` elements of same-shaped
+    contiguous tensors."""
+    flat = [t.view(-1) for t in ts]
+    n = flat[0].numel()
+    for i in range(0, n, SLICE):
+        yield [f[i:i + SLICE] for f in flat]
+
+
+def _each_leaf(grads, states, params, fn):
+    """``fn(g, *state_leaves, p)`` leaf by leaf under no_grad, each
+    gradient dropped from ``grads`` once used."""
+    p_l = leaves(params)
+    with torch.no_grad():
+        for i, p in enumerate(p_l):
+            fn(grads[i], *(s[i] for s in states), p)
+            grads[i] = None
+
+
+def _bias_corrections(b1, b2, c, dev):
+    """``1 - b ** count`` in f32, as the JAX package computes them."""
+    cf = torch.tensor(float(c), dtype=torch.float32, device=dev)
+    return (1 - torch.tensor(b1, dtype=torch.float32, device=dev) ** cf,
+            1 - torch.tensor(b2, dtype=torch.float32, device=dev) ** cf)
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
 
 def make_adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
     def init(params):
-        zeros = [torch.zeros_like(p, dtype=torch.float32) for p in leaves(params)]
-        return {"m": unflatten(params, zeros),
-                "v": unflatten(params, [z.clone() for z in zeros]),
-                "count": 0}
+        return {"m": _zeros(params), "v": _zeros(params), "count": 0}
+
+    def step(m, v, p, bc1, bc2, lr):
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        if weight_decay:
+            u = u + weight_decay * p.float()
+        return (-lr * u).to(p.dtype)
 
     def update(grads, state, params, lr):
         c = state["count"] + 1
         p_l, g_l = leaves(params), leaves(grads)
-        dev = p_l[0].device
-        # bias corrections in float32, as the JAX package computes them
-        cf = torch.tensor(float(c), dtype=torch.float32, device=dev)
-        bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=dev) ** cf
-        bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=dev) ** cf
+        bc1, bc2 = _bias_corrections(b1, b2, c, p_l[0].device)
         m = [b1 * m + (1 - b1) * g.float()
              for m, g in zip(leaves(state["m"]), g_l)]
         v = [b2 * v + (1 - b2) * torch.square(g.float())
              for v, g in zip(leaves(state["v"]), g_l)]
-        updates = []
-        for m_, v_, p in zip(m, v, p_l):
-            u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
-            if weight_decay:
-                u = u + weight_decay * p.float()
-            updates.append((-lr * u).to(p.dtype))
+        updates = [step(m_, v_, p, bc1, bc2, lr)
+                   for m_, v_, p in zip(m, v, p_l)]
         return (unflatten(params, updates),
                 {"m": unflatten(params, m), "v": unflatten(params, v),
                  "count": c})
 
-    return Optimizer("adamw", init, update)
+    def update_(grads, state, params, lr):
+        c = state["count"] + 1
+        bc1, bc2 = _bias_corrections(b1, b2, c, leaves(params)[0].device)
+
+        def one(g, m, v, p):
+            for gs, ms, vs, ps in _slices(g, m, v, p):
+                g32 = gs.float()
+                ms.mul_(b1).add_((1 - b1) * g32)
+                vs.mul_(b2).add_((1 - b2) * torch.square(g32))
+                ps.add_(step(ms, vs, ps, bc1, bc2, lr))
+        _each_leaf(grads, (leaves(state["m"]), leaves(state["v"])), params,
+                   one)
+        state["count"] = c
+
+    return Optimizer("adamw", init, update_, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment; no first moment)
+# ---------------------------------------------------------------------------
+
+def _factored(p) -> bool:
+    return p.dim() >= 2 and p.shape[-1] > 1 and p.shape[-2] > 1
+
+
+def _per_leaf(params, tree):
+    """The subtrees of ``tree`` at ``params``' leaves, in ``leaves`` order
+    (Adafactor's state holds a dict at each parameter's place)."""
+    if isinstance(params, dict):
+        return [x for k in sorted(params) for x in _per_leaf(params[k], tree[k])]
+    if isinstance(params, (list, tuple)):
+        return [x for p, t in zip(params, tree) for x in _per_leaf(p, t)]
+    return [tree]
+
+
+def make_adafactor(b2=0.99, eps=1e-30, clip_rms=1.0) -> Optimizer:
+    def init(params):
+        def one(p):
+            if _factored(p):
+                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                          device=p.device),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                          dtype=torch.float32,
+                                          device=p.device)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+        return {"fac": unflatten(params, [one(p) for p in leaves(params)]),
+                "count": 0}
+
+    def step(s, g, p, lr):
+        """One leaf: (update, new state)."""
+        g32 = g.float()
+        g2 = torch.square(g32) + eps
+        if "vr" in s:
+            vr = b2 * s["vr"] + (1 - b2) * g2.mean(-1)
+            vc = b2 * s["vc"] + (1 - b2) * g2.mean(-2)
+            rfac = vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+            denom = torch.sqrt(rfac[..., None] * vc[..., None, :])
+            u = g32 / torch.clamp(denom, min=eps)
+            new_s = {"vr": vr, "vc": vc}
+        else:
+            v = b2 * s["v"] + (1 - b2) * g2
+            u = g32 / (torch.sqrt(v) + 1e-8)
+            new_s = {"v": v}
+        # update-RMS clipping (Adafactor's d = 1.0 rule)
+        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+        u = u / torch.clamp(rms / clip_rms, min=1.0)
+        return (-lr * u).to(p.dtype), new_s
+
+    def update_(grads, state, params, lr):
+        def one(g, s, p):
+            u, new_s = step(s, g, p, lr)
+            for k, t in new_s.items():
+                s[k].copy_(t)
+            p.add_(u)
+        _each_leaf(grads, (_per_leaf(params, state["fac"]),), params, one)
+        state["count"] += 1
+
+    return Optimizer("adafactor", init, update_)
+
+
+# ---------------------------------------------------------------------------
+# SGD (+momentum), Lion
+# ---------------------------------------------------------------------------
+
+def make_sgd(momentum=0.9) -> Optimizer:
+    def init(params):
+        return {"mu": _zeros(params), "count": 0}
+
+    def update_(grads, state, params, lr):
+        def one(g, mu, p):
+            for gs, ms, ps in _slices(g, mu, p):
+                ms.mul_(momentum).add_(gs.float())
+                ps.add_((-lr * ms).to(p.dtype))
+        _each_leaf(grads, (leaves(state["mu"]),), params, one)
+        state["count"] += 1
+
+    return Optimizer("sgd", init, update_)
+
+
+def make_lion(b1=0.9, b2=0.99, weight_decay=0.0) -> Optimizer:
+    def init(params):
+        return {"m": _zeros(params), "count": 0}
+
+    def step(m, g32, p, lr):
+        u = torch.sign(b1 * m + (1 - b1) * g32)
+        if weight_decay:
+            u = u + weight_decay * p.float()
+        return (-lr * u).to(p.dtype)
+
+    def update_(grads, state, params, lr):
+        def one(g, m, p):
+            for gs, ms, ps in _slices(g, m, p):
+                g32 = gs.float()
+                u = step(ms, g32, ps, lr)
+                ms.mul_(b2).add_((1 - b2) * g32)
+                ps.add_(u)
+        _each_leaf(grads, (leaves(state["m"]),), params, one)
+        state["count"] += 1
+
+    return Optimizer("lion", init, update_)
+
+
+def get_optimizer(cfg) -> Optimizer:
+    name = getattr(cfg, "optimizer", "adamw")
+    wd = getattr(cfg, "weight_decay", 0.0)
+    if name == "adamw":
+        return make_adamw(weight_decay=wd)
+    if name == "adafactor":
+        return make_adafactor()
+    if name == "sgd":
+        return make_sgd()
+    if name == "lion":
+        return make_lion(weight_decay=wd)
+    raise ValueError(f"unknown optimizer {name!r}")

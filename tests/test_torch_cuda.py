@@ -1273,3 +1273,157 @@ def test_fabric_chaos_on_the_card_matches_the_cpu(card):
         assert r.pred == done[r.rid].pred
         np.testing.assert_allclose(r.logits, done[r.rid].logits, atol=1e-4,
                                    rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention's backward kernel and LM training
+# ---------------------------------------------------------------------------
+
+# every head width the card takes (8 and 112 on the 16- and 128-wide
+# templates), causal and full, GQA groups of 1 to 4, ragged lengths, a
+# single row, and the llama3.2-3b train step's own shape
+FLASH_BWD_SHAPES = [(2, 37, 4, 2, 8, True), (1, 200, 4, 4, 8, False),
+                    (2, 130, 4, 1, 16, True), (1, 64, 2, 2, 16, False),
+                    (2, 65, 6, 2, 32, True), (1, 300, 4, 4, 32, False),
+                    (2, 129, 8, 2, 64, True), (2, 1500, 4, 4, 64, False),
+                    (1, 257, 8, 2, 112, True), (1, 300, 4, 2, 112, False),
+                    (1, 1, 2, 1, 128, True), (2, 1000, 8, 2, 128, True),
+                    (1, 256, 4, 4, 128, False), (8, 128, 24, 8, 128, True)]
+
+
+def _bwd_case(shape, dtype, device, seed=0):
+    from repro_torch.kernels.flash_attention.ops import _forward
+    B, S, H, Hkv, Dh, causal = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(s, generator=g).to(device, dtype)
+                   for s in ((B, S, H, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh),
+                             (B, S, H, Dh)))
+    o, lse = _forward(q, k, v, causal, with_lse=True)
+    return q, k, v, o, lse, do, causal
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_backward_kernel_matches_plain(card, shape, dtype):
+    """f32: within 1e-5 of the largest gradient entry of the plain version
+    on the same inputs; bf16: each gradient's error against an f64
+    reference no worse than twice the plain version's own, rounded to bf16
+    (the kernel sums in f32 and rounds once)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    args = _bwd_case(shape, dtype, card)
+    launches = flash_attention_bwd.launches
+    got = flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == launches + 1
+    q, k, v, o, lse, do, causal = args
+    plain = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o)), lse,
+                                    do.float(), causal)
+    exact = flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o)),
+                                    lse.double(), do.double(), causal)
+    top = max(float(w.abs().max()) for w in plain)
+    for g, p, e in zip(got, plain, exact):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        if dtype == torch.float32:
+            assert float((g - p).abs().max()) <= 1e-5 * top
+        else:
+            own = float((p.to(dtype).double() - e).abs().max())
+            assert float((g.double() - e).abs().max()) <= 2 * own + 1e-6 * top
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(card, dtype):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    args = _bwd_case((8, 128, 24, 8, 128, True), dtype, card)
+    first, second = flash_attention_bwd(*args), flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4096, 24, 8, 128, True),
+                                   (1, 257, 8, 2, 112, False),
+                                   (2, 130, 8, 2, 8, True)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_forward_output_is_the_same_with_the_lse(card, shape, dtype):
+    from repro_torch.kernels.flash_attention.ops import _forward
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    *dims, causal = shape
+    q, k, v = _flash_inputs(*dims, dtype, card)
+    plain = _forward(q, k, v, causal, with_lse=False)
+    out, lse = _forward(q, k, v, causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, out)
+    _, want = flash_attention_ref(q.float(), k.float(), v.float(), causal,
+                                  with_lse=True)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
+
+
+def test_flash_attention_function_on_card_matches_cpu(card):
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
+    q, k, v = _flash_inputs(2, 130, 8, 2, 64, torch.float32, "cpu")
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for dev in ("cpu", card):
+        ins = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        out = flash_attention(*ins, causal=True)
+        grads[dev] = torch.autograd.grad(out, ins, do.to(dev))
+        after = (flash_attention.launches, flash_attention_bwd.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == \
+            ((1, 1) if dev == card else (0, 0))
+    for g, w in zip(grads[card], grads["cpu"]):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-5)
+
+
+TRAIN_ARCHS = ["qwen3-4b", "llama3.2-3b", "qwen2-moe-a2.7b", "mamba2-1.3b",
+               "zamba2-7b", "whisper-medium"]
+
+
+def _lm_batch(cfg, device, B=2, S=32):
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                            generator=g)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_lm_train_step_on_card_matches_cpu(card, arch):
+    """One f32 smoke train step (remat "dots") on the card, through the
+    flash kernels forward and backward, against the same step on the CPU:
+    loss and gradient norm within rel 1e-4; every parameter's gradient
+    within 1e-4 of its largest entry (one backward on each device)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.models.api import build
+    from repro_torch.models.params import leaves, unflatten
+    from repro_torch.train.trainer import make_train_step
+    cfg = get_config(arch, smoke=True).replace(compute_dtype="float32",
+                                               remat="dots")
+    model = build(cfg)
+    params = {dev: _fan_in_params(model, dev) for dev in ("cpu", card)}
+    grads, metrics = {}, {}
+    for dev in ("cpu", card):
+        p_l = [p.clone().requires_grad_() for p in leaves(params[dev])]
+        before = flash_attention_bwd.launches
+        loss, _ = model.loss_fn(unflatten(params[dev], p_l),
+                                _lm_batch(cfg, dev))
+        grads[dev] = torch.autograd.grad(loss, p_l, allow_unused=True)
+        if dev == card and cfg.family != "ssm":
+            assert flash_attention_bwd.launches > before
+        step, opt = make_train_step(model, cfg)
+        state = opt.init(params[dev])
+        _, _, metrics[dev] = step(params[dev], state, _lm_batch(cfg, dev))
+    for key in ("loss", "grad_norm"):
+        want = float(metrics["cpu"][key])
+        assert abs(float(metrics[card][key]) - want) <= 1e-4 * abs(want)
+    for g, w in zip(grads[card], grads["cpu"]):
+        assert g is not None and bool(torch.isfinite(g).all())
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max()) + 1e-12

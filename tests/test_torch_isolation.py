@@ -54,7 +54,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "configs.qwen2_moe_a2_7b", "configs.kimi_k2_1t_a32b",
                  "configs.mamba2_1_3b", "configs.zamba2_7b",
                  "models.encdec", "configs.whisper_medium",
-                 "configs.qwen2_vl_2b"):
+                 "configs.qwen2_vl_2b", "train.optimizer", "train.trainer",
+                 "train.data"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["leaked"] == []
 

@@ -197,10 +197,12 @@ def test_launch_train_runs_the_slice_on_cpu(capsys):
     ["--arch", "qwen3-4b", "--smoke", "--device", "cpu", "--autotune"],
     ["--arch", "qwen3-4b", "--smoke", "--device", "cpu"],
 ])
-def test_unported_branches_refuse(argv):
-    # LM training, tuned or not, is not ported
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(argv)
+def test_unported_branches_refuse(argv, tmp_path, capsys):
+    # these branches refused until LM training was ported; now an LM arch
+    # takes the LM path whatever the GNN flags say, as in the JAX launcher
+    assert main(argv + ["--steps", "2", "--ckpt-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "step 1: loss=" in out and "[result] 2 steps in" in out
 
 
 def test_launch_train_autotune_runs_on_cpu(capsys):

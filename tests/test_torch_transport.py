@@ -18,6 +18,7 @@ Two halves:
     1e-9) and logits within atol 1e-5.  The virtual clock makes dispatch
     a function of the schedule alone, so any difference is the port's.
 """
+import copy
 from types import SimpleNamespace
 
 import jax
@@ -26,6 +27,7 @@ import pytest
 
 from repro.core.a3gnn import A3GNNTrainer as JxTrainer
 from repro.graph.partition import plan_partitions as jx_plan
+from repro.graph.synthetic import dataset_like as jx_dataset_like
 from repro.serve import transport as jx_transport
 from repro.serve.fabric import ServingFabric as JxFabric
 from repro.serve.gnn_engine import GNNRequest as JxRequest
@@ -411,8 +413,18 @@ SCHEDULES = {
 }
 
 
+def _twin_graphs(cfg_j, cfg_t):
+    """The JAX graph and the port's, each built from seed 0 here: the
+    session ``smoke_graph`` is shared with tests that change its features
+    in place, so the twins never borrow it."""
+    graph_j = jx_dataset_like(cfg_j, seed=0)
+    graph_t = dataset_like(cfg_t, seed=0)
+    assert np.array_equal(graph_t.features, graph_j.features)
+    return graph_j, graph_t
+
+
 @pytest.fixture(scope="module")
-def twins(smoke_graph):
+def twins():
     """The JAX smoke graph and trainer parameters, the port's graph from
     the same seed and those parameters carried across.  The default smoke
     fanout (5, 5) samples, so the trace also holds every replica's sampler
@@ -420,13 +432,26 @@ def twins(smoke_graph):
     from repro.configs.gnn import gnn_config as jx_gnn_config
     cfg_j = jx_gnn_config("products", smoke=True, sampling_device="device")
     cfg_t = gnn_config("products", smoke=True, sampling_device="device")
-    params_j = JxTrainer(smoke_graph, cfg_j, seed=0).params
-    graph_t = dataset_like(cfg_t, seed=0)
-    assert np.array_equal(graph_t.features, smoke_graph.features)
+    graph_j, graph_t = _twin_graphs(cfg_j, cfg_t)
+    params_j = JxTrainer(graph_j, cfg_j, seed=0).params
     params_t = params_from_jax(jax.tree.map(np.asarray, params_j), "cpu")
-    return SimpleNamespace(cfg_j=cfg_j, cfg_t=cfg_t, graph_j=smoke_graph,
+    return SimpleNamespace(cfg_j=cfg_j, cfg_t=cfg_t, graph_j=graph_j,
                            graph_t=graph_t, params_j=params_j,
                            params_t=params_t)
+
+
+def test_twins_ignore_a_changed_session_graph(smoke_graph):
+    """A session graph whose features another test changed (here a copy,
+    changed) does not reach the twins: their equality check still holds."""
+    from repro.configs.gnn import gnn_config as jx_gnn_config
+    changed = copy.copy(smoke_graph)
+    changed.features = smoke_graph.features + 1.0
+    cfg_j = jx_gnn_config("products", smoke=True, sampling_device="device")
+    cfg_t = gnn_config("products", smoke=True, sampling_device="device")
+    graph_j, graph_t = _twin_graphs(cfg_j, cfg_t)
+    assert graph_j is not smoke_graph
+    assert not np.array_equal(changed.features, graph_j.features)
+    assert np.array_equal(graph_t.features, graph_j.features)
 
 
 def _run_twin(fabric_cls, req_cls, tmod, graph, plan, cfg, params, nodes,
