@@ -18,7 +18,9 @@ Phases; any failure exits non-zero:
    kernel spills, or if the backward or a reservoir kernel adds a float
    atomically; the same for the ``flash_attention`` backward's kernels
    (``csrc/flash_attention_bwd.cu``: registers, spills, shared memory,
-   SASS atomics; fails on a spill or a float atomic); a machine with no
+   SASS atomics, and each bf16 instance's HGMMA count and highest
+   register; fails on a spill or a float atomic, or if the bf16 Dh=128
+   ``dq`` or ``dkv`` kernel has no HGMMA); a machine with no
    ``cuobjdump`` gets a line saying so;
 2. cache_gather — call the wrapper at the shapes the serving path gives
    it (its 4,096- and 128-row chunks among them), hold the result bit-exact
@@ -49,8 +51,9 @@ Phases; any failure exits non-zero:
    forwards' means and sums bit-equal to the reference order written out,
    and every output bit-equal to the parent commit's kernels (built from
    ``git show HEAD~1``, or from ``--parent-source``: a directory holding
-   its ``segment_agg.cu``, ``fused_gather_agg.cu`` and ``reservoir.cu``, or
-   its checkout root, or the three files);
+   its ``segment_agg.cu``, ``fused_gather_agg.cu``, ``reservoir.cu``,
+   ``flash_attention.cu`` and ``flash_attention_bwd.cu`` (and any
+   ``*.cuh`` they include), or its checkout root, or the files);
    each hop's segment lengths printed; each timed as in phase 2, with
    ``F.embedding_bag`` as the yardstick of ``neighbor_agg``, in turns
    with the parent's kernel (parent, kernel, kernel, parent), and each
@@ -203,7 +206,9 @@ Phases; any failure exits non-zero:
    embeddings), qwen2-vl's engine's first token against the prefill's
    argmax, whisper's engine's greedy streams on the card against the same
    engine's on the CPU (the engine never encodes);
-14. LM training at full width and full depth — (a) the
+14. LM training at full width and full depth — (a) the forward's ``O``
+   and log-sum-exp bit-equal to the parent commit's kernel at the
+   llama3.2-3b and qwen3-4b prefills (bf16 causal); the
    ``flash_attention`` backward kernel alone: at every head width, causal
    and full, GQA and ragged lengths, f32 and bf16, the forward's ``O``
    and log-sum-exp held first against ``flash_attention_ref`` (``O`` by
@@ -215,9 +220,11 @@ Phases; any failure exits non-zero:
    f64 autograd witness), run twice bit-equal, the forward's ``O``
    bit-equal with and without its log-sum-exp; timed (as phase 2) at
    llama3.2-3b's prefill (2, 4096, 24, 8, 128) and at the train step's
-   (8, 128, 24, 8, 128), bf16 causal, beside the plain version, SDPA's
-   backward (forward + backward less the forward) and the bound (2.5 x
-   the forward's FLOP); (b) ``repro_torch.launch.train --arch
+   (8, 128, 24, 8, 128), bf16 causal, in turns with the parent commit's
+   kernel (parent, kernel, kernel, parent), beside the plain version,
+   SDPA's backward (forward + backward less the forward) and the bound
+   (2.5 x the forward's FLOP), each with its TFLOP/s and share of the
+   bound; (b) ``repro_torch.launch.train --arch
    llama3.2-3b --steps 6 --batch 8 --seq 128 --workers 2`` through
    ``run_lm`` (seeded f32 masters on the card, AdamW updated in place,
    remat "dots", checkpoints at steps 2, 4 and 6, keep 2, asynchronous),
@@ -233,7 +240,8 @@ Phases; any failure exits non-zero:
    steps, and step 6 read back and compared leaf by leaf with the run's
    final state; (c) the first step's 28 calls held in situ as in (a);
    (d) two more steps, one with a ``grad_transform`` that fails on a
-   non-finite gradient, one profiled (device busy, idle share); (e) a
+   non-finite gradient, one profiled (device busy, idle share, the
+   backward kernels' device time in the step); (e) a
    full-width llama3.2-3b cut to 2 layers in f32: loss and every gradient
    through the kernels against the same through the plain attention on
    the card, within 1e-4 with the attention weights at their whole
@@ -948,42 +956,60 @@ def _bag_inputs(torch, idx, h):
     return bag, torch.cat([h, torch.zeros_like(h[:1])])
 
 
-PARENT_SOURCES = ("segment_agg.cu", "fused_gather_agg.cu", "reservoir.cu")
+PARENT_SOURCES = ("segment_agg.cu", "fused_gather_agg.cu", "reservoir.cu",
+                  "flash_attention.cu", "flash_attention_bwd.cu")
+PARENT_CSRC = "src/repro_torch/kernels/csrc"
 
 
 def _parent_paths(source: list) -> dict:
     """The parent's kernel sources named by ``--parent-source``: a
     directory that holds them (or a checkout root, with them under
-    ``src/repro_torch/kernels/csrc/``), or the files themselves."""
+    ``src/repro_torch/kernels/csrc/``), or the files themselves; with the
+    headers (``*.cuh``) beside them, which the sources may include."""
     paths = [Path(x) for x in source]
     if len(paths) == 1 and paths[0].is_dir():
-        for where in (paths[0], paths[0] / "src/repro_torch/kernels/csrc"):
+        for where in (paths[0], paths[0] / PARENT_CSRC):
             found = {n: where / n for n in PARENT_SOURCES}
             if all(x.is_file() for x in found.values()):
-                return found
+                return {**found, **{x.name: x for x in where.glob("*.cuh")}}
         fail(f"--parent-source {paths[0]} holds no {' and '.join(PARENT_SOURCES)}")
     found = {x.name: x for x in paths}
-    if sorted(found) != sorted(PARENT_SOURCES) or not all(
-            x.is_file() for x in found.values()):
+    if sorted(n for n in found if not n.endswith(".cuh")) != sorted(
+            PARENT_SOURCES) or not all(x.is_file() for x in found.values()):
         fail(f"--parent-source names a directory or the files "
-             f"{' and '.join(PARENT_SOURCES)}, not {source}")
+             f"{' and '.join(PARENT_SOURCES)} (and any headers), not {source}")
     return found
+
+
+def _git_parent(name: str):
+    """``git show HEAD~1:<csrc>/<name>`` of this checkout, or None."""
+    try:
+        got = subprocess.run(["git", "-C", str(ROOT), "show",
+                              f"HEAD~1:{PARENT_CSRC}/{name}"],
+                             capture_output=True, text=True, timeout=60)
+    except FileNotFoundError:
+        return None
+    return got.stdout if got.returncode == 0 else None
 
 
 def parent_kernels(torch, source):
     """The parent commit's ``neighbor_agg`` (forward and backward),
-    ``gather_aggregate`` and ``reservoir_topm``, built from
-    ``csrc/segment_agg.cu``, ``csrc/fused_gather_agg.cu`` and
-    ``csrc/reservoir.cu`` as ``git show HEAD~1`` gives them (or as
-    ``source``, the ``--parent-source`` list, names them) into
+    ``gather_aggregate``, ``reservoir_topm`` and ``flash_attention``
+    (forward and backward), built from ``csrc/segment_agg.cu``,
+    ``csrc/fused_gather_agg.cu``, ``csrc/reservoir.cu``,
+    ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (with
+    any ``csrc/*.cuh`` they include) as ``git show HEAD~1`` gives them (or
+    as ``source``, the ``--parent-source`` list, names them) into
     ``build/repro_torch/parent/`` (one ``nvcc`` each, started together) and
     bound with ctypes.  Returns a namespace of ``forward(idx, h, mode, w)``,
     ``backward(idx, dout, h, mode, w) -> (dh, dw)``,
-    ``gather_aggregate(enc, idx, table, aux, mode) -> (h_dst, agg)`` and
-    ``reservoir_topm(w, u, mask, m) -> (idx, keys)``, or None where neither
-    the history nor ``source`` is at hand.  The backward's SASS float
-    atomics are counted, which shows that phase 1's check finds them in a
-    kernel that has them."""
+    ``gather_aggregate(enc, idx, table, aux, mode) -> (h_dst, agg)``,
+    ``reservoir_topm(w, u, mask, m) -> (idx, keys)``,
+    ``flash_forward(q, k, v, causal) -> (o, lse)`` and
+    ``flash_backward(q, k, v, o, lse, do, causal) -> (dq, dk, dv)``, or
+    None where neither the history nor ``source`` is at hand.  The
+    backward's SASS float atomics are counted, which shows that phase 1's
+    check finds them in a kernel that has them."""
     import ctypes
     import types
 
@@ -994,20 +1020,19 @@ def parent_kernels(torch, source):
         for name, path in _parent_paths(source).items():
             shutil.copyfile(path, out / name)
     else:
-        for name in PARENT_SOURCES:
-            try:
-                got = subprocess.run(
-                    ["git", "-C", str(ROOT), "show",
-                     f"HEAD~1:src/repro_torch/kernels/csrc/{name}"],
-                    capture_output=True, text=True, timeout=60)
-            except FileNotFoundError:
-                got = None
-            if got is None or got.returncode != 0:
+        listed = subprocess.run(
+            ["git", "-C", str(ROOT), "ls-tree", "--name-only", "HEAD~1",
+             f"{PARENT_CSRC}/"], capture_output=True, text=True, timeout=60)
+        headers = [Path(x).name for x in listed.stdout.split()
+                   if x.endswith(".cuh")] if listed.returncode == 0 else []
+        for name in (*PARENT_SOURCES, *headers):
+            text = _git_parent(name)
+            if text is None:
                 print("[time] the parent's kernels are neither timed nor "
                       "compared: no git history here and no --parent-source",
                       flush=True)
                 return None
-            (out / name).write_text(got.stdout)
+            (out / name).write_text(text)
     procs = [(name, subprocess.Popen(
         [_nvcc(), *NVCC_FLAGS, "-o", str(out / f"lib{Path(name).stem}.so"),
          str(out / name)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -1056,6 +1081,14 @@ def parent_kernels(torch, source):
                            + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
     res_fn.restype = ctypes.c_int
     res_counters = []    # the new interface's row counters, kept zeroed
+    fa_fn = ctypes.CDLL(str(out / "libflash_attention.so")).flash_attention_launch
+    fa_fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                      + [ctypes.c_float, ctypes.c_void_p])
+    fb_fn = ctypes.CDLL(str(out / "libflash_attention_bwd.so")) \
+        .flash_attention_bwd_launch
+    fb_fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                      + [ctypes.c_float, ctypes.c_void_p])
+    fa_fn.restype = fb_fn.restype = ctypes.c_int
     floats = float_atomics(out / "libsegment_agg.so",
                            "agg_bwd" if scratch_bytes is None else "bwd_")
     print(f"[build] the parent's kernels ({', '.join(PARENT_SOURCES)}): float "
@@ -1126,9 +1159,38 @@ def parent_kernels(torch, source):
         if err:
             fail(f"the parent's reservoir_topm: CUDA error {err}")
         return idx, keys
+
+    def flash_forward(q, k, v, causal):
+        from repro_torch.kernels.flash_attention.ops import TEMPLATE_WIDTH
+        B, S, H, Dh = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        err = fa_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), B, S, H, k.shape[2], Dh,
+                    TEMPLATE_WIDTH[Dh], int(q.dtype == torch.bfloat16),
+                    int(causal), Dh ** -0.5 * math.log2(math.e), stream())
+        if err:
+            fail(f"the parent's flash_attention: error {err}")
+        return o, lse
+
+    def flash_backward(q, k, v, o, lse, do, causal):
+        from repro_torch.kernels.flash_attention.ops import TEMPLATE_WIDTH
+        B, S, H, Dh = q.shape
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        d_rows = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        err = fb_fn(*(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
+                                             d_rows)),
+                    B, S, H, k.shape[2], Dh, TEMPLATE_WIDTH[Dh],
+                    int(q.dtype == torch.bfloat16), int(causal), Dh ** -0.5,
+                    stream())
+        if err:
+            fail(f"the parent's flash_attention_bwd: error {err}")
+        return dq, dk, dv
     return types.SimpleNamespace(forward=forward, backward=backward,
                                  gather_aggregate=gather_aggregate,
-                                 reservoir_topm=reservoir_topm)
+                                 reservoir_topm=reservoir_topm,
+                                 flash_forward=flash_forward,
+                                 flash_backward=flash_backward)
 
 
 def _in_order(torch, rows, idx, mode: str):
@@ -1823,10 +1885,12 @@ def phase_flash(torch, stamp: str) -> dict:
             "qwen2_vl_2b_prefill": brief("qwen2vl_prefill")}
 
 
-def _profile(torch, fn, stamp: str, label: str, calls: int = 1):
+def _profile(torch, fn, stamp: str, label: str, calls: int = 1,
+             rows_out=None):
     """Device time per call of ``fn`` by kernel (``torch.profiler``), over a
-    window of ``calls`` calls; returns the device busy ms per call.  A
-    window of a few microseconds of device work now and then comes back
+    window of ``calls`` calls; returns the device busy ms per call, and
+    extends ``rows_out`` with the window's (name, device µs, count) rows.
+    A window of a few microseconds of device work now and then comes back
     with no device events, so an empty window is profiled again, up to
     ``PROFILE_TRIES`` windows, before the phase fails."""
     from torch.profiler import ProfilerActivity, profile
@@ -1843,6 +1907,8 @@ def _profile(torch, fn, stamp: str, label: str, calls: int = 1):
     else:
         fail(f"the profiler recorded no device time over {label} in "
              f"{PROFILE_TRIES} windows")
+    if rows_out is not None:
+        rows_out.extend(rows)
     busy = sum(r[1] for r in rows) / 1e3 / calls
     top = "; ".join(f"{k[:60]} {t / 1e3 / calls:.3f} ms ({c / calls:g})"
                     for k, t, c in rows[:8])
@@ -3350,30 +3416,64 @@ TRAIN_REL_TOL = 1e-4
 
 
 def _bwd_kernel_name(mangled: str) -> str:
-    """``flash_bwd_dkv<64,bf16>`` for the mangled name of that instance."""
-    m = re.search(r"(flash_bwd_\w+?)ILi(\d+)E(f|13__nv_bfloat16)E", mangled)
+    """``flash_bwd_dkv<64,f32>`` (the SIMT kernels, templated on the type)
+    or ``flash_bwd_dq_wgmma<128>`` (the bf16 Hopper kernels) for the
+    mangled name of that instance."""
+    m = re.search(r"(flash_bwd_\w+?)ILi(\d+)E(?:(f|13__nv_bfloat16)E)?",
+                  mangled)
+    if not m:
+        return mangled
+    if m.group(3) is None:
+        return f"{m.group(1)}<{m.group(2)}>"
     return (f"{m.group(1)}<{m.group(2)},"
-            f"{'f32' if m.group(3) == 'f' else 'bf16'}>" if m else mangled)
+            f"{'f32' if m.group(3) == 'f' else 'bf16'}>")
+
+
+# the bf16 backward's kernels at Dh 128 (llama3.2-3b's): HGMMA or fail
+BWD_HOPPER_128 = ("flash_bwd_dq_wgmma<128>", "flash_bwd_dkv_wgmma<128>")
 
 
 def flash_bwd_report():
     """ptxas's registers, spills and the granted shared memory of each
-    flash_attention backward kernel, and the atomics in their SASS
-    (``float_atomics``); fails on a spill or a float atomic."""
+    flash_attention backward kernel, the HGMMA count and highest register
+    of each bf16 (wgmma) instance's SASS, and the atomics in their SASS
+    (``float_atomics``); fails on a spill or a float atomic, or if a kernel
+    of ``BWD_HOPPER_128`` has no HGMMA."""
     import ctypes
 
     from repro_torch.kernels.build import BUILD_DIR, load
     smem = load("flash_attention_bwd").flash_attention_bwd_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    lines = sass_lines(BUILD_DIR / "libflash_attention_bwd.so")
+    hgmma, top_reg = {}, {}
+    for mangled, line in lines or []:
+        name = _bwd_kernel_name(mangled)
+        hgmma[name] = hgmma.get(name, 0) + ("HGMMA" in line)
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+        top_reg[name] = max([top_reg.get(name, -1), *regs])
     for name, info in sorted(ptxas_report("flash_attention_bwd",
                                           _bwd_kernel_name).items()):
         width = int(re.search(r"<(\d+)", name).group(1)) if "<" in name else 0
+        hopper = "wgmma" in name
+        # the library's codes: 0 / 1 the f32 dq / dkv kernel, 2 / 3 the bf16
+        sass = (f"; SASS: HGMMA {hgmma.get(name, 'not counted')}, highest "
+                f"register R{top_reg.get(name, '?')}" if hopper else "")
         print(f"[build] {name}: ptxas {info.get('used', 'not reported')}; "
               f"{info.get('spills', 'spills not reported')}; dynamic shared "
-              f"memory {smem(width, int('dkv' in name))} B", flush=True)
+              f"memory {smem(width, 2 * hopper + ('dkv' in name))} B{sass}"
+              + (f"; {info['warning']}" if "warning" in info else ""),
+              flush=True)
         spilled = re.search(r"(\d+) bytes spill stores", info.get("spills", ""))
         if spilled and int(spilled.group(1)) > 0:
             fail(f"{name} spills registers: {info['spills']}")
+    if lines is None:
+        print("[build] no cuobjdump on this machine (toolkit or triton): "
+              "the HGMMA check of flash_attention_bwd was not made",
+              flush=True)
+    for name in BWD_HOPPER_128:
+        if lines is not None and not hgmma.get(name):
+            fail(f"the bf16 flash_attention backward kernel {name} has no "
+                 f"HGMMA in its SASS")
     floats = float_atomics(BUILD_DIR / "libflash_attention_bwd.so",
                            "flash_bwd", _bwd_kernel_name)
     if floats is None:
@@ -3502,11 +3602,14 @@ def _hold_bwd(torch, args, got, label: str) -> float:
     return err
 
 
-def _time_bwd(torch, label, shape, flush, rate, stamp) -> dict:
-    """The backward at a timed shape (bf16, causal): kernel, plain version
-    and SDPA's backward (forward + backward less the forward, the port never
-    calls it) beside the bound, each the median of TIMED_LAUNCHES calls with
-    L2 flushed."""
+def _time_bwd(torch, label, shape, flush, rate, stamp, parent) -> dict:
+    """The backward at a timed shape (bf16, causal): kernel and the parent
+    commit's kernel in turns (parent, kernel, kernel, parent), the plain
+    version and SDPA's backward (forward + backward less the forward, the
+    port never calls it) beside the bound, each the median of TIMED_LAUNCHES
+    calls with L2 flushed, each with its TFLOP/s and share of the bound;
+    and the device time of its dq and dkv kernels (``torch.profiler``, five
+    calls)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
@@ -3529,26 +3632,70 @@ def _time_bwd(torch, label, shape, flush, rate, stamp) -> dict:
             if grad:
                 torch.autograd.grad(out, (qt, kt, vt), dot)
     before = flash_attention_bwd.launches
-    t = {"ms": time_ms(torch, lambda: flash_attention_bwd(*args), flush),
+    turns = _turns(torch, lambda: flash_attention_bwd(*args),
+                   None if parent is None
+                   else lambda: parent.flash_backward(*args), flush)
+    t = {"ms": turns[1], "parent_ms": turns[0],
          "plain_ms": time_ms(torch, lambda: flash_attention_bwd_ref(*args),
                              flush),
          "bound_ms": max(t_f, t_b),
          "bound_by": "operations" if t_f >= t_b else "bytes"}
+    rows = []       # the device time of each of the call's two kernels
+    _profile(torch, lambda: flash_attention_bwd(*args), stamp,
+             f"flash_attention_bwd {label}", calls=5, rows_out=rows)
+    for part in ("dq", "dkv"):
+        t[f"{part}_ms"] = sum(n for k, n, _ in rows
+                              if f"flash_bwd_{part}_" in k) / 1e3 / 5
     flash_attention_bwd.launches = before       # timing is not the path
     fwd_bwd = time_ms(torch, lambda: sdpa(True), flush)
     fwd = time_ms(torch, lambda: sdpa(False), flush)
     t["library_ms"] = fwd_bwd - fwd
+
+    def rate_of(ms):
+        return ("not timed" if ms is None else
+                f"{ms} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{t['bound_ms'] / ms:.1%} of the bound)")
     print(f"[time] flash_attention_bwd {label} q ({B}, {S}, {H}, {Dh}) kv "
-          f"heads {Hkv} bf16 causal: kernel {t['ms']} ms "
-          f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, "
-          f"{t['bound_ms'] / t['ms']:.1%} of the bound), plain "
-          f"{t['plain_ms']} ms, scaled_dot_product_attention backward "
-          f"{t['library_ms']} ms (forward + backward {fwd_bwd} ms less the "
-          f"forward {fwd} ms); bound {t['bound_ms']} ms by {t['bound_by']}: "
-          f"{flops} FLOP at {BF16_FLOP_PER_S / 1e12} TFLOP/s = {t_f} ms, "
-          f"{nbytes} B at {rate / 1e12} TB/s = {t_b} ms  [{stamp}]",
-          flush=True)
+          f"heads {Hkv} bf16 causal: kernel {rate_of(t['ms'])}; parent "
+          f"{rate_of(t['parent_ms'])} (turns parent / kernel / kernel / "
+          f"parent {turns} ms); plain {rate_of(t['plain_ms'])}; "
+          f"scaled_dot_product_attention backward {rate_of(t['library_ms'])} "
+          f"(forward + backward {fwd_bwd} ms less the forward {fwd} ms); "
+          f"bound {t['bound_ms']} ms by {t['bound_by']}: {flops} FLOP at "
+          f"{BF16_FLOP_PER_S / 1e12} TFLOP/s = {t_f} ms, {nbytes} B at "
+          f"{rate / 1e12} TB/s = {t_b} ms  [{stamp}]", flush=True)
     return t
+
+
+# the forward held bit-equal to the parent commit's kernel, bf16 causal:
+# the llama3.2-3b and qwen3-4b prefills (B, S, H, Hkv, Dh)
+FWD_PARENT_SHAPES = (("llama3.2-3b", (2, 4096, 24, 8, 128)),
+                     ("qwen3-4b", (2, 4096, 32, 8, 128)))
+
+
+def _hold_fwd_to_parent(torch, parent):
+    """The forward's O and log-sum-exp bit-equal to the parent commit's
+    kernel on the same inputs (the helpers moved to ``hopper.cuh``; the
+    arithmetic is unchanged)."""
+    from repro_torch.kernels.flash_attention.ops import _forward
+    if parent is None:
+        print("[check] the forward was not held to the parent's kernel: no "
+              "parent at hand", flush=True)
+        return
+    for label, (B, S, H, Hkv, Dh) in FWD_PARENT_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(3)
+        q, k, v = (torch.randn(x, generator=g, device="cuda")
+                   .to(torch.bfloat16)
+                   for x in ((B, S, H, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh)))
+        o, lse = _forward(q, k, v, True, with_lse=True)
+        o_p, lse_p = parent.flash_forward(q, k, v, True)
+        same = torch.equal(o, o_p) and torch.equal(lse, lse_p)
+        print(f"[check] flash_attention {label} prefill ({B}, {S}, {H}, "
+              f"{Hkv}, {Dh}) bf16 causal: O and log-sum-exp bit-equal to the "
+              f"parent's kernel: {same}", flush=True)
+        if not same:
+            fail(f"the forward's O or log-sum-exp differs from the parent's "
+                 f"kernel at the {label} prefill")
 
 
 def _ckpt_room(torch, ckpt_bytes: int, stamp: str):
@@ -3766,7 +3913,7 @@ def _f32_step_vs_plain(torch, stamp: str):
              "plain attention")
 
 
-def phase_lm_train(torch, stamp: str) -> dict:
+def phase_lm_train(torch, stamp: str, parent) -> dict:
     """LM training at full width and full depth (phase 14); returns the
     flash_attention_bwd JSON entry and the launches of the forward."""
     from repro_torch.configs import get_config
@@ -3783,8 +3930,9 @@ def phase_lm_train(torch, stamp: str) -> dict:
     rate = hbm_rate(torch.cuda.get_device_name(0))
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
 
-    # (a) the backward kernel alone: held, deterministic, O unchanged by
-    # the log-sum-exp, and timed
+    # (a) the forward bit-equal to the parent's kernel; the backward kernel
+    # alone: held, deterministic, O unchanged by the log-sum-exp, and timed
+    _hold_fwd_to_parent(torch, parent)
     errs = []
     for shape in BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -3803,7 +3951,8 @@ def phase_lm_train(torch, stamp: str) -> dict:
     print(f"[check] flash_attention_bwd: {2 * len(BWD_CASES)} cases held, "
           f"each run twice bit-equal; O bit-equal with and without the "
           f"log-sum-exp", flush=True)
-    timed = {label: _time_bwd(torch, label, shape, flush, rate, stamp)
+    timed = {label: _time_bwd(torch, label, shape, flush, rate, stamp,
+                              parent)
              for label, shape in BWD_TIMED}
     del flush
     torch.cuda.empty_cache()
@@ -3911,14 +4060,20 @@ def phase_lm_train(torch, stamp: str) -> dict:
           f"gradients finite", flush=True)
     step, _ = make_train_step(out["model"], cfg)
     batch = to_device(data.make(1), "cuda")
+    rows = []
     busy = _profile(torch, lambda: step(state["params"], state["opt_state"],
-                                        batch), stamp, "one train step")
+                                        batch), stamp, "one train step",
+                    rows_out=rows)
     step_ms = sorted(step_s[1:])[(steps - 1) // 2] * 1e3
     idle = 1 - busy / step_ms
+    bwd_rows = [r for r in rows if "flash_bwd" in r[0]]
+    bwd_ms = sum(r[1] for r in bwd_rows) / 1e3
     print(f"[train] one profiled step: device busy {busy:.3f} ms against "
           f"the median un-profiled step of {step_ms:.3f} ms (steps "
-          f"2-{steps}, data and copies included): idle {idle:.1%}  "
-          f"[{stamp}]", flush=True)
+          f"2-{steps}, data and copies included): idle {idle:.1%}; the "
+          f"flash_attention backward's kernels in it {bwd_ms:.4f} ms "
+          f"({', '.join(f'{n[:40]} {t / 1e3:.4f} ms x {c}' for n, t, c in bwd_rows)})"
+          f"  [{stamp}]", flush=True)
     del out, state, step, batch
     torch.cuda.empty_cache()
 
@@ -3940,6 +4095,7 @@ def phase_lm_train(torch, stamp: str) -> dict:
              "train": {"steps_per_s": (steps - 1) / window,
                        "tokens_per_s": (steps - 1) * tokens / window,
                        "step_ms": step_ms, "device_busy_ms": busy,
+                       "bwd_in_situ_ms": bwd_ms,
                        "idle_share": idle, "peak_bytes": peak,
                        "ckpt_save_s": saves,
                        "ckpt_write_s": [w[1] for w in writes],
@@ -3953,9 +4109,12 @@ def main() -> int:
     ap.add_argument("--parent-source", default=None, nargs="+",
                     metavar="PATH",
                     help="the parent commit's csrc/segment_agg.cu, "
-                         "csrc/fused_gather_agg.cu and csrc/reservoir.cu, "
-                         "or a directory that holds them (or its checkout "
-                         "root), where this checkout has no git history")
+                         "csrc/fused_gather_agg.cu, csrc/reservoir.cu, "
+                         "csrc/flash_attention.cu and "
+                         "csrc/flash_attention_bwd.cu (with the headers "
+                         "they include), or a directory that holds them "
+                         "(or its checkout root), where this checkout has "
+                         "no git history")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4004,7 +4163,7 @@ def main() -> int:
     fabric = phase_fabric(torch, stamp)
     families = phase_families(torch, stamp)
     families.update(phase_encdec_vlm(torch, stamp))
-    train_lm = phase_lm_train(torch, stamp)
+    train_lm = phase_lm_train(torch, stamp, parent)
     flash["train_launches"] = train_lm["flash_attention"]
     entry["fabric_launches"] = sum(n for k, n in fabric["parts"].items()
                                    if k != "train")

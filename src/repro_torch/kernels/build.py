@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, and loaded with ``ctypes``.  The build
 runs at first use, into ``build/repro_torch/`` at the root of the checkout
-(listed in ``.gitignore``); a library newer than its source is reused.
+(listed in ``.gitignore``); a library newer than its source and every
+shared header (``csrc/*.cuh``) is reused.
 ``ptxas``'s report of each kernel (registers, shared memory, spills) is
 kept beside the library as ``lib<name>.log``.
 Nothing here runs when the module is imported: the CPU tests import every
@@ -50,9 +51,13 @@ def build_log(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """A library is stale when it is missing or older than its source or
+    any header of ``csrc/`` (``*.cuh``, which sources share)."""
     lib = _target(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    inputs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(names: Iterable[str]) -> List[str]:

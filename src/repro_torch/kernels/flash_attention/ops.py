@@ -30,8 +30,9 @@ forward launches the same kernel with a pointer for each row's log-sum-exp
 (``(B, H, S)`` f32, natural log; ``O`` is bit-equal to the call without
 it) and saves ``q, k, v, o, lse``; its backward is
 ``flash_attention_bwd``: the hand-written kernels of
-``kernels/csrc/flash_attention_bwd.cu`` (deterministic, no float atomics;
-the TPU kernel has no backward: JAX differentiates its jnp attention).
+``kernels/csrc/flash_attention_bwd.cu`` (bf16 the Hopper kernels, f32 the
+SIMT ones; deterministic, no float atomics; the TPU kernel has no
+backward: JAX differentiates its jnp attention).
 
 A tensor on the CPU takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel or raises.  ``flash_attention.launches`` counts forward
@@ -146,10 +147,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """The gradient of ``flash_attention``: q, o, do (B, S, H, Dh), k/v
     (B, S, Hkv, Dh), lse (B, H, S) f32 from the forward → (dq, dk, dv) in
     the inputs' dtype.  On the card: the kernels of
-    ``csrc/flash_attention_bwd.cu``, a q-tile kernel that forms
-    D = rowsum(dO∘O) and writes dQ, then a kv-tile kernel that walks the
-    group's q-heads and writes dK and dV once; on the CPU
-    ``flash_attention_bwd_ref``."""
+    ``csrc/flash_attention_bwd.cu`` (bf16: the Hopper kernels, TMA ring +
+    ``wgmma``; f32: SIMT), a q-tile kernel that forms D = rowsum(dO∘O) and
+    writes dQ, then a kv-tile kernel that walks the group's q-heads and
+    writes dK and dV once; on the CPU ``flash_attention_bwd_ref``."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
@@ -172,6 +173,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     _check_card(q, k, v)
     if not all(t.is_contiguous() for t in (o, lse, do)):
         raise ValueError("flash_attention_bwd needs contiguous o, lse and do")
+    if any(t.data_ptr() % 16 for t in (o, lse, do)):
+        raise ValueError("flash_attention_bwd needs 16-byte aligned o, lse and "
+                         "do")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     d_rows = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):

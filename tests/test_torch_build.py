@@ -46,3 +46,19 @@ def test_build_of_fresh_libraries_runs_no_compiler(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "_nvcc", lambda: (_ for _ in ()).throw(
         AssertionError("nvcc called")))
     assert build.build(["a", "b"]) == []
+
+
+def test_stale_follows_the_shared_headers(tmp_path, monkeypatch):
+    csrc, out = _tree(tmp_path, monkeypatch)
+    _touch(csrc / "shared.cuh", 100)
+    _touch(out / "liba.so", 200)
+    _touch(out / "libb.so", 200)
+    assert not build._stale("a") and not build._stale("b")
+    _touch(csrc / "shared.cuh", 300)               # a header edited
+    assert build._stale("a") and build._stale("b")  # every library it may feed
+    _touch(out / "liba.so", 400)
+    assert not build._stale("a")
+    assert build._stale("b")
+    _touch(csrc / "other.cuh", 500)                # any header counts
+    assert build._stale("a")
+    assert build.sources() == ["a", "b"]           # headers are not sources

@@ -1309,15 +1309,21 @@ def test_flash_attention_backward_kernel_matches_plain(card, shape, dtype):
     """f32: within 1e-5 of the largest gradient entry of the plain version
     on the same inputs; bf16: each gradient's error against an f64
     reference no worse than twice the plain version's own, rounded to bf16
-    (the kernel sums in f32 and rounds once)."""
+    (the kernel sums in f32, rounds P and dS to bf16 for the tensor cores
+    and each output once)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
     args = _bwd_case(shape, dtype, card)
     launches = flash_attention_bwd.launches
     got = flash_attention_bwd(*args)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == launches + 1
+    _assert_bwd_close(args, got)
+
+
+def _assert_bwd_close(args, got):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
     q, k, v, o, lse, do, causal = args
+    dtype = q.dtype
     plain = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o)), lse,
                                     do.float(), causal)
     exact = flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o)),
@@ -1330,6 +1336,26 @@ def test_flash_attention_backward_kernel_matches_plain(card, shape, dtype):
         else:
             own = float((p.to(dtype).double() - e).abs().max())
             assert float((g.double() - e).abs().max()) <= 2 * own + 1e-6 * top
+
+
+# the bf16 kernels' tile edges (64-row tiles, 128-row items): a single row,
+# one row short of, at and past a tile and an item, on the 16-wide (Dh 8)
+# and 128-wide (Dh 112, 128) templates, causal and full, a GQA group of 2
+FLASH_BWD_EDGES = [(1, S, 4, 2, dh, causal) for S in (1, 63, 64, 65, 127, 129)
+                   for dh in (8, 112, 128) for causal in (True, False)]
+
+
+@pytest.mark.parametrize("shape", FLASH_BWD_EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_bf16_backward_tile_edges(card, shape):
+    """Each bf16 edge case held as the cases above, and a second run
+    bit-equal to the first."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    args = _bwd_case(shape, torch.bfloat16, card)
+    got, again = flash_attention_bwd(*args), flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_bwd_close(args, got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
