@@ -246,7 +246,29 @@ Phases; any failure exits non-zero:
    through the kernels against the same through the plain attention on
    the card, within 1e-4 with the attention weights at their whole
    fan-in; as seeded (largest score printed) against the same step on
-   the CPU, no further from it than twice the plain card path is.
+   the CPU, no further from it than twice the plain card path is;
+15. the dry-run's accounting and the distributed shims — (a) llama3.2-3b's
+   seeded f32 masters and AdamW state built on the card as phase 14
+   builds them: the growth of ``torch.cuda.memory_allocated()`` equal to
+   ``launch/dryrun.py``'s ``argument_bytes`` for the host mesh at phase
+   14's 8 x 128 train shape, less the batch, within 512 B a tensor (the
+   allocator's rounding); the dry-run's FLOPs of that step over phase
+   14's median step, as TFLOP/s and a share of 989 TFLOP/s; the peak
+   memory of 2- and 4-layer steps at that shape, extrapolated to 28
+   layers, beside phase 14's measured peak (printed, not failed); (b) the
+   shims on the card, each held to the CPU: int8 quantization, top-k
+   sparsification, both error-feedback schemes and ``compressed_psum_int8``
+   over 8 host-simulated members bit-equal, ``flash_decode_attention``
+   over 8 members at qwen3-4b's decode shape (batch 8, a 4,096-token
+   cache, 32 heads of 128) within 1e-5 of the full masked softmax
+   attention in f32; ``make_pipeline_fn`` over llama3.2-3b's 28 seeded
+   bf16 layers in 4 stages of 7, 8 microbatches of 1 x 128 tokens:
+   bit-equal to the same layers run in sequence on each microbatch, its
+   gap to the sequence on the whole batch printed, 28 x 8
+   ``flash_attention`` launches counted; (c) the dry-run of every LM arch
+   x applicable shape x ``single`` and ``multi`` (params, argument GiB a
+   device, FLOPs a device, host seconds; fails on any cell that errors);
+   then the phase's seconds.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels (the
@@ -4103,6 +4125,332 @@ def phase_lm_train(torch, stamp: str, parent) -> dict:
     return {"entry": entry, "flash_attention": launches["flash_attention"]}
 
 
+PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS = 4, 8, 128
+DECODE_ARCH, DECODE_BATCH, DECODE_CACHE = LM_ARCH, 8, 4096
+PEAK_LAYERS = (2, 4)
+MiB = 2**20
+
+
+def allocator_block(nbytes: int) -> int:
+    """The bytes PyTorch's caching allocator counts for a new ``nbytes``
+    tensor in a fresh segment: the request rounded to 512 B; a request
+    over 1 MiB takes a segment of 20 MiB (under 10 MiB) or rounded to 2 MiB,
+    and keeps the segment's remainder when it is 1 MiB or less (the
+    allocator splits off only a larger one)."""
+    size = -(-nbytes // 512) * 512
+    if size <= MiB:
+        return size
+    seg = 20 * MiB if size < 10 * MiB else -(-size // (2 * MiB)) * 2 * MiB
+    return seg if seg - size <= MiB else size
+
+
+def allocator_slack(nbytes: int) -> int:
+    """The most the caching allocator can count beyond a tensor's bytes, in
+    any segment: the 512-B rounding, and up to 1 MiB of unsplit remainder
+    for a block over 1 MiB."""
+    size = -(-nbytes // 512) * 512
+    return size - nbytes + (MiB if size > MiB else 0)
+
+
+def _account_vs_card(torch, stamp: str, train_entry: dict):
+    """(a): the dry-run's argument bytes, FLOPs and extrapolated peak
+    against phase 14's llama3.2-3b on the card."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build
+    from repro_torch.models.params import init_params, leaves
+    from repro_torch.train.data import SyntheticTokens, to_device
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    batch, seq = 8, 128
+    shape = ShapeConfig("phase14", "train", seq, batch)
+    mesh = make_host_mesh()
+    mem = dryrun.memory(cfg, shape, mesh)
+    want = mem["argument_bytes"] - mem["parts"]["batch"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build(cfg)
+    params = init_params(model.decls,
+                         torch.Generator(device="cuda").manual_seed(0), "cuda")
+    state = get_optimizer(cfg).init(params)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    tensors = leaves(params) + leaves(state["m"]) + leaves(state["v"])
+    held = sum(t.untyped_storage().nbytes() for t in tensors)
+    blocks = sum(allocator_block(t.untyped_storage().nbytes())
+                 for t in tensors)
+    # the port keeps AdamW's step count as a Python int, where the dry-run
+    # counts JAX's int32 scalar: 4 bytes
+    count = 4
+    print(f"[account] {TRAIN_ARCH} f32 masters + AdamW state on the card: "
+          f"{len(tensors)} tensors holding {held} B; the dry-run's "
+          f"argument_bytes less the batch and the 4-byte step count "
+          f"{want - count} B (params {mem['parts']['params']}, state "
+          f"{mem['parts']['opt_state']}, batch {mem['parts']['batch']}); "
+          f"memory_allocated grew {grown} B, {grown - held} B over the "
+          f"tensors' bytes, where the allocator's blocks predict {blocks} B "
+          f"({blocks - held} B of rounding: 512 B a tensor, and an unsplit "
+          f"segment remainder of at most 1 MiB a block over 1 MiB)  "
+          f"[{stamp}]", flush=True)
+    if held != want - count:
+        fail(f"argument bytes {want - count} against {held} held on the card")
+    slack = sum(allocator_slack(t.untyped_storage().nbytes())
+                for t in tensors)
+    if not 0 <= grown - held <= slack:
+        fail(f"memory_allocated grew {grown} B for {held} B of tensors, "
+             f"beyond the allocator's {slack} B of rounding")
+    del params, state, model
+    torch.cuda.empty_cache()
+
+    acc = dryrun.account(cfg, shape, mesh)
+    step_s = train_entry["train"]["step_ms"] / 1e3
+    rate = acc["flops"] / step_s
+    print(f"[account] the dry-run's FLOPs of one {TRAIN_ARCH} step at "
+          f"{batch} x {seq}: {acc['flops']:.6e} ({acc['product_flops']:.6e} "
+          f"in matrix products; probes at depths {acc['probe_depths']}, "
+          f"{acc['t_probe_s']:.2f} s of host); over phase 14's median step "
+          f"of {step_s * 1e3:.3f} ms: {rate / 1e12:.2f} TFLOP/s, "
+          f"{rate / BF16_FLOP_PER_S:.2%} of 989 TFLOP/s  [{stamp}]",
+          flush=True)
+
+    peaks = []
+    data = SyntheticTokens(cfg.vocab_size, batch, seq, seed=7, n_batches=2)
+    for n in PEAK_LAYERS:
+        c = cfg.replace(num_layers=n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m = build(c)
+        p = init_params(m.decls, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+        step, opt = make_train_step(m, c)
+        st = opt.init(p)
+        for i in range(2):
+            step(p, st, to_device(data.make(i), "cuda"))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        del m, p, st, step
+        torch.cuda.empty_cache()
+    est = dryrun._extrapolate(peaks[0], peaks[1], *PEAK_LAYERS,
+                              cfg.num_layers)
+    measured = train_entry["train"]["peak_bytes"]
+    print(f"[account] peak memory of {PEAK_LAYERS[0]}- and "
+          f"{PEAK_LAYERS[1]}-layer steps at {batch} x {seq}: {peaks} B; "
+          f"extrapolated to {cfg.num_layers} layers {est:.0f} B "
+          f"({est / 2**30:.2f} GiB) beside phase 14's measured peak "
+          f"{measured} B ({measured / 2**30:.2f} GiB)  [{stamp}]", flush=True)
+    return {"argument_bytes": want, "allocated_bytes": grown,
+            "step_flops": acc["flops"], "tflops_per_s": rate / 1e12,
+            "peak_extrapolated": est, "peak_measured": measured}
+
+
+def _shims_vs_cpu(torch, stamp: str):
+    """(b): the compression shims and the flash-decode combine on the card
+    against the CPU and the full attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import flash_decode_attention
+    from repro_torch.launch.mesh import HostSimMesh
+    from repro_torch.train import compression as C
+
+    g = torch.Generator().manual_seed(3)
+    xs = [torch.randn(1024, 3072, generator=g) for _ in range(8)]
+    xs[1][:5] = 0.5                                  # ties for the top-k
+    checks = []
+
+    def same(label, got, want):
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                fail(f"{label} on the card differs from the CPU")
+        checks.append(label)
+    x, xc = xs[1], xs[1].cuda()
+    same("quantize_int8", C.quantize_int8(xc), C.quantize_int8(x))
+    q, sc = C.quantize_int8(x)
+    same("dequantize_int8", C.dequantize_int8(q.cuda(), sc.cuda()),
+         C.dequantize_int8(q, sc))
+    for frac in (0.01, 0.05):
+        v, i = C.topk_sparsify(xc, frac)
+        same(f"topk_sparsify {frac}", (v, i), C.topk_sparsify(x, frac))
+        same(f"topk_densify {frac}", C.topk_densify(v, i, x.shape),
+             C.topk_densify(*C.topk_sparsify(x, frac), x.shape))
+    for name, fn in (("ef_compress_int8", C.ef_compress_int8),
+                     ("ef_compress_topk", C.ef_compress_topk)):
+        res_c, res_g = C.ef_init({"w": x}), C.ef_init({"w": xc})
+        for step in range(2):
+            sent_c, res_c = fn({"w": xs[step]}, res_c)
+            sent_g, res_g = fn({"w": xs[step].cuda()}, res_g)
+            same(f"{name} step {step}", (sent_g["w"], res_g["w"]),
+                 (sent_c["w"], res_c["w"]))
+    mesh = HostSimMesh(8, "pod")
+    t0 = time.perf_counter()
+    got = C.compressed_psum_int8([t.cuda() for t in xs], mesh)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    same("compressed_psum_int8 over 8", got, C.compressed_psum_int8(xs, mesh))
+    print(f"[shims] bit-equal on the card and the CPU: {', '.join(checks)} "
+          f"(1024 x 3072 f32; compressed_psum_int8 of 8 members "
+          f"{dt * 1e3:.2f} ms of host)  [{stamp}]", flush=True)
+
+    cfg = get_config(DECODE_ARCH)
+    B, T, H, Dh = DECODE_BATCH, DECODE_CACHE, cfg.num_heads, cfg.head_dim
+    gd = torch.Generator(device="cuda").manual_seed(4)
+    # the query as a caller passes it: the combine takes raw q.k scores, so
+    # the attention's Dh^-0.5 is folded into q
+    q = torch.randn(B, H, Dh, generator=gd, device="cuda") * Dh ** -0.5
+    k = torch.randn(B, T, H, Dh, generator=gd, device="cuda")
+    v = torch.randn(B, T, H, Dh, generator=gd, device="cuda")
+    pos = torch.tensor([0, 511, 512, 1000, 2047, 2048, 4000, T - 1][:B],
+                       dtype=torch.int32, device="cuda")
+    fn = flash_decode_attention(HostSimMesh(8, "model"), "model")
+    out = fn(q, k, v, pos)
+    s = torch.einsum("bhe,bthe->bht", q, k)
+    mask = torch.arange(T, device="cuda")[None, :] <= pos[:, None]
+    s = torch.where(mask[:, None, :], s, torch.full((), -1e30,
+                                                    device="cuda"))
+    ref = torch.einsum("bht,bthe->bhe", torch.softmax(s, -1), v)
+    err = float((out - ref).abs().max())
+    s64 = torch.where(mask[:, None, :], torch.einsum(
+        "bhe,bthe->bht", q.double(), k.double()), -1e30)
+    exact = torch.einsum("bht,bthe->bhe", torch.softmax(s64, -1), v.double())
+    print(f"[shims] flash_decode_attention over 8 members at {DECODE_ARCH}'s "
+          f"decode shape (B {B}, cache {T}, H {H}, Dh {Dh}), f32: max |diff| "
+          f"to the full masked softmax attention in f32 {err:.3e} (limit "
+          f"1e-5); to the same in f64 {float((out - exact).abs().max()):.3e}, "
+          f"the f32 attention's own {float((ref - exact).abs().max()):.3e}  "
+          f"[{stamp}]", flush=True)
+    if not err <= 1e-5:
+        fail(f"flash_decode_attention {err} from the full attention")
+    return {"checks": checks, "flash_decode_err": err}
+
+
+def _pipeline(torch, stamp: str):
+    """(b): llama3.2-3b's 28 seeded bf16 layers through the GPipe schedule
+    against the same layers in sequence."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pp import make_pipeline_fn
+    from repro_torch.launch.mesh import HostSimMesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params, stack_decls, tree_map
+    from repro_torch.models.transformer import decls_layer
+
+    cfg = get_config(TRAIN_ARCH)
+    n, per = cfg.num_layers, cfg.num_layers // PIPE_STAGES
+    stack = init_params(stack_decls(decls_layer(cfg), n),
+                        torch.Generator(device="cuda").manual_seed(5), "cuda",
+                        dtype_override=torch.bfloat16)
+    staged = tree_map(lambda a: a.view(PIPE_STAGES, per, *a.shape[1:]), stack)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    h = torch.randn(PIPE_MICRO, 1, PIPE_TOKENS, cfg.d_model, generator=g,
+                    device="cuda").to(torch.bfloat16)
+
+    def run_layers(p_stage, x):
+        B = x.shape[0]
+        pos = torch.arange(PIPE_TOKENS, dtype=torch.int32,
+                           device="cuda")[None].expand(B, PIPE_TOKENS)
+        for i in range(p_stage["ln1"]["scale"].shape[0]):
+            lp = tree_map(lambda a, i=i: a[i], p_stage)
+            x = x + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], x,
+                                                      cfg.norm_eps), cfg, pos)
+            x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                          cfg)
+        return x
+
+    pipe = make_pipeline_fn(run_layers, PIPE_STAGES, PIPE_MICRO,
+                            HostSimMesh(PIPE_STAGES, "stage"))
+    with torch.no_grad():
+        pipe(staged, h)                                   # warm-up
+        torch.cuda.synchronize()
+        counts = _zero_counts()
+        t0 = time.perf_counter()
+        got = pipe(staged, h)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = counts()
+        seq = []
+        for mb in h:
+            for s in range(PIPE_STAGES):
+                mb = run_layers(tree_map(lambda a, s=s: a[s], staged), mb)
+            seq.append(mb)
+        seq = torch.stack(seq)
+        whole = run_layers(stack, h.reshape(PIPE_MICRO, PIPE_TOKENS,
+                                            cfg.d_model)).view_as(h)
+    torch.cuda.synchronize()
+    gap = float((got.float() - whole.float()).abs().max()
+                / whole.float().abs().max())
+    want = n * PIPE_MICRO
+    print(f"[pipeline] {TRAIN_ARCH}'s {n} seeded bf16 layers, "
+          f"{PIPE_STAGES} stages of {per}, {PIPE_MICRO} microbatches of 1 x "
+          f"{PIPE_TOKENS}: {PIPE_STAGES + PIPE_MICRO - 1} ticks in "
+          f"{dt * 1e3:.1f} ms; launches {launches} (flash_attention "
+          f"expected {want}); bit-equal to the layers in sequence on each "
+          f"microbatch: {torch.equal(got, seq)}; gap to the sequence on the "
+          f"whole batch {gap:.3e} of its largest  [{stamp}]", flush=True)
+    if not torch.isfinite(got).all():
+        fail("the pipeline's outputs are not finite")
+    if not torch.equal(got, seq):
+        fail("the pipeline differs from the layers run in sequence")
+    if launches["flash_attention"] != want or any(
+            c for k, c in launches.items() if k != "flash_attention"):
+        fail(f"pipeline launches {launches}, expected {want} flash_attention")
+    return {"flash_attention": launches["flash_attention"], "ms": dt * 1e3,
+            "whole_batch_gap": gap}
+
+
+def _dryrun_cells(stamp: str):
+    """(c): the dry-run of every LM arch x applicable shape x mesh."""
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.launch import dryrun
+
+    cells, errors = [], []
+    t0 = time.perf_counter()
+    for mesh in ("single", "multi"):
+        for arch in dryrun.lm_archs():
+            for shape in SHAPES_BY_NAME:
+                t = time.perf_counter()
+                try:
+                    res = dryrun.run_cell(arch, shape, mesh)
+                except Exception as e:  # noqa: BLE001 — every cell is tried
+                    errors.append(f"{mesh}/{arch}/{shape}: "
+                                  f"{type(e).__name__}: {e}")
+                    continue
+                if res["skipped"]:
+                    continue
+                cells.append(res)
+                print(f"[dryrun] {mesh}/{arch}/{shape}: params "
+                      f"{res['params_total']}, argument "
+                      f"{res['memory']['argument_bytes'] / 2**30:.3f} GiB a "
+                      f"device, {res['cost']['flops_per_device']:.4e} FLOP a "
+                      f"device, {time.perf_counter() - t:.2f} s of host",
+                      flush=True)
+    if errors:
+        fail(f"dry-run cells failed: {errors}")
+    print(f"[dryrun] {len(cells)} cells in {time.perf_counter() - t0:.1f} s "
+          f"of host", flush=True)
+    return cells
+
+
+def phase_accounting(torch, stamp: str, train_entry: dict) -> dict:
+    """Phase 15: the dry-run's accounting held against the card, the
+    distributed shims held to the CPU, the pipeline, every dry-run cell."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = _account_vs_card(torch, stamp, train_entry)
+    torch.cuda.empty_cache()
+    shims = _shims_vs_cpu(torch, stamp)
+    torch.cuda.empty_cache()
+    pipe = _pipeline(torch, stamp)
+    torch.cuda.empty_cache()
+    cells = _dryrun_cells(stamp)
+    print(f"[account] phase 15 in {time.perf_counter() - t_phase:.1f} s  "
+          f"[{stamp}]", flush=True)
+    return {"card": card, "shims": shims, "pipeline": pipe,
+            "cells": len(cells)}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4165,6 +4513,8 @@ def main() -> int:
     families.update(phase_encdec_vlm(torch, stamp))
     train_lm = phase_lm_train(torch, stamp, parent)
     flash["train_launches"] = train_lm["flash_attention"]
+    accounting = phase_accounting(torch, stamp, train_lm["entry"])
+    flash["pipeline_launches"] = accounting["pipeline"]["flash_attention"]
     entry["fabric_launches"] = sum(n for k, n in fabric["parts"].items()
                                    if k != "train")
     entry["fabric_warmup_train_launches"] = fabric["parts"]["train"]

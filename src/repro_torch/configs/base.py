@@ -185,6 +185,14 @@ LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
 ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
 
+
+def applicable_shapes(cfg: ModelConfig) -> List[ShapeConfig]:
+    """long_500k needs sub-quadratic attention -> SSM/hybrid only."""
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.family in ("ssm", "hybrid"):
+        shapes.append(LONG_500K)
+    return shapes
+
 _REGISTRY: Dict[str, Any] = {}
 
 

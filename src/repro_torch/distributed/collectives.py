@@ -1,6 +1,8 @@
-"""Collectives of the multi-partition GNN path over the partition mesh
-(launch/mesh.py): the gradient mean-all-reduce and the bounded halo
-exchange.
+"""Collectives over the host-simulated mesh (launch/mesh.py): the
+multi-partition GNN path's gradient mean-all-reduce and bounded halo
+exchange, the sequence-sharded decode attention with its softmax combine
+(``flash_decode_attention``), and the analytic bytes of a quantized
+all-reduce.
 
 Only the host-simulated mesh is ported: every partition's tensors lie on
 the trainer's one device, and each collective computes its result as the
@@ -10,17 +12,81 @@ multi-card mesh is refused where it is built (``make_partition_mesh``).
 """
 from __future__ import annotations
 
+import math
 from typing import List
 
 import numpy as np
+import torch
 
-from repro_torch.launch.mesh import MULTI_CARD, HostSimMesh
+from repro_torch.launch.mesh import MULTI_CARD, HostSimMesh, axis_sizes
 from repro_torch.models.params import leaves, unflatten
 
 
 def _host_sim(mesh):
     if not (mesh is None or isinstance(mesh, HostSimMesh)):
         raise NotImplementedError(f"collectives over {mesh!r}: {MULTI_CARD}")
+
+
+def _partial_attend(q, k, v, mask):
+    """Attention over one member's time slice.
+
+    q (B, H, Dh); k/v (B, Tl, H, Dh); mask (B, Tl) True = valid.  Returns
+    (o (B, H, Dh) f32, the numerator at the local max; m (B, H) the local
+    max; denom (B, H) the local sum of exp)."""
+    scores = torch.einsum("bhe,bthe->bht", q, k).float()
+    scores = torch.where(mask[:, None, :], scores,
+                         torch.full((), -1e30, device=q.device))
+    m = scores.amax(dim=-1)                                  # (B, H)
+    p = torch.exp(scores - m[..., None])
+    p = torch.where(mask[:, None, :], p, torch.zeros((), device=q.device))
+    denom = p.sum(dim=-1)                                    # (B, H)
+    o = torch.einsum("bht,bthe->bhe", p.to(v.dtype), v)
+    return o.float(), m, denom
+
+
+def flash_decode_attention(mesh, axis: str = "model"):
+    """Sequence-sharded single-token attention with a max-rescaled softmax
+    combine, over the ``axis`` members of a host-simulated mesh.
+
+    Returns ``fn(q, k, v, pos)``: q (B, H, Dh); the caches k/v (B, T, H,
+    Dh), T split into one slice per member; pos (B,) each row's last valid
+    position.  Each member attends over its slice with the ``(base + t) <=
+    pos`` mask, then the partial (o, m, denom) combine in member order:
+    the global max, each part rescaled to it, the numerators and the
+    denominators summed.  Output (B, H, Dh) in v's dtype.  Plain torch, as
+    the JAX package's is jnp: on a real mesh the combine's two sums are the
+    only traffic (B·H·Dh, not the cache)."""
+    _host_sim(mesh)
+    n = axis_sizes(mesh)[axis]
+
+    def attend(q, k, v, pos):
+        T = k.shape[1]
+        if T % n:
+            raise ValueError(f"cache length {T} does not split into {n}")
+        Tl = T // n
+        parts = []
+        for s in range(n):
+            t = s * Tl + torch.arange(Tl, device=k.device)
+            mask = t[None, :] <= pos[:, None]
+            parts.append(_partial_attend(q, k[:, s * Tl:(s + 1) * Tl],
+                                         v[:, s * Tl:(s + 1) * Tl], mask))
+        g_max = parts[0][1]
+        for _, m, _ in parts[1:]:
+            g_max = torch.maximum(g_max, m)
+        num = den = None
+        for o, m, denom in parts:
+            w = torch.exp(m - g_max)
+            num = o * w[..., None] if num is None else num + o * w[..., None]
+            den = denom * w if den is None else den + denom * w
+        return (num / torch.clamp(den[..., None], min=1e-30)).to(v.dtype)
+    return attend
+
+
+def quantized_allreduce_bytes(shape, n_devices: int, bits: int = 8) -> float:
+    """Analytic bytes a device sends in a ring all-reduce of a tensor of
+    ``shape`` with a ``bits``-wide payload."""
+    payload = float(math.prod(shape)) * bits / 8
+    return 2.0 * payload * (n_devices - 1) / n_devices
 
 
 def grad_allreduce(mesh):

@@ -35,9 +35,15 @@ SIMT ones; deterministic, no float atomics; the TPU kernel has no
 backward: JAX differentiates its jnp attention).
 
 A tensor on the CPU takes the plain version (``ref.py``); a CUDA tensor
-launches the kernel or raises.  ``flash_attention.launches`` counts forward
-kernel launches, ``flash_attention_bwd.launches`` backward ones (one a
-call: the C entry launches its two kernels), and nothing else.
+launches the kernel or raises.  A tensor on the ``meta`` device (the
+dry-run's trace, launch/dryrun.py) carries no data: ``flash_attention``
+returns the plain version's forward under ordinary autograd there, so a
+traced step counts the work of the JAX model's jnp attention and its
+autodiff, which is what XLA counts; ``_forward`` and
+``flash_attention_bwd`` refuse it, as every other device.
+``flash_attention.launches`` counts forward kernel launches,
+``flash_attention_bwd.launches`` backward ones (one a call: the C entry
+launches its two kernels), and nothing else.
 """
 from __future__ import annotations
 
@@ -214,7 +220,11 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True):
     """q (B, S, H, Dh), k/v (B, S, Hkv, Dh) → (B, S, H, Dh) in q's dtype.
     Differentiable through ``FlashAttention`` when grad is enabled and an
-    input requires it; otherwise the forward alone, with no log-sum-exp."""
+    input requires it; otherwise the forward alone, with no log-sum-exp.
+    On ``meta``, the plain version under ordinary autograd."""
+    if q.device.type == "meta":
+        _check(q, k, v)
+        return flash_attention_ref(q, k, v, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal)
     return _forward(q, k, v, causal, with_lse=False)

@@ -1,13 +1,21 @@
-"""The partition mesh of the multi-partition GNN path.
+"""Meshes: the partition mesh of the multi-partition GNN path, and the
+JAX package's production and host LM meshes as device-free meshes.
 
-A function (not a module-level constant) so importing this module never
-touches device state.  Only the partition mesh is here: the JAX package's
-production and host LM meshes are LM sharding, which the port has not
-taken (ROADMAP.md, slice 8).
+Functions (not module-level constants) so importing this module never
+touches device state.  ``make_production_mesh`` and ``make_host_mesh``
+return an :class:`AbstractMesh`: the axis names and sizes of the JAX
+package's meshes ((16, 16) ``("data", "model")``, (2, 16, 16) ``("pod",
+"data", "model")``, (1, 1)) with no devices behind them, which
+``distributed/sharding.py`` resolves partition specs against and the
+dry-run (launch/dryrun.py) sizes each device's share by.  ``axis_sizes``
+is the one accessor of a mesh's axis sizes for every kind of mesh.
 """
 from __future__ import annotations
 
+import math
+from collections.abc import Mapping
 from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 
@@ -37,6 +45,44 @@ class HostSimMesh:
     @property
     def shape(self):
         return {self.axis: self.size}
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of named axes with no devices behind it."""
+    sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of an ``AbstractMesh``, a ``HostSimMesh`` (their
+    ``shape`` mapping) or any mesh with ``axis_names`` and a
+    ``devices.shape``."""
+    shape = getattr(mesh, "shape", None)
+    if isinstance(shape, Mapping):
+        return dict(shape)
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The JAX package's production mesh: a 16 x 16 pod, two with
+    ``multi_pod``."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
+
+
+def make_host_mesh() -> AbstractMesh:
+    """One device, the production mesh's axis names kept."""
+    return AbstractMesh((1, 1), ("data", "model"))
 
 
 def device_count(device="cuda") -> int:

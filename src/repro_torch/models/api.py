@@ -10,28 +10,31 @@ parameters first:
   * ``prefill(params, batch)``         → (logits, caches)  the block prefill
   * ``decode(params, caches, batch)``  → (logits, caches)  one decode step
   * ``cache_decls(batch, len)``        decode-cache declarations
+  * ``input_specs(shape)``             ``meta`` stand-ins for every input
+                                       and their logical partition specs:
+                                       the dry-run's entry (launch/dryrun.py)
 
 The pure-SSM LM (a Mamba2 stack) lives here, as in JAX.
 ``compute_params`` makes the one compute-dtype copy of the f32 master
-weights that a serving engine keeps.  The dry-run's ``input_specs`` is not
-ported.
+weights that a serving engine keeps.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
-from repro_torch.models.params import ParamDecl, stack_decls
+from repro_torch.models.params import ParamDecl, abstract_params, stack_decls
 
-VISION_PREFIX = 1024  # stubbed patch-embedding prefix length (vlm prefill)
+VISION_PREFIX = 1024  # stubbed patch-embedding prefix length (vlm prefill/train)
 # leaves the JAX package reads in f32 from the f32 master at every use:
 # norm scales and LayerNorm biases, the MoE router, the SSM's decay and
 # step bias
@@ -72,9 +75,11 @@ def _ssm_cache_decls(cfg, batch, cache_len):
     d_inner, nheads, N, conv_dim = SSM.ssm_dims(cfg)
     return {
         "ssm": ParamDecl((cfg.num_layers, batch, nheads, cfg.ssm_head_dim, N),
-                         torch.float32, "zeros"),
+                         torch.float32, (None, "dp", "tp", None, None),
+                         "zeros"),
         "conv": ParamDecl((cfg.num_layers, batch, cfg.ssm_conv_width - 1,
-                           conv_dim), T._cdt(cfg), "zeros"),
+                           conv_dim), T._cdt(cfg), (None, "dp", None, "tp"),
+                          "zeros"),
     }
 
 
@@ -114,6 +119,52 @@ class Model:
 
     def cache_decls(self, batch: int, cache_len: int):
         return self.cache_decls_fn(batch, cache_len)
+
+    # -- dry-run inputs ------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """``meta`` tensors standing in for one shape cell's inputs, their
+        logical partition specs, and for decode the cache declarations and
+        their ``meta`` tensors: the JAX package's ``input_specs``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        cdt = T._cdt(cfg)
+
+        def sds(shp, dtype=torch.int32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        def frontends(batch, specs):
+            if cfg.family == "encdec":
+                batch["audio_embeds"] = sds((B, cfg.encoder_seq, cfg.d_model),
+                                            cdt)
+                specs["audio_embeds"] = P("dp", None, None)
+            if cfg.family == "vlm":
+                vp = min(VISION_PREFIX, S // 4)
+                batch["vision_embeds"] = sds((B, vp, cfg.d_model), cdt)
+                specs["vision_embeds"] = P("dp", None, None)
+                batch["positions"] = sds((3, B, S))
+                specs["positions"] = P(None, "dp", None)
+
+        if shape.kind == "train":
+            batch = {"tokens": sds((B, S)), "targets": sds((B, S))}
+            specs = {"tokens": P("dp", None), "targets": P("dp", None)}
+            frontends(batch, specs)
+            return {"kind": "train", "batch": batch, "batch_specs": specs}
+
+        if shape.kind == "prefill":
+            batch = {"tokens": sds((B, S))}
+            specs = {"tokens": P("dp", None)}
+            frontends(batch, specs)
+            return {"kind": "prefill", "batch": batch, "batch_specs": specs}
+
+        # decode: one new token against a seq_len cache
+        batch = {"token": sds((B,)), "pos": sds((B,))}
+        specs = {"token": P("dp"), "pos": P("dp")}
+        if cfg.family == "vlm":
+            batch["positions"] = sds((3, B, 1))
+            specs["positions"] = P(None, "dp", None)
+        cdecls = self.cache_decls(B, S)
+        return {"kind": "decode", "batch": batch, "batch_specs": specs,
+                "caches": abstract_params(cdecls), "cache_decls": cdecls}
 
 
 def build(cfg: ModelConfig) -> Model:

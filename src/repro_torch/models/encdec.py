@@ -45,10 +45,10 @@ def decls_encdec(cfg):
     }
     return {
         "embed": L.decls_embedding(cfg),
-        "pos_enc": decl((cfg.encoder_seq, cfg.d_model), init="normal",
-                        scale=0.02),
-        "pos_dec": decl((cfg.max_seq, cfg.d_model), init="normal",
-                        scale=0.02),
+        "pos_enc": decl((cfg.encoder_seq, cfg.d_model), (None, "fsdp"),
+                        init="normal", scale=0.02),
+        "pos_dec": decl((cfg.max_seq, cfg.d_model), (None, "fsdp"),
+                        init="normal", scale=0.02),
         "encoder": stack_decls(enc_layer, cfg.encoder_layers),
         "decoder": stack_decls(dec_layer, cfg.num_layers),
         "ln_enc": L.decls_layernorm(cfg.d_model),
@@ -129,10 +129,12 @@ def cache_decls(cfg, batch: int, cache_len: int):
                          _cdt(cfg))
     self_kv = (Lyr, batch, cache_len, Hkv, Dh)
     cross = (Lyr, batch, cfg.encoder_seq, Hkv, Dh)
-    return {"k": ParamDecl(self_kv, cdt, "zeros"),
-            "v": ParamDecl(self_kv, cdt, "zeros"),
-            "xk": ParamDecl(cross, cdt, "zeros"),
-            "xv": ParamDecl(cross, cdt, "zeros")}
+    self_axes = (None, "dp", "kvseq", "kvheads", None)
+    cross_axes = (None, "dp", None, "kvheads", None)
+    return {"k": ParamDecl(self_kv, cdt, self_axes, "zeros"),
+            "v": ParamDecl(self_kv, cdt, self_axes, "zeros"),
+            "xk": ParamDecl(cross, cdt, cross_axes, "zeros"),
+            "xv": ParamDecl(cross, cdt, cross_axes, "zeros")}
 
 
 def prefill(params, batch, cfg):

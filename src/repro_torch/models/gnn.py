@@ -44,23 +44,25 @@ def decls_gnn(cfg):
     layers = []
     for (din, dout) in layer_dims(cfg):
         if cfg.model == "graphsage":
-            layers.append({"w_self": decl((din, dout)),
-                           "w_neigh": decl((din, dout)),
-                           "b": decl((dout,), init="zeros")})
+            layers.append({"w_self": decl((din, dout), (None, None)),
+                           "w_neigh": decl((din, dout), (None, None)),
+                           "b": decl((dout,), (None,), init="zeros")})
         elif cfg.model == "gcn":
-            layers.append({"w": decl((din, dout)),
-                           "b": decl((dout,), init="zeros")})
+            layers.append({"w": decl((din, dout), (None, None)),
+                           "b": decl((dout,), (None,), init="zeros")})
         elif cfg.model == "gat":
-            layers.append({"w": decl((din, dout)),
-                           "a_src": decl((dout,), scale=0.1, init="normal"),
-                           "a_dst": decl((dout,), scale=0.1, init="normal"),
-                           "b": decl((dout,), init="zeros")})
+            layers.append({"w": decl((din, dout), (None, None)),
+                           "a_src": decl((dout,), (None,), scale=0.1,
+                                         init="normal"),
+                           "a_dst": decl((dout,), (None,), scale=0.1,
+                                         init="normal"),
+                           "b": decl((dout,), (None,), init="zeros")})
         elif cfg.model == "gin":
-            layers.append({"eps": decl((1,), init="zeros"),
-                           "w1": decl((din, dout)),
-                           "b1": decl((dout,), init="zeros"),
-                           "w2": decl((dout, dout)),
-                           "b2": decl((dout,), init="zeros")})
+            layers.append({"eps": decl((1,), (None,), init="zeros"),
+                           "w1": decl((din, dout), (None, None)),
+                           "b1": decl((dout,), (None,), init="zeros"),
+                           "w2": decl((dout, dout), (None, None)),
+                           "b2": decl((dout,), (None,), init="zeros")})
         else:
             raise ValueError(cfg.model)
     return {"layers": layers}

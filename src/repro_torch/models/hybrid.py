@@ -60,11 +60,14 @@ def cache_decls(cfg, batch: int, cache_len: int):
     kv = (n_attn, batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
     return {
         "ssm": ParamDecl((Lyr, batch, nheads, cfg.ssm_head_dim, N),
-                         torch.float32, "zeros"),
+                         torch.float32, (None, "dp", "tp", None, None),
+                         "zeros"),
         "conv": ParamDecl((Lyr, batch, cfg.ssm_conv_width - 1, conv_dim),
-                          cdt, "zeros"),
-        "k": ParamDecl(kv, cdt, "zeros"),
-        "v": ParamDecl(kv, cdt, "zeros"),
+                          cdt, (None, "dp", None, "tp"), "zeros"),
+        "k": ParamDecl(kv, cdt, (None, "dp", "kvseq", "kvheads", None),
+                       "zeros"),
+        "v": ParamDecl(kv, cdt, (None, "dp", "kvseq", "kvheads", None),
+                       "zeros"),
     }
 
 

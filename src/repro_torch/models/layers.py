@@ -44,7 +44,7 @@ def _proj(x, w):
 # ---------------------------------------------------------------------------
 
 def decls_rmsnorm(d):
-    return {"scale": decl((d,), init="ones")}
+    return {"scale": decl((d,), (None,), init="ones")}
 
 
 def rmsnorm(p, x, eps=1e-6):
@@ -56,8 +56,8 @@ def rmsnorm(p, x, eps=1e-6):
 
 
 def decls_layernorm(d):
-    return {"scale": decl((d,), init="ones"),
-            "bias": decl((d,), init="zeros")}
+    return {"scale": decl((d,), (None,), init="ones"),
+            "bias": decl((d,), (None,), init="zeros")}
 
 
 def layernorm(p, x, eps=1e-5):
@@ -94,7 +94,8 @@ def mrope_angles(positions, freqs, sections):
     here gives the same angles bit for bit."""
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=freqs.device),
-        torch.tensor(sections, device=freqs.device))            # (Dh/2,)
+        torch.tensor(sections, device=freqs.device),
+        output_size=sum(sections))                               # (Dh/2,)
     return positions.float()[sec_id].movedim(0, -1) * freqs
 
 
@@ -133,8 +134,10 @@ def eff_heads(cfg) -> int:
 def decls_attention(cfg):
     D, Hkv, Dh = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
     H = eff_heads(cfg)
-    d = {"wq": decl((D, H, Dh)), "wk": decl((D, Hkv, Dh)),
-         "wv": decl((D, Hkv, Dh)), "wo": decl((H, Dh, D))}
+    d = {"wq": decl((D, H, Dh), ("fsdp", "qheads", None)),
+         "wk": decl((D, Hkv, Dh), ("fsdp", "tp_kv", None)),
+         "wv": decl((D, Hkv, Dh), ("fsdp", "tp_kv", None)),
+         "wo": decl((H, Dh, D), ("qheads", None, "fsdp"))}
     if cfg.qk_norm:
         d["q_norm"] = decls_rmsnorm(Dh)
         d["k_norm"] = decls_rmsnorm(Dh)
@@ -270,9 +273,11 @@ def cross_kv(p, enc_out, cfg):
 def decls_mlp(cfg):
     D, Fd = cfg.d_model, cfg.d_ff
     if cfg.mlp_type == "swiglu":
-        return {"w_gate": decl((D, Fd)), "w_up": decl((D, Fd)),
-                "w_down": decl((Fd, D))}
-    return {"w_up": decl((D, Fd)), "w_down": decl((Fd, D))}
+        return {"w_gate": decl((D, Fd), ("fsdp", "tp")),
+                "w_up": decl((D, Fd), ("fsdp", "tp")),
+                "w_down": decl((Fd, D), ("tp", "fsdp"))}
+    return {"w_up": decl((D, Fd), ("fsdp", "tp")),
+            "w_down": decl((Fd, D), ("tp", "fsdp"))}
 
 
 def mlp(p, x, cfg):
@@ -290,9 +295,9 @@ def mlp(p, x, cfg):
 
 def decls_embedding(cfg):
     V, D = cfg.vocab_size, cfg.d_model
-    d = {"tok": decl((V, D), scale=1.0, init="normal")}
+    d = {"tok": decl((V, D), ("vocab", "fsdp"), scale=1.0, init="normal")}
     if not cfg.tie_embeddings:
-        d["out"] = decl((D, V))
+        d["out"] = decl((D, V), ("fsdp", "vocab"))
     return d
 
 

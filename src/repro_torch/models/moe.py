@@ -1,18 +1,24 @@
 """Mixture-of-Experts layer: the JAX package's "gather-capacity" MoE.
 
-A port of ``src/repro/models/moe.py``, line for line, on one card (one
-data shard: ``DS = 1``):
+A port of ``src/repro/models/moe.py``, line for line.  The tokens are
+split into ``DS = ctx_dp_size()`` groups, the data shards of the sharding
+context (``distributed/sharding.py``; 1 with no context, and when DS does
+not divide the tokens), and each expert's capacity is per group, as in
+JAX.  The port runs on one card with no context, so its paths have DS = 1;
+the dry-run (launch/dryrun.py) traces under the production mesh's context
+and so counts JAX's grouping:
 
   1. router logits (T, E) in f32, the pad experts masked with -1e30; each
      token's top-k experts by probability, their weights renormalised
   2. per-expert scores (E, T): the routing weight where routed, -inf else
-  3. each expert's top-C tokens by score; the slots past an expert's
-     routed tokens are invalid and gather zeros
+  3. each expert's top-C tokens of each group by score; the slots past an
+     expert's routed tokens are invalid and gather zeros
   4. batched expert matmuls (E, C, D) @ (E, D, F)
   5. each token's contributions summed back, then the shared experts
 
-Tokens beyond an expert's capacity C = cf·k·T/E (rounded up to a multiple
-of 8, at most T) are dropped, as in GShard; the residual carries them.
+Tokens beyond an expert's capacity C = cf·k·(T/DS)/E (rounded up to a
+multiple of 8, at most T/DS) in a group are dropped, as in GShard; the
+residual carries them.
 
 Step 5 is JAX's scatter-add ``y.at[idx].add(out)``.  A scatter-add of
 floats on the card (``index_add_``) adds in whatever order its atomics
@@ -28,6 +34,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import ctx_dp_size
 from repro_torch.models.params import decl
 
 PAD_LOGIT = -1e30
@@ -36,14 +43,15 @@ PAD_LOGIT = -1e30
 def decls_moe(cfg):
     D, Fd = cfg.d_model, cfg.d_ff
     E = cfg.num_experts_padded
-    d = {"router": decl((D, E), scale=1.0),
-         "w_gate": decl((E, D, Fd)),
-         "w_up": decl((E, D, Fd)),
-         "w_down": decl((E, Fd, D))}
+    d = {"router": decl((D, E), ("fsdp", None), scale=1.0),
+         "w_gate": decl((E, D, Fd), ("expert", "fsdp", None)),
+         "w_up": decl((E, D, Fd), ("expert", "fsdp", None)),
+         "w_down": decl((E, Fd, D), ("expert", None, "fsdp"))}
     if cfg.shared_expert_ff:
         S = cfg.shared_expert_ff
-        d["shared"] = {"w_gate": decl((D, S)), "w_up": decl((D, S)),
-                       "w_down": decl((S, D))}
+        d["shared"] = {"w_gate": decl((D, S), ("fsdp", "tp")),
+                       "w_up": decl((D, S), ("fsdp", "tp")),
+                       "w_down": decl((S, D), ("tp", "fsdp"))}
     return d
 
 
@@ -87,7 +95,11 @@ def moe_mlp(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, D = x.shape
     T = B * S
     E, K = cfg.num_experts_padded, cfg.moe_top_k
-    C = capacity(cfg, T)
+    DS = ctx_dp_size()
+    if T % DS != 0:
+        DS = 1
+    Tl = T // DS
+    C = capacity(cfg, Tl)
     dev = x.device
 
     xt = x.reshape(T, D)
@@ -105,15 +117,18 @@ def moe_mlp(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     scores = torch.where(w_te > 0, w_te,
                          torch.full((), -torch.inf, device=dev)).T   # (E, T)
 
-    gathered_w, idx = torch.topk(scores, C, dim=-1)                  # (E, C)
+    gathered_w, idx = torch.topk(scores.reshape(E, DS, Tl), C, dim=-1)
+    if DS > 1:                       # each group's token ids made global
+        idx = idx + (torch.arange(DS, device=dev) * Tl)[None, :, None]
+    gathered_w, idx = gathered_w.reshape(E, DS * C), idx.reshape(E, DS * C)
     valid = torch.isfinite(gathered_w)
     gate_w = torch.where(valid, gathered_w, torch.zeros((), device=dev))
 
-    buf = xt[idx.reshape(-1)].view(E, C, D)
+    buf = xt[idx.reshape(-1)].view(E, DS * C, D)
     buf = buf * valid[..., None].to(buf.dtype)
     g = torch.bmm(buf, p["w_gate"].to(buf.dtype))
     u = torch.bmm(buf, p["w_up"].to(buf.dtype))
-    out = torch.bmm(F.silu(g) * u, p["w_down"].to(buf.dtype))       # (E, C, D)
+    out = torch.bmm(F.silu(g) * u, p["w_down"].to(buf.dtype))   # (E, DS·C, D)
     out = out * gate_w[..., None].to(out.dtype)
 
     y = combine(out, idx, valid, topi).view(B, S, D)

@@ -1,33 +1,52 @@
 """Parameter declarations and the port's own initializer.
 
 A model declares its parameters once as a tree (dicts and lists) of
-:class:`ParamDecl`; ``init_params`` materializes it from a
-``torch.Generator`` and ``param_bytes`` sizes it.  ``stack_decls`` adds
-the leading layer axis of the LM's layer stack.  Unlike the JAX package's
-declarations, the port's carry no sharding axes.  The JAX package draws
-its initial values from ``jax.random`` threefry, which torch cannot
-replay: parity tests load those values through ``models/convert.py``
-instead, and standalone runs use this initializer.
+:class:`ParamDecl` (shape, dtype, logical sharding axes, initializer),
+the JAX package's fields in its order.  From it derive:
+
+  * ``init_params``      materialized tensors (the port's initializer)
+  * ``abstract_params``  ``meta`` tensors: shapes and dtypes, no storage
+                         (the dry-run, launch/dryrun.py)
+  * ``logical_specs``    the tree of logical partition specs
+                         (``distributed.sharding.P``)
+  * ``param_count`` / ``param_bytes``
+
+``stack_decls`` adds the leading (replicated) layer axis of the LM's layer
+stack.  The logical axis names are the JAX package's: ``fsdp``, ``tp``,
+``tp_kv``, ``qheads``, ``expert``, ``vocab``, ``dp``, ``kvseq``,
+``kvheads`` and ``None`` (replicated); ``distributed/sharding.py``
+resolves them against a mesh.  The JAX package draws its initial values
+from ``jax.random`` threefry, which torch cannot replay: parity tests load
+those values through ``models/convert.py`` instead, and standalone runs use
+this initializer.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
+
+Logical = Tuple[Any, ...]  # logical axis names (str, a tuple of them, None)
 
 
 @dataclass(frozen=True)
 class ParamDecl:
     shape: Tuple[int, ...]
-    dtype: torch.dtype = torch.float32
-    init: str = "scaled"                # normal | zeros | ones | scaled
+    dtype: torch.dtype
+    axes: Logical                       # logical sharding, len == len(shape)
+    init: str = "normal"                # normal | zeros | ones | scaled
     scale: float = 1.0                  # stddev multiplier (fan-in for 'scaled')
 
+    def __post_init__(self):
+        assert len(self.axes) == len(self.shape), (self.shape, self.axes)
 
-def decl(shape, init="scaled", scale=1.0, dtype=torch.float32) -> ParamDecl:
-    return ParamDecl(tuple(int(s) for s in shape), dtype, init, scale)
+
+def decl(shape, axes, init="scaled", scale=1.0,
+         dtype=torch.float32) -> ParamDecl:
+    return ParamDecl(tuple(int(s) for s in shape), dtype, tuple(axes), init,
+                     scale)
 
 
 def leaves(tree) -> list:
@@ -49,12 +68,30 @@ def tree_map(fn, tree) -> Any:
     return fn(tree)
 
 
+def tree_map_decls(fn: Callable[[ParamDecl], Any], decls):
+    return tree_map(fn, decls)
+
+
 def stack_decls(decls, n: int):
-    """Add a leading layer axis of size ``n`` to every decl in the subtree.
-    A ``scaled`` init then reads its fan-in from the stacked shape, as the
-    JAX package's does."""
-    return tree_map(lambda d: ParamDecl((n,) + d.shape, d.dtype, d.init,
-                                        d.scale), decls)
+    """Add a leading (replicated) layer axis of size ``n`` to every decl in
+    the subtree.  A ``scaled`` init then reads its fan-in from the stacked
+    shape, as the JAX package's does."""
+    return tree_map(lambda d: ParamDecl((n,) + d.shape, d.dtype,
+                                        (None,) + d.axes, d.init, d.scale),
+                    decls)
+
+
+def abstract_params(decls, dtype_override: Optional[torch.dtype] = None):
+    """Each leaf as an empty tensor on the ``meta`` device: its shape and
+    dtype (``dtype_override`` for every leaf, if given), no storage."""
+    return tree_map(lambda d: torch.empty(d.shape,
+                                          dtype=dtype_override or d.dtype,
+                                          device="meta"), decls)
+
+
+def logical_specs(decls):
+    from repro_torch.distributed.sharding import P
+    return tree_map(lambda d: P(*d.axes), decls)
 
 
 def unflatten(tree, flat) -> Any:
@@ -97,6 +134,10 @@ def init_params(decls, generator: torch.Generator, device="cuda",
         t = torch.randn(d.shape, generator=generator, device=gdev).mul_(std)
         return t.to(device=device, dtype=dt)
     return unflatten(decls, [one(d) for d in leaves(decls)])
+
+
+def param_count(decls) -> int:
+    return sum(math.prod(d.shape) for d in leaves(decls))
 
 
 def param_bytes(decls) -> int:

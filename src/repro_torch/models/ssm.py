@@ -37,14 +37,14 @@ def decls_mamba2(cfg):
     d_inner, nheads, N, conv_dim = ssm_dims(cfg)
     # in_proj → [z (d_inner), x (d_inner), B (N), C (N), dt (nheads)]
     return {
-        "in_proj": decl((D, 2 * d_inner + 2 * N + nheads)),
-        "conv_w": decl((cfg.ssm_conv_width, conv_dim)),
-        "conv_b": decl((conv_dim,), init="zeros"),
-        "A_log": decl((nheads,), init="zeros"),
-        "D": decl((nheads,), init="ones"),
-        "dt_bias": decl((nheads,), init="zeros"),
+        "in_proj": decl((D, 2 * d_inner + 2 * N + nheads), ("fsdp", "tp")),
+        "conv_w": decl((cfg.ssm_conv_width, conv_dim), (None, "tp")),
+        "conv_b": decl((conv_dim,), ("tp",), init="zeros"),
+        "A_log": decl((nheads,), ("tp",), init="zeros"),
+        "D": decl((nheads,), ("tp",), init="ones"),
+        "dt_bias": decl((nheads,), ("tp",), init="zeros"),
         "norm": decls_rmsnorm(d_inner),
-        "out_proj": decl((d_inner, D)),
+        "out_proj": decl((d_inner, D), ("tp", "fsdp")),
     }
 
 

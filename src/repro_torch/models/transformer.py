@@ -16,9 +16,11 @@ backward stacks the layers' gradients once, where indexing ``a[i]`` per
 layer would allocate a zero gradient of the whole stack per layer and
 leaf) and applies ``cfg.remat`` to the layer body (``_remat``): ``"full"``
 a non-reentrant ``torch.utils.checkpoint`` a layer, ``"dots"`` a selective
-one that keeps the outputs of the matrix products (``aten.mm``, ``addmm``,
-``bmm``) and recomputes the rest, attention (the flash kernel) included:
-JAX's ``dots_with_no_batch_dims_saveable``.
+one that keeps the outputs of the matrix products with no batch dims
+(``aten.mm``, ``addmm``: the projections and MLPs) and recomputes the
+rest, attention (the flash kernel, or its plain version's batched
+products) and the MoE's batched expert products included: JAX's
+``dots_with_no_batch_dims_saveable``.
 
 The VLM (Qwen2-VL) is this model with M-RoPE: its prefill takes
 ``vision_embeds (B, VP, D)``, precomputed patch embeddings (the vision
@@ -54,8 +56,8 @@ def decls_lm(cfg):
          "layers": stack_decls(decls_layer(cfg), cfg.num_layers),
          "ln_f": L.decls_rmsnorm(cfg.d_model)}
     if not cfg.use_rope:
-        d["pos_emb"] = decl((cfg.max_seq, cfg.d_model), init="normal",
-                            scale=0.02)
+        d["pos_emb"] = decl((cfg.max_seq, cfg.d_model), (None, "fsdp"),
+                            init="normal", scale=0.02)
     return d
 
 
@@ -102,13 +104,12 @@ def _unstack(stacked, n: int):
     return [unflatten(stacked, [c[i] for c in cols]) for i in range(n)]
 
 
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-         torch.ops.aten.bmm.default)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _save_dots():
-    """Selective-checkpoint contexts that keep the matrix products'
-    outputs and recompute every other op."""
+    """Selective-checkpoint contexts that keep the outputs of the matrix
+    products with no batch dims and recompute every other op."""
     from torch.utils.checkpoint import (CheckpointPolicy,
                                         create_selective_checkpoint_contexts)
 
@@ -179,9 +180,10 @@ def loss_fn(params, batch, cfg):
 
 def cache_decls(cfg, batch: int, cache_len: int):
     """KV cache: stacked (L, B, T, Hkv, Dh) zeros in the compute dtype."""
+    axes = (None, "dp", "kvseq", "kvheads", None)
     shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": ParamDecl(shape, _cdt(cfg), "zeros"),
-            "v": ParamDecl(shape, _cdt(cfg), "zeros")}
+    return {"k": ParamDecl(shape, _cdt(cfg), axes, "zeros"),
+            "v": ParamDecl(shape, _cdt(cfg), axes, "zeros")}
 
 
 def prefill(params, batch, cfg):

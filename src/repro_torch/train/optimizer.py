@@ -8,6 +8,12 @@ clip), f32 state, an integer step ``count``, and work on parameter trees
 (dicts and lists of tensors) whose state mirrors the tree by name, as the
 checkpoint format needs.
 
+Every optimizer declares its state as the JAX package's does:
+``state_decls(param_decls)`` mirrors the declarations (f32, each
+parameter's logical axes; Adafactor's factored ``vr`` / ``vc`` drop the
+last and the second-to-last axis), with an int32 ``count``, so the dry-run
+(launch/dryrun.py) sizes and shards the state without allocating it.
+
 Every optimizer has ``update_(grads, state, params, lr)``, in place: each
 leaf's state and parameter are written where they lie, under
 ``torch.no_grad()``, and ``grads`` (a list in ``leaves`` order) gives up
@@ -27,17 +33,27 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models.params import leaves, unflatten
+from repro_torch.models.params import (ParamDecl, leaves, tree_map_decls,
+                                       unflatten)
 
 SLICE = 1 << 26    # elements of one slice of an elementwise in-place update
 
 
 class Optimizer(NamedTuple):
     name: str
+    state_decls: Callable[[Any], Any]
     init: Callable[[Any], Any]
     update_: Callable[[List[Optional[torch.Tensor]], Any, Any, Any], None]
     # the functional form (AdamW only)
     update: Optional[Callable[[Any, Any, Any, Any], Tuple[Any, Any]]] = None
+
+
+def _mirror(d: ParamDecl, dtype=torch.float32) -> ParamDecl:
+    return ParamDecl(d.shape, dtype, d.axes, "zeros")
+
+
+def _count_decl() -> ParamDecl:
+    return ParamDecl((), torch.int32, (), "zeros")
 
 
 def _zeros(params):
@@ -76,6 +92,11 @@ def _bias_corrections(b1, b2, c, dev):
 # ---------------------------------------------------------------------------
 
 def make_adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
+    def state_decls(decls):
+        return {"m": tree_map_decls(_mirror, decls),
+                "v": tree_map_decls(_mirror, decls),
+                "count": _count_decl()}
+
     def init(params):
         return {"m": _zeros(params), "v": _zeros(params), "count": 0}
 
@@ -113,7 +134,7 @@ def make_adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
                    one)
         state["count"] = c
 
-    return Optimizer("adamw", init, update_, update)
+    return Optimizer("adamw", state_decls, init, update_, update)
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +156,17 @@ def _per_leaf(params, tree):
 
 
 def make_adafactor(b2=0.99, eps=1e-30, clip_rms=1.0) -> Optimizer:
+    def state_decls(decls):
+        def one(d: ParamDecl):
+            if len(d.shape) >= 2 and d.shape[-1] > 1 and d.shape[-2] > 1:
+                return {"vr": ParamDecl(d.shape[:-1], torch.float32,
+                                        d.axes[:-1], "zeros"),
+                        "vc": ParamDecl(d.shape[:-2] + d.shape[-1:],
+                                        torch.float32,
+                                        d.axes[:-2] + d.axes[-1:], "zeros")}
+            return {"v": _mirror(d)}
+        return {"fac": tree_map_decls(one, decls), "count": _count_decl()}
+
     def init(params):
         def one(p):
             if _factored(p):
@@ -176,7 +208,7 @@ def make_adafactor(b2=0.99, eps=1e-30, clip_rms=1.0) -> Optimizer:
         _each_leaf(grads, (_per_leaf(params, state["fac"]),), params, one)
         state["count"] += 1
 
-    return Optimizer("adafactor", init, update_)
+    return Optimizer("adafactor", state_decls, init, update_)
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +216,9 @@ def make_adafactor(b2=0.99, eps=1e-30, clip_rms=1.0) -> Optimizer:
 # ---------------------------------------------------------------------------
 
 def make_sgd(momentum=0.9) -> Optimizer:
+    def state_decls(decls):
+        return {"mu": tree_map_decls(_mirror, decls), "count": _count_decl()}
+
     def init(params):
         return {"mu": _zeros(params), "count": 0}
 
@@ -195,10 +230,13 @@ def make_sgd(momentum=0.9) -> Optimizer:
         _each_leaf(grads, (leaves(state["mu"]),), params, one)
         state["count"] += 1
 
-    return Optimizer("sgd", init, update_)
+    return Optimizer("sgd", state_decls, init, update_)
 
 
 def make_lion(b1=0.9, b2=0.99, weight_decay=0.0) -> Optimizer:
+    def state_decls(decls):
+        return {"m": tree_map_decls(_mirror, decls), "count": _count_decl()}
+
     def init(params):
         return {"m": _zeros(params), "count": 0}
 
@@ -218,7 +256,7 @@ def make_lion(b1=0.9, b2=0.99, weight_decay=0.0) -> Optimizer:
         _each_leaf(grads, (leaves(state["m"]),), params, one)
         state["count"] += 1
 
-    return Optimizer("lion", init, update_)
+    return Optimizer("lion", state_decls, init, update_)
 
 
 def get_optimizer(cfg) -> Optimizer:
