@@ -268,13 +268,33 @@ Phases; any failure exits non-zero:
    ``flash_attention`` launches counted; (c) the dry-run of every LM arch
    x applicable shape x ``single`` and ``multi`` (params, argument GiB a
    device, FLOPs a device, host seconds; fails on any cell that errors);
-   then the phase's seconds.
+   then the phase's seconds;
+16. the partition mesh as a ``torch.distributed`` group — (a) phase 9's
+   arguments as 2 ``gloo`` ranks sharing the card, spawned by
+   ``launch/group.spawn_partitions`` with the launcher's rank code
+   (``launch.train.gnn_rank``: ``run_gnn_multipartition`` in each rank,
+   one partition a process): each partition's losses, the final params
+   and ``opt_state``, the restored trainer's, the accuracy, the hit
+   rates, each partition's halo rows through its plane, the committed
+   checkpoint and its manifest held bit-equal to phase 9's run (read
+   right after it), the launches summed over the ranks equal to phase
+   9's, each rank's median of 3 warm global steps printed beside phase
+   9's; (b) every group collective (``grad_allreduce``,
+   ``compressed_psum_int8``, the cross-pod transform,
+   ``flash_decode_attention`` at qwen3-4b's decode shape,
+   ``all_gather_objects``) over a one-rank ``nccl`` group on the card and
+   (c) over the 2 ``gloo`` ranks, bit-equal to their host-simulated forms
+   on the card; a line saying that the two-rank ``nccl`` run needs a
+   second card (``scripts/group_nccl.py`` runs it where there are two);
+   no rank may import JAX or the JAX package.  The script drives one
+   card: with more it stops at once (``CUDA_VISIBLE_DEVICES=0`` runs it).
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels (the
 ``flash_attention`` entry with ``path_launches`` of phases 12 and 13's
 prefills and the forward's ``train_launches`` of phase 14; the backward's
-own entry, ``flash_attention_bwd``) and the last line is ``{"ok": true,
+own entry, ``flash_attention_bwd``; the GNN training kernels'
+``group_launches`` of phase 16, summed over the ranks) and the last line is ``{"ok": true,
 "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -2105,12 +2125,16 @@ def phase_multipart(torch, stamp: str) -> dict:
     from repro_torch.graph.batch import (batch_device_arrays,
                                          compute_level_caps)
     from repro_torch.launch.mesh import HostSimMesh
+    from repro_torch.launch.train import multipartition_summary
     from repro_torch.models.gnn import make_grad_fn_allfused
     from repro_torch.models.params import init_params, leaves
     from repro_torch.train.checkpoint import CheckpointManager
 
     rep, launches, wall = _run_multipart(torch, MULTIPART_ARGS, stamp)
     tr, tr2, sup = rep["trainer"], rep["restored"], rep["report"]
+    # what phase 16's group run is held to, read before any check below
+    # moves the trainer or reads through its planes
+    ref = multipartition_summary(rep)
     cfg, plan, parts = tr.cfg, tr.plan, tr.plan.parts
     steps = sup.steps_run
     try:
@@ -2176,6 +2200,7 @@ def phase_multipart(torch, stamp: str) -> dict:
         with np.load(Path(rep["ckpt_dir"]) / f"step_{step:09d}" /
                      "shard_0.npz") as z:
             on_disk = {k: z[k] for k in z.files}
+        ref["ckpt"], ref["manifest"] = on_disk, mgr.read_manifest(step)
         from repro_torch.train.checkpoint import _flatten_with_names
         disk_ok = all(
             np.array_equal(on_disk[f"{g}/{n}".replace("/", "__")],
@@ -2285,6 +2310,7 @@ def phase_multipart(torch, stamp: str) -> dict:
                                   for q, v in zip(plan.owner[hs], hs)])
             halo_ok.append((len(hs), resident,
                             bool(np.array_equal(got, want_rows))))
+            ref.setdefault("halo_rows", {})[slot.index] = got
         print(f"[check] halo rows (rows, resident on the card, bit-equal to "
               f"the owner's) per partition: {halo_ok}", flush=True)
         if not all(ok and n == res for n, res, ok in halo_ok):
@@ -2327,6 +2353,7 @@ def phase_multipart(torch, stamp: str) -> dict:
             fail("the profiler recorded no device time over 2 global steps")
         busy_ms = sum(r[1] for r in rows) / 2e3
         step_ms = float(np.median(walls)) * 1e3
+        ref["step_ms"], ref["busy_ms"] = step_ms, busy_ms
         top = "; ".join(f"{k[:60]} {t / 2e3:.3f} ms/step ({c // 2}/step)"
                         for k, t, c in rows[:8])
         print(f"[profile] 2 warm global steps: device busy {busy_ms:.3f} "
@@ -2365,7 +2392,7 @@ def phase_multipart(torch, stamp: str) -> dict:
         for t in (utr, urep["restored"]):
             for slot in t.slots:
                 slot.pipe.shutdown()
-    return {"fused": launches, "unfused": ulaunch}
+    return {"fused": launches, "unfused": ulaunch, "ref": ref}
 
 
 @contextlib.contextmanager
@@ -4451,6 +4478,233 @@ def phase_accounting(torch, stamp: str, train_entry: dict) -> dict:
             "cells": len(cells)}
 
 
+GROUP_TIMED_STEPS = 3       # each rank's warm global steps, as phase 9's
+GROUP_JOIN_S = 600          # a spawn's join timeout
+
+
+def _same(a, b) -> bool:
+    """Bit-equal: dtype, shape and bytes (a -0.0 is not a +0.0)."""
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def _first_difference(got: dict, want: dict, label: str):
+    """The first leaf (in name order) where two named-array dicts differ,
+    with its size, or None."""
+    import numpy as np
+    if got.keys() != want.keys():
+        return f"{label}: leaves {sorted(set(got) ^ set(want))} differ"
+    for k in sorted(want):
+        if not _same(got[k], want[k]):
+            a, b = np.asarray(got[k], np.float64), np.asarray(want[k],
+                                                             np.float64)
+            size = (float(np.abs(a - b).max()) if a.shape == b.shape
+                    else f"shapes {a.shape} {b.shape}")
+            return f"{label}: first leaf {k} differs, max |diff| {size}"
+    return None
+
+
+def _hold_group_rank(r: int, got: dict, ref: dict) -> list:
+    """Where rank r's run differs from phase 9's partition r."""
+    import numpy as np
+    bad = []
+    a, b = got["losses"][r], ref["losses"][r]
+    if not _same(np.array(a), np.array(b)):
+        step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+        bad.append(f"rank {r}: losses first differ at step {step} "
+                   f"({a[step:step + 1]} vs {b[step:step + 1]})")
+    for key in ("state", "restored_state"):
+        diff = _first_difference(got[key], ref[key], f"rank {r} {key}")
+        if diff:
+            bad.append(diff)
+    for key in ("report", "global_steps", "acc", "restored_acc",
+                "restored_step", "restored_global_steps", "cache_hit_rate",
+                "halo_hit_rate", "halo_exchange_bytes", "fused_grad_calls"):
+        if got[key] != ref[key]:
+            bad.append(f"rank {r}: {key} {got[key]} vs {ref[key]}")
+    if not _same(got["halo_rows"][r], ref["halo_rows"][r]):
+        bad.append(f"rank {r}: halo rows differ")
+    return bad
+
+
+def _group_train(torch, stamp: str, multipart: dict) -> dict:
+    """(a): phase 9's run as 2 gloo ranks sharing the card."""
+    import numpy as np
+
+    from repro_torch.launch.group import spawn_partitions
+    from repro_torch.launch.train import build_parser, gnn_rank
+    ref = multipart["ref"]
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_group_"))
+    try:
+        args = build_parser().parse_args(MULTIPART_ARGS +
+                                         ["--ckpt-dir", str(ckpt)])
+        t0 = time.perf_counter()
+        ranks = spawn_partitions(gnn_rank, 2, "gloo", ["cuda:0", "cuda:0"],
+                                 args=(args, None, GROUP_TIMED_STEPS, True),
+                                 timeout=GROUP_JOIN_S)
+        wall = time.perf_counter() - t0
+        step = ranks[0]["restored_step"]
+        with np.load(ckpt / f"step_{step:09d}" / "shard_0.npz") as z:
+            disk = {k: z[k] for k in z.files}
+        manifest = json.loads(
+            (ckpt / f"step_{step:09d}" / "MANIFEST.json").read_text())
+        shards = sorted(p.name for p in ckpt.glob("step_*/shard_*.npz"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for line in ranks[0]["stdout"].splitlines():
+        print(f"{line}  [rank 0 of 2, gloo; {stamp}]", flush=True)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    print(f"[group] (a) {ARCH} fused, full width, 2 gloo ranks sharing "
+          f"cuda:0 (phase 9's arguments, run_gnn_multipartition as each "
+          f"rank's code): launches by rank {[r['launches'] for r in ranks]}, "
+          f"summed {launches} (phase 9: {multipart['fused']}); spawn to "
+          f"both results {wall:.2f} s host, incl. each rank's start, graph, "
+          f"two plans and {GROUP_TIMED_STEPS} timed steps  [{stamp}]",
+          flush=True)
+    if launches != multipart["fused"]:
+        fail(f"the group run's launches {launches}, phase 9's "
+             f"{multipart['fused']}")
+    bad = [d for r, got in enumerate(ranks)
+           for d in _hold_group_rank(r, got, ref)]
+    diff = _first_difference(disk, ref["ckpt"], f"checkpoint step {step}")
+    if diff:
+        bad.append(diff)
+    manifest.pop("time")
+    want_manifest = {k: v for k, v in ref["manifest"].items() if k != "time"}
+    if manifest != want_manifest:
+        bad.append("the checkpoint's MANIFEST.json differs")
+    leaked = sorted({m for r in ranks for m in r["modules"]}
+                    & {"jax", "repro"})
+    print(f"[check] (a) against phase 9's host-simulated run on the same "
+          f"card: each partition's {len(ref['losses'][0])} losses, params "
+          f"and opt_state ({len(ref['state'])} leaves), the restored "
+          f"trainer's, accuracy {ranks[0]['acc']} (phase 9 {ref['acc']}), "
+          f"cache hit rate {ranks[0]['cache_hit_rate']}, halo hit rate "
+          f"{ranks[0]['halo_hit_rate']}, each partition's halo rows through "
+          f"its plane ({[len(ref['halo_rows'][p]) for p in (0, 1)]}), the "
+          f"step-{step} checkpoint ({shards}, {len(disk)} arrays) and its "
+          f"manifest: {'bit-equal' if not bad else bad}; the ranks imported "
+          f"{leaked or 'neither jax nor repro'}", flush=True)
+    if bad:
+        fail(f"the group run differs from phase 9: {bad[0]}")
+    if leaked:
+        fail(f"a rank imported {leaked}")
+    meds = [float(np.median(r["step_seconds"])) * 1e3 for r in ranks]
+    print(f"[group] (a) median of {GROUP_TIMED_STEPS} warm global steps: "
+          f"rank 0 {meds[0]:.1f} ms, rank 1 {meds[1]:.1f} ms (each "
+          f"{[round(w * 1e3, 1) for w in ranks[0]['step_seconds']]}, "
+          f"{[round(w * 1e3, 1) for w in ranks[1]['step_seconds']]}); phase "
+          f"9's 2 partitions in one process {ref['step_ms']:.1f} ms  "
+          f"[{stamp}]", flush=True)
+    return {"launches": launches, "step_ms": meds, "wall": wall}
+
+
+def _group_shim_inputs(torch, n: int, seed: int) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    cfg = get_config(DECODE_ARCH)
+    g = torch.Generator().manual_seed(seed)
+    x = [torch.randn(1024, 3072, generator=g).numpy() for _ in range(n)]
+    return {"compress": x, "crosspod": [{"w": a[:256]} for a in x],
+            "grad_trees": [{"w": a[:64], "z": np.full(8, -0.0, np.float32)}
+                           for a in x],
+            "decode": {"shape": (DECODE_BATCH, DECODE_CACHE, cfg.num_heads,
+                                 cfg.head_dim), "seed": seed},
+            "objects": f"{n} ranks"}
+
+
+def _hold_group_shims(torch, got: list, inputs: dict, n: int) -> list:
+    """Each rank's outputs against the host-simulated forms on the card."""
+    from repro_torch.distributed.collectives import (flash_decode_attention,
+                                                     grad_allreduce)
+    from repro_torch.launch.group import decode_inputs
+    from repro_torch.launch.mesh import HostSimMesh
+    from repro_torch.train.compression import compressed_psum_int8
+
+    def cuda(a):
+        return torch.from_numpy(a).cuda()
+
+    want = {
+        "compress": compressed_psum_int8(
+            [cuda(a) for a in inputs["compress"]], HostSimMesh(n, "pod")),
+        "crosspod": compressed_psum_int8(
+            [cuda(t["w"]) for t in inputs["crosspod"]],
+            HostSimMesh(n, "pod")),
+        "decode": flash_decode_attention(HostSimMesh(n, "model"), "model")(
+            *decode_inputs(inputs["decode"]["shape"],
+                           inputs["decode"]["seed"], "cuda"))}
+    mean = grad_allreduce(HostSimMesh(n))(
+        [{k: cuda(v) for k, v in t.items()} for t in inputs["grad_trees"]])
+    bad = []
+    for r, out in enumerate(got):
+        for key in ("compress", "decode"):
+            if not _same(out[key], want[key].cpu().numpy()):
+                bad.append(f"rank {r}: {key}")
+        if not _same(out["crosspod"]["w"], want["crosspod"].cpu().numpy()):
+            bad.append(f"rank {r}: crosspod")
+        for k, v in mean.items():
+            if not _same(out["grad_trees"][k], v.cpu().numpy()):
+                bad.append(f"rank {r}: grad_allreduce {k}")
+        if out["objects"] != [(q, inputs["objects"]) for q in range(n)]:
+            bad.append(f"rank {r}: all_gather_objects {out['objects']}")
+        leaked = {"jax", "repro"} & set(out["modules"])
+        if leaked:
+            bad.append(f"rank {r} imported {sorted(leaked)}")
+    return bad
+
+
+def _group_shims(torch, stamp: str, n: int, backend: str) -> dict:
+    """(b) and (c): every group collective over ``n`` ranks on cuda:0."""
+    from repro_torch.launch.group import collectives_rank, spawn_partitions
+    inputs = _group_shim_inputs(torch, n, 16 + n)
+    t0 = time.perf_counter()
+    got = spawn_partitions(collectives_rank, n, backend, ["cuda:0"] * n,
+                           args=(inputs,), timeout=GROUP_JOIN_S)
+    wall = time.perf_counter() - t0
+    bad = _hold_group_shims(torch, got, inputs, n)
+    B, T, H, Dh = inputs["decode"]["shape"]
+    verdict = ("each bit-equal to its host-simulated form on the card"
+               if not bad else bad)
+    print(f"[group] ({'b' if backend == 'nccl' else 'c'}) {n} {backend} "
+          f"rank(s) on cuda:0: grad_allreduce (one all_gather of the "
+          f"tree's bytes, uint8; a leaf of -0.0), compressed_psum_int8 and "
+          f"the cross-pod transform (f32 all_reduce MAX, int8 all_gather; "
+          f"1024 x 3072 f32 a member), flash_decode_attention at "
+          f"{DECODE_ARCH}'s decode shape (B {B}, cache {T}, H {H}, Dh {Dh}, "
+          f"f32 all_gather of the partials), all_gather_objects: "
+          f"{verdict}; "
+          f"spawn to results {wall:.2f} s host  [{stamp}]", flush=True)
+    if bad:
+        fail(f"group collectives over {n} {backend} rank(s): {bad[0]}")
+    return {"wall": wall}
+
+
+def phase_group(torch, stamp: str, multipart: dict) -> dict:
+    """Phase 16: the partition mesh as a torch.distributed group on the
+    card."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    train = _group_train(torch, stamp, multipart)
+    nccl = _group_shims(torch, stamp, 1, "nccl")
+    print("[group] halo_all_to_all over one member moves no row (a "
+          "one-partition plan has no halo); over nccl it runs in the "
+          "two-rank run", flush=True)
+    if torch.cuda.device_count() < 2:
+        print(f"[group] the two-rank NCCL run needs a second card: this "
+              f"machine has {torch.cuda.device_count()} "
+              f"(scripts/group_nccl.py runs (a) and the collectives over "
+              f"nccl, a card a rank, where there are two)", flush=True)
+    shims = _group_shims(torch, stamp, 2, "gloo")
+    print(f"[group] phase 16 in {time.perf_counter() - t_phase:.1f} s  "
+          f"[{stamp}]", flush=True)
+    return {"train": train, "nccl": nccl, "shims": shims}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4467,6 +4721,12 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
+    if torch.cuda.device_count() > 1:
+        fail(f"{torch.cuda.device_count()} cards: this script drives one "
+             f"(run it with CUDA_VISIBLE_DEVICES=0: with a card a partition "
+             f"the launcher spawns a process each, which phases 9-11's "
+             f"in-process trainers do not take); scripts/group_nccl.py runs "
+             f"the two-rank NCCL check")
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} is missing: run from a checkout")
     sys.path.insert(0, str(SRC))
@@ -4515,6 +4775,12 @@ def main() -> int:
     flash["train_launches"] = train_lm["flash_attention"]
     accounting = phase_accounting(torch, stamp, train_lm["entry"])
     flash["pipeline_launches"] = accounting["pipeline"]["flash_attention"]
+    group = phase_group(torch, stamp, multipart)
+    group_launches = group["train"]["launches"]
+    entries[1]["group_launches"] = group_launches["gather_aggregate"]
+    entries[2]["group_launches"] = group_launches["neighbor_agg"]
+    entries[2]["group_backward_launches"] = \
+        group_launches["neighbor_agg_backward"]
     entry["fabric_launches"] = sum(n for k, n in fabric["parts"].items()
                                    if k != "train")
     entry["fabric_warmup_train_launches"] = fabric["parts"]["train"]

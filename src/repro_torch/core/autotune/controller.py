@@ -431,8 +431,16 @@ class AutotuneController:
         ``halo_budget`` rides along into the rebuild so the subsequent
         live-swap pass finds it already applied (one slot build, not two)."""
         import tempfile
+
+        import torch.distributed as dist
+
         from repro_torch.core.a3gnn import make_trainer
+        from repro_torch.launch.mesh import GROUP_TODO
         from repro_torch.train.checkpoint import CheckpointManager
+        if dist.is_available() and dist.is_initialized():
+            raise NotImplementedError(f"a partitions restart inside a "
+                                      f"torch.distributed group: "
+                                      f"{GROUP_TODO}")
         if self._restart_mgr is None:
             d = self.acfg.restart_dir or tempfile.mkdtemp(
                 prefix="a3gnn_restart_")

@@ -13,9 +13,11 @@ the existing substrate:
     (sampling bias γ, cache volume Θ, parallel mode all apply per
     partition, exactly as on a real device);
   * gradients synchronize through ``distributed/collectives.grad_allreduce``
-    under a mesh from ``launch/mesh.make_partition_mesh`` — the
-    host-simulated mesh, every partition on the trainer's one device (a
-    mesh of one card per partition is not ported);
+    under a mesh from ``launch/mesh.make_partition_mesh``: the
+    host-simulated mesh (every partition in this process, on the
+    trainer's one device) or a ``GroupMesh`` (one process per partition,
+    a ``torch.distributed`` group; this process holds partition ``rank``
+    only, see below);
   * with ``cfg.halo_budget > 0`` each partition's subgraph is augmented
     with its top-k boundary nodes (``PartitionPlan.halo_sets``) and their
     feature rows arrive through ``distributed/collectives.halo_all_to_all``
@@ -34,6 +36,19 @@ the existing substrate:
 Interface-compatible with ``A3GNNTrainer`` where the autotune controller
 needs it, so the episode space can tune ``partitions`` through the
 checkpoint → rebuild → restore restart path.
+
+Under a ``GroupMesh`` every process builds the whole plan
+(``plan_partitions`` is deterministic) and one slot, its rank's, with
+that partition's seed; params and ``opt_state`` stay equal on every
+process (the same mean, the same update).  Whatever the host-simulated
+trainer reports over all partitions (evaluation, cache and halo
+statistics, modeled memory, the pipeline's merged stats, the checkpoint's
+manifest) is gathered over the group in partition order, so every
+process reports the same as the host-simulated trainer: those reads are
+collectives, and every process makes them in the same order.  Rank 0
+writes the checkpoints (``GroupCheckpointManager``).  Re-partitioning in
+place (``rebalance_partitions``, ``set_halo_budget``), streaming feature
+updates and the auto-tuner are not ported over a group and raise.
 """
 from __future__ import annotations
 
@@ -54,7 +69,8 @@ from repro_torch.core.perf_model import (MemoryTerms, bottleneck_step_time,
                                          memory_seq)
 from repro_torch.core.pipeline import Pipeline, PipelineStats
 from repro_torch.core.sampling import NeighborSampler, seed_loader
-from repro_torch.distributed.collectives import (grad_allreduce,
+from repro_torch.distributed.collectives import (all_gather_objects,
+                                                 grad_allreduce,
                                                  halo_all_to_all)
 from repro_torch.graph.batch import (batch_device_arrays, compute_level_caps,
                                      generate_batch)
@@ -63,11 +79,13 @@ from repro_torch.graph.partition import (PartitionPlan, RebalanceResult,
                                          incremental_rebalance,
                                          plan_partitions)
 from repro_torch.graph.storage import FeatureStreamConsumer, Graph
-from repro_torch.launch.mesh import make_partition_mesh
+from repro_torch.launch.mesh import (GROUP_TODO, GroupMesh,
+                                     make_partition_mesh)
 from repro_torch.models.gnn import (decls_gnn, make_apply_fn, make_eval_fn,
                                     make_grad_fn, make_grad_fn_allfused)
 from repro_torch.models.params import init_params, param_bytes
 from repro_torch.train.checkpoint import (CheckpointManager,
+                                          GroupCheckpointManager,
                                           TrainerCheckpointMixin)
 from repro_torch.train.fault_tolerance import (SupervisorReport,
                                                TrainSupervisor)
@@ -145,7 +163,7 @@ class MultiPipeline:
 
     @property
     def scale_factor(self) -> int:
-        return len(self.tr.slots)
+        return self.tr.plan.parts
 
     def begin_stats(self) -> PipelineStats:
         self.stats = PipelineStats()
@@ -200,8 +218,9 @@ class MultiPipeline:
         return stats
 
     def _aggregate(self, agg: PipelineStats):
-        for p in self.pipes:
-            st = p.stats
+        """Merge every partition's stats into ``agg``, in partition order
+        (gathered over a group)."""
+        for st in self.tr._over_parts(lambda s: s.pipe.stats):
             agg.steps += st.steps
             agg.t_sample += st.t_sample
             agg.t_batch += st.t_batch
@@ -256,8 +275,7 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
                                if cfg.fused_gather_agg else None)
         self._apply = make_apply_fn(cfg, self.opt)
         self._eval = make_eval_fn(cfg)
-        self.slots = [self._make_slot(p, sub) for p, sub in
-                      enumerate(self.plan.subgraphs)]
+        self.slots = self._make_slots()
         self.halo_exchange_bytes = self._fill_halo_features()
         self.eta = float(np.mean(self.plan.etas(graph)))
         self.global_steps = 0
@@ -274,6 +292,28 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    @property
+    def _group(self) -> bool:
+        return isinstance(self.mesh, GroupMesh)
+
+    def _make_slots(self) -> List[PartitionSlot]:
+        """The partitions this process holds: all of them on a
+        host-simulated mesh, its rank's on a ``GroupMesh``."""
+        parts = ([self.mesh.rank] if self._group
+                 else range(self.plan.parts))
+        return [self._make_slot(p, self.plan.subgraphs[p]) for p in parts]
+
+    def _over_parts(self, fn: Callable[[PartitionSlot], object]) -> List:
+        """``fn(slot)`` for every partition, in partition order; over a
+        group, each process's values gathered (a collective)."""
+        return [v for vals in all_gather_objects(
+            self.mesh, [fn(s) for s in self.slots]) for v in vals]
+
+    def _refuse_group(self, what: str):
+        if self._group:
+            raise NotImplementedError(f"{what} over a GroupMesh: "
+                                      f"{GROUP_TODO}")
+
     # ------------------------------------------------------------------
     def _fill_halo_features(self) -> int:
         """Move the budgeted boundary feature rows through the partition
@@ -288,17 +328,19 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         owned = [sub.features[:len(ns)] for sub, ns in
                  zip(self.plan.subgraphs, self.plan.node_sets)]
         halo_feats, volume = self._halo_exchange(self.plan, owned)
-        for slot, ns, rows in zip(self.slots, self.plan.node_sets,
-                                  halo_feats):
+        for slot in self.slots:
+            rows, n = halo_feats[slot.index], slot.n_owned
             if len(rows):
-                local = np.arange(len(ns), len(ns) + len(rows))
-                slot.pipe.plane.fill_rows(local, rows)
+                slot.pipe.plane.fill_rows(np.arange(n, n + len(rows)), rows)
         return int(volume)
 
     # ------------------------------------------------------------------
     # streaming feature updates — attach/detach from FeatureStreamConsumer
     # (graph/storage.py); fleet routing: owner's plane now, halo later
     # ------------------------------------------------------------------
+    def _check_feature_store_target(self):
+        self._refuse_group("streaming feature updates")
+
     def _owned_local(self) -> np.ndarray:
         """(N,) local id of each node WITHIN its owning partition — the
         plan's shared ownership-lookup index (``PartitionPlan.local_ids``)."""
@@ -467,6 +509,7 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         accounting start FRESH because node ownership moved — the same
         invariant ``_after_restore`` enforces across a partition-count
         migration."""
+        self._refuse_group("rebalance_partitions")
         if max_move_frac is None:
             max_move_frac = getattr(self.cfg, "rebalance_max_move", 0.25)
         if pipe is not None:
@@ -476,8 +519,7 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         res = incremental_rebalance(self.full_graph, self.plan,
                                     max_move_frac=float(max_move_frac))
         self.plan = res.plan
-        self.slots = [self._make_slot(p, sub) for p, sub in
-                      enumerate(self.plan.subgraphs)]
+        self.slots = self._make_slots()
         self.halo_exchange_bytes = self._fill_halo_features()
         self._halo_dirty = False         # every halo row was just refilled
         self._plan_cut_fraction = res.cut_after
@@ -507,7 +549,8 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
     def synced_update(self, arrays_list: List[Dict]):
         """One data-parallel update from pre-generated per-partition batch
         arrays (``batch_device_arrays``; gradient-parity harness, bypasses
-        sampling)."""
+        sampling): one entry per partition this process holds.  Returns
+        the mean loss and accuracy over every partition."""
         dev = self._to_device
         grads, losses, accs = [], [], []
         for arrays in arrays_list:
@@ -522,6 +565,8 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
                                                   mean)
         self.global_steps += 1
         self._maybe_refresh_halo()       # same contract as the synced step
+        losses, accs = zip(*[v for vals in all_gather_objects(
+            self.mesh, list(zip(losses, accs))) for v in vals])
         return float(np.mean(losses)), float(np.mean(accs))
 
     # ------------------------------------------------------------------
@@ -541,8 +586,8 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
 
     def steps_per_epoch(self) -> int:
         """Global steps per epoch: the slowest partition sets the pace."""
-        return max(max(int(s.graph.train_mask.sum()) // self.cfg.batch_size
-                       for s in self.slots), 1)
+        return max(max(int(g.train_mask.sum()) // self.cfg.batch_size
+                       for g in self.plan.subgraphs), 1)
 
     def run_epochs(self, epochs: int = 1,
                    max_steps_per_epoch: Optional[int] = None,
@@ -590,7 +635,8 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
     # ------------------------------------------------------------------
     @property
     def graph(self) -> Graph:
-        """Partition 0's subgraph (the per-device view)."""
+        """The first partition's subgraph this process holds (the
+        per-device view: partition 0's, or its rank's in a group)."""
         return self.slots[0].graph
 
     @property
@@ -599,24 +645,37 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
 
     @property
     def caches(self) -> List[Optional[FeatureCache]]:
+        """The caches of the partitions this process holds."""
         return [s.cache for s in self.slots]
 
     @property
     def cache_hit_rate(self) -> float:
-        hits = sum(c.stats.hits for c in self.caches if c is not None)
-        total = hits + sum(c.stats.misses for c in self.caches
-                           if c is not None)
+        counts = [c for c in self._over_parts(
+            lambda s: None if s.cache is None
+            else (s.cache.stats.hits, s.cache.stats.misses)) if c is not None]
+        hits = sum(h for h, _ in counts)
+        total = hits + sum(m for _, m in counts)
         return hits / total if total else 0.0
 
     @property
     def halo_stats(self) -> List[HaloStats]:
-        return [s.halo_stats for s in self.slots]
+        """Every partition's ``HaloStats`` (copies gathered over a
+        group)."""
+        return self._over_parts(lambda s: s.halo_stats)
+
+    @property
+    def fused_grad_calls(self) -> int:
+        """All-fused gradient calls summed over every partition."""
+        return sum(all_gather_objects(
+            self.mesh, self._grad_allfused.counters["calls"]
+            if self._grad_allfused else 0))
 
     @property
     def halo_hit_rate(self) -> float:
         """Fleet-wide fraction of batch input nodes served from the halo."""
-        hits = sum(h.halo_hits for h in self.halo_stats)
-        total = sum(h.inputs for h in self.halo_stats)
+        stats = self.halo_stats
+        hits = sum(h.halo_hits for h in stats)
+        total = sum(h.inputs for h in stats)
         return hits / total if total else 0.0
 
     def model_bytes(self, stats: PipelineStats) -> float:
@@ -633,8 +692,9 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
                        workers: Optional[int] = None) -> float:
         """Fleet footprint: every partition replicates model + runtime and
         owns its cache/batches, so the Eq. 3/5 per-worker term × partitions."""
-        cache_bytes = max((c.volume_bytes() for c in self.caches
-                           if c is not None), default=0.0)
+        cache_bytes = max((b for b in self._over_parts(
+            lambda s: None if s.cache is None else s.cache.volume_bytes())
+            if b is not None), default=0.0)
         mt = MemoryTerms(cache_bytes=cache_bytes,
                          batch_bytes=max(stats.peak_batch_bytes, 1),
                          model_bytes=self.model_bytes(stats),
@@ -670,6 +730,7 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         if budget == self.plan.halo_budget:
             self.cfg = self.cfg.replace(halo_budget=budget)
             return
+        self._refuse_group("set_halo_budget")
         if pipe is not None:
             pipe.drain()
         old = self.slots
@@ -677,8 +738,7 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
             slot.pipe.shutdown()
         self.plan = self.plan.with_halo_budget(self.full_graph, budget)
         self.cfg = self.cfg.replace(halo_budget=budget)
-        self.slots = [self._make_slot(p, sub) for p, sub in
-                      enumerate(self.plan.subgraphs)]
+        self.slots = self._make_slots()
         self.halo_exchange_bytes = self._fill_halo_features()
         self._halo_dirty = False     # the re-budget refilled every halo row
         for new, prev in zip(self.slots, old):
@@ -728,6 +788,9 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         ``autotune.max_partitions > 1`` the controller also tunes the
         partition count through the checkpoint → rebuild → restore path."""
         from repro_torch.core.autotune.controller import AutotuneController
+        # each process measures its own throughput, so the processes'
+        # controllers would propose different configurations
+        self._refuse_group("the auto-tuner")
         acfg = autotune or self.cfg.autotune
         if seed is not None:
             acfg = acfg.replace(seed=seed)
@@ -745,10 +808,11 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
 
     # ------------------------------------------------------------------
     def evaluate(self, max_batches: int = 8) -> float:
-        """Test accuracy, averaged over per-partition held-out batches."""
+        """Test accuracy, averaged over per-partition held-out batches
+        (every partition's, gathered over a group)."""
         dev = self._to_device
         accs = []
-        budget = max(max_batches // len(self.slots), 1)
+        budget = max(max_batches // self.plan.parts, 1)
         for slot in self.slots:
             if not slot.graph.test_mask.any():
                 continue
@@ -766,6 +830,8 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
                     self.params, dev(arrays["features"]),
                     [dev(a) for a in arrays["neigh_idxs"]],
                     dev(arrays["labels"]))))
+        accs = [a for part in all_gather_objects(self.mesh, accs)
+                for a in part]
         return float(np.mean(accs)) if accs else 0.0
 
     # ------------------------------------------------------------------
@@ -781,11 +847,11 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
                 "halo_budget": int(self.plan.halo_budget),
                 "topology_version": int(self.plan.topology_version),
                 "rebalances": int(self.rebalances),
-                "cache_stats": [dataclasses.asdict(s.cache.stats)
-                                if s.cache is not None else None
-                                for s in self.slots],
-                "halo_stats": [dataclasses.asdict(s.halo_stats)
-                               for s in self.slots]}
+                "cache_stats": self._over_parts(
+                    lambda s: dataclasses.asdict(s.cache.stats)
+                    if s.cache is not None else None),
+                "halo_stats": self._over_parts(
+                    lambda s: dataclasses.asdict(s.halo_stats))}
 
     def _after_restore(self, extra: Dict, step: int):
         self.global_steps = int(extra.get("global_steps", step))
@@ -793,7 +859,11 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         # cache/halo hit-accounting carries over only on a same-topology
         # restore (after a migration the per-partition objects are new)
         if int(extra.get("partitions", self.plan.parts)) == self.plan.parts:
-            for slot, st in zip(self.slots, extra.get("cache_stats") or []):
+            cache_stats = extra.get("cache_stats") or []
+            halo_stats = extra.get("halo_stats") or []
+            for slot in self.slots:
+                st = (cache_stats[slot.index]
+                      if slot.index < len(cache_stats) else None)
                 if slot.cache is not None and st:
                     for k, v in st.items():
                         setattr(slot.cache.stats, k, int(v))
@@ -802,8 +872,9 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
             # report a halo hit rate on a fleet that has no halo)
             if int(extra.get("halo_budget",
                              self.plan.halo_budget)) == self.plan.halo_budget:
-                for slot, st in zip(self.slots,
-                                    extra.get("halo_stats") or []):
+                for slot in self.slots:
+                    st = (halo_stats[slot.index]
+                          if slot.index < len(halo_stats) else None)
                     if st:
                         for k, v in st.items():
                             setattr(slot.halo_stats, k, int(v))
@@ -814,8 +885,13 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
                        ) -> SupervisorReport:
         """Train ``steps`` global steps under the fault-tolerance supervisor:
         periodic checkpoints, restore-and-resume on failure
-        (``fail_at_step`` injects one for tests)."""
-        ckpt = CheckpointManager(ckpt_dir, keep=2, async_save=False)
+        (``fail_at_step`` injects one for tests).  Over a group every
+        process runs it: rank 0 writes into ``ckpt_dir``, an injected
+        failure fires on every process at the same step, and every
+        process restores the same committed step."""
+        ckpt = (GroupCheckpointManager(ckpt_dir, self.mesh, keep=2)
+                if self._group else
+                CheckpointManager(ckpt_dir, keep=2, async_save=False))
         sup = TrainSupervisor(ckpt, ckpt_every or max(steps // 2, 1),
                               max_restarts, extra_fn=self.checkpoint_extra)
         injected = {"armed": fail_at_step is not None}

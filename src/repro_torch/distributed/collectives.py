@@ -1,30 +1,85 @@
-"""Collectives over the host-simulated mesh (launch/mesh.py): the
+"""Collectives over the partition mesh (launch/mesh.py): the
 multi-partition GNN path's gradient mean-all-reduce and bounded halo
 exchange, the sequence-sharded decode attention with its softmax combine
 (``flash_decode_attention``), and the analytic bytes of a quantized
 all-reduce.
 
-Only the host-simulated mesh is ported: every partition's tensors lie on
-the trainer's one device, and each collective computes its result as the
+Two meshes, one result.  On a ``HostSimMesh`` every member's tensors lie
+on the caller's one device and each collective computes its result as the
 JAX package's host-sim branch does — the same arithmetic in the same
-order, so the mean is bit-equal to the JAX twin's on the CPU.  A real
-multi-card mesh is refused where it is built (``make_partition_mesh``).
+order, so the mean is bit-equal to the JAX twin's on the CPU.  On a
+``GroupMesh`` each process holds its own member: the members' tensors
+travel through ``torch.distributed`` (an ``all_gather`` of their bytes on
+the mesh's ``comm_device``, or an ``all_to_all``), and each process then
+runs the host-sim arithmetic, in member order, on the tensors' own
+device.  So every member of a group holds what the host-simulated mesh
+computes on that device, bit for bit.  No reduction runs inside the
+transport (``all_reduce(SUM)``'s ring and tree orders are not member
+order); only ``compressed_psum_int8``'s max, which is exact, does.
 """
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import Any, List
 
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import MULTI_CARD, HostSimMesh, axis_sizes
+from repro_torch.launch.mesh import GroupMesh, HostSimMesh, axis_sizes
 from repro_torch.models.params import leaves, unflatten
 
 
-def _host_sim(mesh):
-    if not (mesh is None or isinstance(mesh, HostSimMesh)):
-        raise NotImplementedError(f"collectives over {mesh!r}: {MULTI_CARD}")
+def _is_group(mesh) -> bool:
+    """True for a ``GroupMesh``, False for a host-simulated one (or none);
+    any other mesh (a device-free ``AbstractMesh``) holds no tensors."""
+    if isinstance(mesh, GroupMesh):
+        return True
+    if mesh is None or isinstance(mesh, HostSimMesh):
+        return False
+    raise NotImplementedError(f"collectives over {mesh!r}: they run over a "
+                              f"HostSimMesh or a GroupMesh")
+
+
+def all_gather_tensors(mesh: GroupMesh, xs: List[torch.Tensor]
+                       ) -> List[List[torch.Tensor]]:
+    """Every member's ``xs``: ``out[r][i]`` is member r's ``xs[i]``, on
+    ``xs[i]``'s device with its dtype and shape.  One ``all_gather`` of the
+    tensors' bytes (uint8) on ``mesh.comm_device``; every member passes
+    tensors of the same shapes and dtypes.  The member's own come back
+    bit for bit."""
+    import torch.distributed as dist
+    flat = [x.detach().contiguous().reshape(-1).view(torch.uint8) for x in xs]
+    sizes = [f.numel() for f in flat]
+    buf = torch.cat(flat).to(mesh.comm_device)
+    got = [torch.empty_like(buf) for _ in range(mesh.size)]
+    dist.all_gather(got, buf)
+    return [[p.clone().view(x.dtype).reshape(x.shape).to(x.device)
+             for p, x in zip(torch.split(g, sizes), xs, strict=True)]
+            for g in got]
+
+
+def all_gather_objects(mesh, value: Any) -> List[Any]:
+    """``value`` of every process of the mesh, in rank order (pickled over
+    the group); ``[value]`` on a host-simulated mesh, whose one process
+    holds every partition."""
+    if not _is_group(mesh):
+        return [value]
+    import torch.distributed as dist
+    out = [None] * mesh.size
+    dist.all_gather_object(out, value)
+    return out
+
+
+def barrier(mesh):
+    """Wait for every process of a ``GroupMesh``; nothing on a
+    host-simulated mesh."""
+    if not _is_group(mesh):
+        return
+    import torch.distributed as dist
+    if mesh.backend == "nccl":
+        dist.barrier(device_ids=[mesh.comm_device.index])
+    else:
+        dist.barrier()
 
 
 def _partial_attend(q, k, v, mask):
@@ -44,9 +99,24 @@ def _partial_attend(q, k, v, mask):
     return o.float(), m, denom
 
 
+def _combine(parts, dtype):
+    """The members' partial (o, m, denom) in member order → the attention:
+    the global max, each part rescaled to it, numerators and denominators
+    summed."""
+    g_max = parts[0][1]
+    for _, m, _ in parts[1:]:
+        g_max = torch.maximum(g_max, m)
+    num = den = None
+    for o, m, denom in parts:
+        w = torch.exp(m - g_max)
+        num = o * w[..., None] if num is None else num + o * w[..., None]
+        den = denom * w if den is None else den + denom * w
+    return (num / torch.clamp(den[..., None], min=1e-30)).to(dtype)
+
+
 def flash_decode_attention(mesh, axis: str = "model"):
     """Sequence-sharded single-token attention with a max-rescaled softmax
-    combine, over the ``axis`` members of a host-simulated mesh.
+    combine, over the ``axis`` members of the mesh.
 
     Returns ``fn(q, k, v, pos)``: q (B, H, Dh); the caches k/v (B, T, H,
     Dh), T split into one slice per member; pos (B,) each row's last valid
@@ -54,31 +124,30 @@ def flash_decode_attention(mesh, axis: str = "model"):
     pos`` mask, then the partial (o, m, denom) combine in member order:
     the global max, each part rescaled to it, the numerators and the
     denominators summed.  Output (B, H, Dh) in v's dtype.  Plain torch, as
-    the JAX package's is jnp: on a real mesh the combine's two sums are the
-    only traffic (B·H·Dh, not the cache)."""
-    _host_sim(mesh)
+    the JAX package's is jnp.  On a ``GroupMesh`` every process passes the
+    whole cache and attends over its own member's slice only; the partial
+    (o, m, denom) are all the traffic (B·H·(Dh + 2) floats a member, not
+    the cache), and every process returns the combined attention."""
+    group = _is_group(mesh)
     n = axis_sizes(mesh)[axis]
+
+    def partial(q, k, v, pos, s, Tl):
+        t = s * Tl + torch.arange(Tl, device=k.device)
+        mask = t[None, :] <= pos[:, None]
+        return _partial_attend(q, k[:, s * Tl:(s + 1) * Tl],
+                               v[:, s * Tl:(s + 1) * Tl], mask)
 
     def attend(q, k, v, pos):
         T = k.shape[1]
         if T % n:
             raise ValueError(f"cache length {T} does not split into {n}")
         Tl = T // n
-        parts = []
-        for s in range(n):
-            t = s * Tl + torch.arange(Tl, device=k.device)
-            mask = t[None, :] <= pos[:, None]
-            parts.append(_partial_attend(q, k[:, s * Tl:(s + 1) * Tl],
-                                         v[:, s * Tl:(s + 1) * Tl], mask))
-        g_max = parts[0][1]
-        for _, m, _ in parts[1:]:
-            g_max = torch.maximum(g_max, m)
-        num = den = None
-        for o, m, denom in parts:
-            w = torch.exp(m - g_max)
-            num = o * w[..., None] if num is None else num + o * w[..., None]
-            den = denom * w if den is None else den + denom * w
-        return (num / torch.clamp(den[..., None], min=1e-30)).to(v.dtype)
+        if group:
+            parts = all_gather_tensors(
+                mesh, list(partial(q, k, v, pos, mesh.rank, Tl)))
+        else:
+            parts = [partial(q, k, v, pos, s, Tl) for s in range(n)]
+        return _combine(parts, v.dtype)
     return attend
 
 
@@ -93,10 +162,15 @@ def grad_allreduce(mesh):
     """Mean-all-reduce over per-partition gradient trees (data-parallel GNN
     scale-out, core/multipart.py).
 
-    Returns ``fn(trees) -> tree`` averaging a list of identically-structured
-    gradient trees, one per partition: ``sum(xs) / n`` leaf by leaf, summed
-    in partition order."""
-    _host_sim(mesh)
+    Returns ``fn(trees) -> tree`` averaging identically-structured gradient
+    trees, one per partition: ``sum(xs) / n`` leaf by leaf, summed in
+    partition order from Python's 0 (so a -0.0 mean is +0.0).  On a
+    host-simulated mesh ``trees`` holds every partition's tree; on a
+    ``GroupMesh`` it is a one-element list, this process's tree, and every
+    process gets the same mean (one ``all_gather`` of the tree's bytes,
+    then the same sum on the leaves' device).  One partition's tree comes
+    back as it is."""
+    group = _is_group(mesh)
 
     def host_mean(trees: List):
         n = float(len(trees))
@@ -104,7 +178,14 @@ def grad_allreduce(mesh):
             return trees[0]
         return unflatten(trees[0], [sum(xs) / n for xs in
                                     zip(*map(leaves, trees), strict=True)])
-    return host_mean
+
+    def group_mean(trees: List):
+        if len(trees) != 1:
+            raise ValueError(f"{len(trees)} gradient trees: a member of a "
+                             f"GroupMesh passes its own, as a 1-list")
+        members = all_gather_tensors(mesh, leaves(trees[0]))
+        return host_mean([unflatten(trees[0], m) for m in members])
+    return group_mean if group else host_mean
 
 
 def _routing(plan):
@@ -137,9 +218,16 @@ def halo_all_to_all(mesh):
     and ``halo_feats[p]`` are the rows for ``plan.halo_sets[p]`` in halo
     order — every row is owned by another partition, so all of them cross
     a boundary (``volume_bytes`` counts exactly that traffic, the HitGNN
-    inter-device term the ``halo_budget`` knob caps).  The routing runs as
-    host-side numpy gathers, row for row those of the JAX package."""
-    _host_sim(mesh)
+    inter-device term the ``halo_budget`` knob caps).  On a host-simulated
+    mesh the routing runs as host-side numpy gathers, row for row those of
+    the JAX package.  On a ``GroupMesh`` it runs as the JAX package's
+    real-mesh exchange does: member r reads only ``part_feats[r]``, packs
+    the rows it ships to each member into a (parts, pad, F) buffer padded
+    to the largest pair, ``all_to_all_single`` swaps the blocks, and only
+    ``halo_feats[r]`` is filled (the other entries are None); the rows are
+    the same, bit for bit."""
+    if _is_group(mesh):
+        return _group_exchange(mesh)
 
     def host_exchange(plan, part_feats):
         send, put = _routing(plan)
@@ -152,3 +240,36 @@ def halo_all_to_all(mesh):
             halo_feats.append(rows)
         return halo_feats, _volume(plan, part_feats[0].shape[1])
     return host_exchange
+
+
+def _group_exchange(mesh: GroupMesh):
+    import torch.distributed as dist
+    r = mesh.rank
+
+    def exchange(plan, part_feats):
+        if plan.parts != mesh.size:
+            raise ValueError(f"plan has {plan.parts} partitions for a "
+                             f"{mesh.size}-member group")
+        send, put = _routing(plan)
+        own = np.asarray(part_feats[r])
+        feat_dim = own.shape[1]
+        pad = max((len(send[q][p]) for q in range(plan.parts)
+                   for p in range(plan.parts)), default=0)
+        halo_feats = [None] * plan.parts
+        if pad == 0:
+            halo_feats[r] = np.zeros((0, feat_dim), np.float32)
+            return halo_feats, 0
+        buf = np.zeros((plan.parts, pad, feat_dim), np.float32)
+        for p in range(plan.parts):            # block p: rows r ships to p
+            buf[p, :len(send[r][p])] = own[send[r][p]]
+        out = torch.from_numpy(buf).to(mesh.comm_device)
+        got = torch.empty_like(out)
+        dist.all_to_all_single(got, out)       # got[q] = block q shipped to r
+        recv = got.cpu().numpy()
+        rows = np.zeros((len(plan.halo_sets[r]), feat_dim), np.float32)
+        for q in range(plan.parts):
+            if len(put[r][q]):
+                rows[put[r][q]] = recv[q, :len(put[r][q])]
+        halo_feats[r] = rows
+        return halo_feats, _volume(plan, feat_dim)
+    return exchange

@@ -18,7 +18,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.launch.mesh import MULTI_CARD, HostSimMesh, axis_sizes
+from repro_torch.launch.mesh import GROUP_TODO, HostSimMesh, axis_sizes
 from repro_torch.models.params import tree_map
 
 
@@ -31,7 +31,8 @@ def make_pipeline_fn(layer_fn: Callable, n_stages: int, n_micro: int,
     ``n_stages``; ``xs`` (n_micro, mb, ...).  Returns the last stage's
     outputs (n_micro, mb, ...)."""
     if not isinstance(mesh, HostSimMesh):
-        raise NotImplementedError(f"a pipeline over {mesh!r}: {MULTI_CARD}")
+        raise NotImplementedError(f"a pipeline over {mesh!r}: stages in "
+                                  f"processes are {GROUP_TODO}")
     if axis_sizes(mesh).get(stage_axis) != n_stages:
         raise ValueError(f"mesh {mesh!r} has no {stage_axis!r} axis of "
                          f"{n_stages} stages")

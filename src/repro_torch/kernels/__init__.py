@@ -18,3 +18,20 @@ plain version, used for CPU tensors and as the oracle).
                      package, where no path calls it: the sampler selects in
                      numpy
 """
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launch count in this process (``launches``:
+    one a kernel launch, none for a call that ran the plain version)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.fused_gather_agg.ops import gather_aggregate
+    from repro_torch.kernels.gather.ops import cache_gather
+    from repro_torch.kernels.reservoir.ops import reservoir_topm
+    from repro_torch.kernels.segment_agg.ops import (neighbor_agg,
+                                                     neighbor_agg_backward)
+    return {"cache_gather": cache_gather.launches,
+            "gather_aggregate": gather_aggregate.launches,
+            "neighbor_agg": neighbor_agg.launches,
+            "neighbor_agg_backward": neighbor_agg_backward.launches,
+            "flash_attention": flash_attention.launches,
+            "reservoir_topm": reservoir_topm.launches}

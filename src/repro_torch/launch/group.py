@@ -1,0 +1,211 @@
+"""One process per partition: the ranks of a ``torch.distributed`` group.
+
+``spawn_partitions(fn, parts, backend, devices)`` starts ``parts``
+processes with the ``spawn`` start method (the parent may hold a CUDA
+context, which a forked child cannot use).  Rank r sets its card first
+where ``devices[r]`` is one, joins the default group (``backend``,
+``init_method``, rank r of ``parts``), runs ``fn(r, device, *args)``,
+hands its result to the parent and leaves the group.  Inside the group,
+``launch/mesh.make_partition_mesh`` returns a ``GroupMesh``, so the
+multi-partition trainer and the collectives run one partition a process.
+
+``nccl`` takes one card per rank (it refuses two ranks on one card);
+``gloo`` runs on the CPU, and its ranks may share one card for their
+tensors while their collectives' buffers pass through the host.  The
+caller names the backend: nothing here falls back from one to the other.
+
+A rank that raises exits non-zero with its traceback on stderr; the
+parent then stops every other rank and raises, so the run fails.
+"""
+from __future__ import annotations
+
+import pickle
+import queue
+import shutil
+import tempfile
+import time
+from typing import Any, Callable, List, Optional, Sequence
+
+
+def _rank_main(rank: int, fn: Callable, args: tuple, backend: str,
+               init_method: str, devices: Sequence[str], results):
+    import torch
+    import torch.distributed as dist
+    device = torch.device(devices[rank])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=len(devices))
+    out = fn(rank, device, *args)
+    results.put((rank, pickle.dumps(out)))
+    dist.destroy_process_group()
+
+
+def spawn_partitions(fn: Callable, parts: int, backend: str,
+                     devices: Sequence, init_method: Optional[str] = None,
+                     args: tuple = (), timeout: Optional[float] = None
+                     ) -> List[Any]:
+    """Run ``fn(rank, device, *args)`` in ``parts`` spawned processes
+    joined in a ``torch.distributed`` group; returns their results in rank
+    order.
+
+    ``fn`` is a module-level function (the child imports it by name) and
+    its result must pickle.  ``devices[r]`` is rank r's device; under
+    ``nccl`` each is a card of its own (``cuda:r``).  ``init_method``
+    defaults to a ``file://`` store in a fresh temporary directory, removed
+    afterwards.  Raises ``RuntimeError`` when a rank exits non-zero and
+    ``TimeoutError`` after ``timeout`` seconds; either way every rank still
+    running is stopped first."""
+    import torch
+    import torch.multiprocessing as mp
+
+    devices = [str(torch.device(d)) for d in devices]
+    if len(devices) != parts:
+        raise ValueError(f"{len(devices)} devices for {parts} ranks")
+    if backend == "nccl" and (
+            any(not d.startswith("cuda:") for d in devices)
+            or len(set(devices)) != parts):
+        raise ValueError(f"nccl takes one card per rank (cuda:r), not "
+                         f"{devices}")
+    tmp = None
+    if init_method is None:
+        tmp = tempfile.mkdtemp(prefix="repro_torch_group_")
+        init_method = f"file://{tmp}/store"
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, name=f"rank {r}",
+                         args=(r, fn, tuple(args), backend, init_method,
+                               devices, results))
+             for r in range(parts)]
+    deadline = None if timeout is None else time.monotonic() + timeout
+    out = {}
+    try:
+        for p in procs:
+            p.start()
+        # drain the queue while the ranks run: a child that put a large
+        # result cannot exit before the parent reads it
+        while len(out) < parts:
+            try:
+                rank, blob = results.get(timeout=0.5)
+                out[rank] = pickle.loads(blob)
+                continue
+            except queue.Empty:
+                pass
+            for p in procs:
+                if p.exitcode not in (None, 0):
+                    raise RuntimeError(f"{p.name} of {parts} ({backend}) "
+                                       f"exited with code {p.exitcode}")
+            if all(p.exitcode == 0 for p in procs) and results.empty():
+                missing = sorted(set(range(parts)) - set(out))
+                raise RuntimeError(f"ranks {missing} exited without a "
+                                   f"result")
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"{parts} ranks ({backend}) still running "
+                                   f"after {timeout} s")
+        for p in procs:
+            p.join(None if deadline is None
+                   else max(deadline - time.monotonic(), 1.0))
+            if p.exitcode != 0:
+                raise RuntimeError(f"{p.name} of {parts} ({backend}) ended "
+                                   f"with {p.exitcode} after its result")
+    finally:
+        procs = [p for p in procs if p.pid is not None]     # started
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results.close()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return [out[r] for r in range(parts)]
+
+
+def decode_inputs(shape, seed: int, device):
+    """Seeded f32 ``(q, k, v, pos)`` of a decode step, drawn on ``device``
+    (the same values wherever the same device draws them): q scaled by
+    Dh^-0.5, as a caller folds the attention's scale into it, and each
+    row's last valid position spread over the cache."""
+    import torch
+    B, T, H, Dh = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(B, H, Dh, generator=g, device=device) * Dh ** -0.5
+    k = torch.randn(B, T, H, Dh, generator=g, device=device)
+    v = torch.randn(B, T, H, Dh, generator=g, device=device)
+    pos = torch.linspace(0, T - 1, B, device=device).to(torch.int32)
+    return q, k, v, pos
+
+
+def collectives_rank(rank: int, device, inputs: dict) -> dict:
+    """Each group collective on this rank's share of ``inputs`` (numpy,
+    put on ``device``), for the checks that hold the group forms to the
+    host-simulated ones: every key present runs, and its output comes back
+    as numpy.
+
+      ``grad_trees``  one gradient tree (dict of arrays) per member →
+                      ``grad_allreduce`` over a ``part`` axis
+      ``compress``    one array per member → ``compressed_psum_int8``
+                      over a ``pod`` axis
+      ``crosspod``    one tree per member → ``make_crosspod_grad_transform``
+      ``decode``      ``(q, k, v, pos)``, the whole cache, or
+                      ``{"shape": (B, T, H, Dh), "seed": s}`` to draw it
+                      on ``device`` (``decode_inputs``) →
+                      ``flash_decode_attention`` over a ``model`` axis
+      ``halo``        ``(plan, part_feats)`` → ``halo_all_to_all``: this
+                      rank's halo rows and the volume
+      ``objects``     any value → ``all_gather_objects`` of (rank, value)
+
+    ``modules`` lists the top-level modules the process has imported."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.collectives import (all_gather_objects,
+                                                     flash_decode_attention,
+                                                     grad_allreduce,
+                                                     halo_all_to_all)
+    from repro_torch.launch.mesh import group_mesh
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.compression import (compressed_psum_int8,
+                                               make_crosspod_grad_transform)
+
+    def dev(tree):
+        return tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(device),
+                        tree)
+
+    def host(tree):
+        return tree_map(lambda t: t.cpu().numpy(), tree)
+
+    out = {}
+    if "grad_trees" in inputs:
+        fn = grad_allreduce(group_mesh("part"))
+        out["grad_trees"] = host(fn([dev(inputs["grad_trees"][rank])]))
+    if "compress" in inputs:
+        out["compress"] = host(compressed_psum_int8(
+            [dev(inputs["compress"][rank])], group_mesh("pod")))
+    if "crosspod" in inputs:
+        fn = make_crosspod_grad_transform(group_mesh("pod"))
+        out["crosspod"] = host(fn(dev(inputs["crosspod"][rank])))
+    if "decode" in inputs:
+        fn = flash_decode_attention(group_mesh("model"), "model")
+        spec = inputs["decode"]
+        args = (decode_inputs(spec["shape"], spec["seed"], device)
+                if isinstance(spec, dict) else dev(list(spec)))
+        out["decode"] = host(fn(*args))
+    if "halo" in inputs:
+        plan, feats = inputs["halo"]
+        rows, volume = halo_all_to_all(group_mesh("part"))(plan, feats)
+        out["halo"] = (rows[rank], volume)
+    if "objects" in inputs:
+        out["objects"] = all_gather_objects(group_mesh("part"),
+                                            (rank, inputs["objects"]))
+    out["modules"] = imported_modules()
+    return out
+
+
+def imported_modules() -> list:
+    """The top-level names of every module this process has imported."""
+    import sys
+    return sorted({name.split(".")[0] for name in sys.modules})

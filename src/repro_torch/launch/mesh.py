@@ -1,6 +1,9 @@
 """Meshes: the partition mesh of the multi-partition GNN path, and the
 JAX package's production and host LM meshes as device-free meshes.
 
+The partition mesh is a ``HostSimMesh`` (every partition in one process,
+on one device) or a ``GroupMesh`` (one process per partition, joined by a
+``torch.distributed`` group; ``launch/group.py`` spawns the processes).
 Functions (not module-level constants) so importing this module never
 touches device state.  ``make_production_mesh`` and ``make_host_mesh``
 return an :class:`AbstractMesh`: the axis names and sizes of the JAX
@@ -19,9 +22,7 @@ from typing import Dict, Tuple
 
 import torch
 
-MULTI_CARD = ("a mesh of one card per partition is not ported yet — see "
-              "ROADMAP.md (the real multi-card grad_allreduce and "
-              "halo_all_to_all)")
+GROUP_TODO = "not ported over a process group yet — see ROADMAP.md"
 
 
 @dataclass(frozen=True)
@@ -33,10 +34,37 @@ class HostSimMesh:
     the same (axis name, size) topology, and the collectives
     (distributed/collectives.py) compute their results as host-side
     arithmetic over the partitions' tensors — every partition's tensors on
-    the trainer's one device.
+    the trainer's one device.  One process holds every member: its
+    ``rank`` is 0.
     """
     size: int
     axis: str = "part"
+    rank = 0
+
+    @property
+    def axis_names(self):
+        return (self.axis,)
+
+    @property
+    def shape(self):
+        return {self.axis: self.size}
+
+
+@dataclass(frozen=True)
+class GroupMesh:
+    """A 1-D mesh whose members are the processes of the default
+    ``torch.distributed`` group: this process is member ``rank`` of
+    ``size`` and holds that member's tensors only.
+
+    ``comm_device`` is where the collectives' buffers live: the CPU under
+    ``gloo``, this process's card under ``nccl``.  The collectives
+    (distributed/collectives.py) compute on the tensors' own device and
+    move only the exchanged buffers to ``comm_device``."""
+    size: int
+    rank: int
+    axis: str
+    backend: str
+    comm_device: torch.device
 
     @property
     def axis_names(self):
@@ -63,8 +91,8 @@ class AbstractMesh:
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
-    """{axis name: size} of an ``AbstractMesh``, a ``HostSimMesh`` (their
-    ``shape`` mapping) or any mesh with ``axis_names`` and a
+    """{axis name: size} of an ``AbstractMesh``, a ``HostSimMesh``, a
+    ``GroupMesh`` (their ``shape`` mapping) or any mesh with ``axis_names`` and a
     ``devices.shape``."""
     shape = getattr(mesh, "shape", None)
     if isinstance(shape, Mapping):
@@ -92,17 +120,42 @@ def device_count(device="cuda") -> int:
     return 1
 
 
+def group_mesh(axis: str = "part") -> GroupMesh:
+    """The default ``torch.distributed`` group as a ``GroupMesh``."""
+    import torch.distributed as dist
+    backend = str(dist.get_backend())
+    comm = (torch.device("cuda", torch.cuda.current_device())
+            if backend == "nccl" else torch.device("cpu"))
+    return GroupMesh(dist.get_world_size(), dist.get_rank(), axis, backend,
+                     comm)
+
+
 def make_partition_mesh(num_partitions: int, device="cuda",
                         axis: str = "part"):
-    """1-D mesh over the data-parallel GNN partitions.
+    """1-D mesh over the data-parallel GNN partitions, decided in this
+    order:
 
-    ``HostSimMesh`` when the process sees fewer devices of ``device``'s kind
-    than partitions, and for one partition (a mean over one tree and an
-    exchange with no peer need no device group): the one-card machine and
-    the CPU always take it.  With a device per partition the real mesh
-    would be a ``torch.distributed`` group, which is not ported: that
-    raises rather than quietly running the partitions on one device."""
+    * inside an initialised default ``torch.distributed`` group of
+      ``num_partitions`` processes, a ``GroupMesh`` (one partition a
+      process); a group of another size raises ``ValueError``;
+    * for one partition, or where the process sees fewer devices of
+      ``device``'s kind than partitions (one card, the CPU), a
+      ``HostSimMesh``: every partition on the one device, as the JAX
+      package does with fewer devices than partitions;
+    * a device per partition and no group raises: a process drives one
+      card, and ``launch.train`` spawns one process per partition
+      (``launch/group.py``) where it finds the cards."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if world != num_partitions:
+            raise ValueError(f"{num_partitions} partitions in a "
+                             f"torch.distributed group of {world}")
+        return group_mesh(axis)
     if num_partitions <= 1 or device_count(device) < num_partitions:
         return HostSimMesh(num_partitions, axis)
-    raise NotImplementedError(f"{num_partitions} partitions on "
-                              f"{device_count(device)} devices: {MULTI_CARD}")
+    raise RuntimeError(
+        f"{num_partitions} partitions on {device_count(device)} cards need "
+        f"one process per partition in a torch.distributed group: "
+        f"python -m repro_torch.launch.train --partitions "
+        f"{num_partitions} spawns them (launch/group.spawn_partitions)")

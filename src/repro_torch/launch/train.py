@@ -16,8 +16,11 @@ takes the all-hop fused step (the ``gather_aggregate`` and
 takes the multi-partition scale-out (``run_gnn_multipartition``): a
 locality plan with a bounded halo, gradient-synchronised global steps
 under the fault-tolerance supervisor with checkpoints, then a fresh
-trainer that restores the committed checkpoint; every partition runs on
-the one ``--device``.  ``--autotune`` trains the single-partition trainer
+trainer that restores the committed checkpoint.  On a machine with at
+least ``--partitions`` cards it spawns one process per partition, rank r
+on ``cuda:r``, joined by ``nccl`` (``spawn_gnn_multipartition``, over
+``launch/group.py``); rank 0 prints.  With fewer cards every partition
+runs on the one ``--device`` in this process.  ``--autotune`` trains the single-partition trainer
 under the online auto-tuner (``fit_autotuned``: ``--episodes-autotune``
 episodes of ``--steps`` steps each):
 
@@ -37,6 +40,10 @@ written asynchronously):
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
+import sys
 import tempfile
 import time
 from typing import Dict
@@ -46,8 +53,12 @@ def run_gnn_multipartition(args, cfg, graph) -> Dict:
     """Scale-out GNN path: locality-partitioned data parallelism under the
     fault-tolerance supervisor, with a restart-path restore proof.  Returns
     the trainer, the supervisor's report, the restored trainer, the
-    checkpoint directory and the host seconds of each part."""
+    checkpoint directory, the accuracies and the host seconds of each
+    part.  Inside a ``torch.distributed`` group of ``cfg.partitions``
+    processes it runs as each rank's code (every rank runs it whole; the
+    checkpoint directory is rank 0's)."""
     from repro_torch.core.a3gnn import make_trainer
+    from repro_torch.distributed.collectives import all_gather_objects
     from repro_torch.train.checkpoint import CheckpointManager
 
     t0 = time.perf_counter()
@@ -67,8 +78,9 @@ def run_gnn_multipartition(args, cfg, graph) -> Dict:
     # fresh dir per run unless the caller pins one — a reused dir would
     # let keep-k GC favor a previous (longer) run's higher step numbers
     # and the restore proof below would resurrect stale parameters
-    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(
-        prefix=f"ckpt_gnn_p{cfg.partitions}_")
+    ckpt_dir = args.ckpt_dir or all_gather_objects(
+        tr.mesh, tempfile.mkdtemp(prefix=f"ckpt_gnn_p{cfg.partitions}_")
+        if tr.mesh.rank == 0 else None)[0]
     t0 = time.perf_counter()
     rep = tr.fit_supervised(args.steps, ckpt_dir,
                             ckpt_every=max(args.steps // 2, 1))
@@ -88,12 +100,119 @@ def run_gnn_multipartition(args, cfg, graph) -> Dict:
     t0 = time.perf_counter()
     step = tr2.restore(CheckpointManager(ckpt_dir, async_save=False))
     t_restore = time.perf_counter() - t0
+    acc2 = tr2.evaluate()
     print(f"[restore] fresh trainer restored from step {step} "
-          f"(global_steps={tr2.global_steps}) acc={tr2.evaluate():.4f}")
+          f"(global_steps={tr2.global_steps}) acc={acc2:.4f}")
     return {"trainer": tr, "report": rep, "restored": tr2,
-            "ckpt_dir": ckpt_dir,
+            "ckpt_dir": ckpt_dir, "acc": acc, "restored_step": step,
+            "restored_acc": acc2,
             "seconds": {"build": t_build, "fit": t_fit,
                         "rebuild": t_rebuild, "restore": t_restore}}
+
+
+def _named_numpy(state) -> Dict:
+    from repro_torch.train.checkpoint import _flatten_with_names, _to_host
+    return {f"{group}/{name}": _to_host(leaf)
+            for group, tree in state.items()
+            for name, leaf in _flatten_with_names(tree)}
+
+
+def multipartition_summary(rep: Dict) -> Dict:
+    """What ``run_gnn_multipartition`` ran, as numpy and numbers, for the
+    partitions this process holds (every partition on a host-simulated
+    mesh, its rank's in a group): each one's losses, the writer's and the
+    restored trainer's params and ``opt_state`` by checkpoint name, and
+    what every partition shares (accuracies, hit rates, the supervisor's
+    report).  Over a group a collective: every rank calls it."""
+    tr, tr2 = rep["trainer"], rep["restored"]
+    out = {"report": dataclasses.asdict(rep["report"]),
+           "global_steps": tr.global_steps,
+           "acc": rep["acc"], "restored_acc": rep["restored_acc"],
+           "restored_step": rep["restored_step"],
+           "restored_global_steps": tr2.global_steps,
+           "state": _named_numpy(tr.state_dict()),
+           "restored_state": _named_numpy(tr2.state_dict()),
+           "cache_hit_rate": tr.cache_hit_rate,
+           "halo_hit_rate": tr.halo_hit_rate,
+           "halo_exchange_bytes": tr.halo_exchange_bytes,
+           "fused_grad_calls": tr.fused_grad_calls,
+           "seconds": rep["seconds"],
+           "losses": {s.index: list(s.pipe.stats.losses) for s in tr.slots}}
+    return out
+
+
+def halo_rows(tr) -> Dict:
+    """Each held partition's halo rows (``plan.halo_sets``) as its feature
+    plane serves them.  A fetch counts in the cache statistics: read those
+    first."""
+    import numpy as np
+    return {s.index: s.pipe.plane.fetch(np.arange(
+        s.n_owned, s.n_owned + len(tr.plan.halo_sets[s.index])))
+        for s in tr.slots}
+
+
+def gnn_rank(rank: int, device, args, cfg=None, timed_steps: int = 0,
+             capture: bool = False) -> Dict:
+    """One rank of the multi-partition run in a ``torch.distributed``
+    group (``launch/group.spawn_partitions`` calls it): the graph and
+    ``run_gnn_multipartition`` on ``device``, rank 0 printing (with
+    ``capture``, into the result's ``stdout`` instead); then
+    ``timed_steps`` more global steps, each to the card's last kernel.
+    Returns ``multipartition_summary`` with its partition's
+    ``halo_rows``, this process's kernel ``launches`` over the run, the
+    timed steps' host seconds, the printed text and the top-level modules
+    the process imported."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.group import imported_modules
+    device = torch.device(device)
+    args = argparse.Namespace(**{**vars(args), "device": str(device)})
+    cfg = cfg if cfg is not None else gnn_config(args)
+    text = io.StringIO()
+    quiet = rank != 0 or capture
+    with contextlib.redirect_stdout(text if quiet else sys.stdout):
+        graph = load_graph(args, cfg)
+        before = launch_counts()
+        rep = run_gnn_multipartition(args, cfg, graph)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        launches = {k: n - before[k] for k, n in launch_counts().items()}
+    try:
+        out = multipartition_summary(rep)
+        out["halo_rows"] = halo_rows(rep["trainer"])
+        walls = []
+        for _ in range(timed_steps):
+            t0 = time.perf_counter()
+            rep["trainer"].global_step()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            walls.append(time.perf_counter() - t0)
+    finally:
+        for t in (rep["trainer"], rep["restored"]):
+            for slot in t.slots:
+                slot.pipe.shutdown()
+    return {**out, "rank": rank, "launches": launches, "step_seconds": walls,
+            "stdout": text.getvalue() if rank == 0 else "",
+            "modules": imported_modules()}
+
+
+def spawn_gnn_multipartition(args, cfg) -> Dict:
+    """``cfg.partitions`` processes, rank r on ``cuda:r``, joined by
+    ``nccl``, each running ``gnn_rank``.  The kernels are built here once
+    (the ranks load the libraries) and the checkpoint directory made here,
+    so every rank writes and reads the same.  Returns each rank's summary
+    and the checkpoint directory."""
+    from repro_torch.kernels.build import build
+    from repro_torch.launch.group import spawn_partitions
+    build(["gather", "segment_agg", "fused_gather_agg"])
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(
+        prefix=f"ckpt_gnn_p{cfg.partitions}_")
+    rank_args = argparse.Namespace(**{**vars(args), "ckpt_dir": ckpt_dir})
+    ranks = spawn_partitions(
+        gnn_rank, cfg.partitions, "nccl",
+        [f"cuda:{r}" for r in range(cfg.partitions)], args=(rank_args, cfg))
+    return {"ranks": ranks, "ckpt_dir": ckpt_dir}
 
 
 def run_autotune(args, tr) -> Dict:
@@ -122,14 +241,10 @@ def run_autotune(args, tr) -> Dict:
     return {"trainer": tr, "report": rep}
 
 
-def run_gnn(args) -> Dict:
-    """Train ``args.steps`` steps per epoch and print the result and the
-    stage split.  Returns the trainer and its ``RunResult``; with
-    ``--partitions`` > 1, what ``run_gnn_multipartition`` returns; with
-    ``--autotune``, what ``run_autotune`` returns."""
+def gnn_config(args):
+    """The GNN configuration the command line names."""
     from repro_torch.configs import get_config
-    from repro_torch.core.a3gnn import A3GNNTrainer, apply_baseline
-    from repro_torch.graph.synthetic import dataset_like
+    from repro_torch.core.a3gnn import apply_baseline
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.mode:
@@ -148,10 +263,39 @@ def run_gnn(args) -> Dict:
         cfg = cfg.replace(sampling_device=args.sampling_device)
     if args.fused_gather_agg:
         cfg = cfg.replace(fused_gather_agg=True)
-    cfg = apply_baseline(cfg, args.baseline)
+    return apply_baseline(cfg, args.baseline)
+
+
+def load_graph(args, cfg):
+    """The seeded synthetic twin of ``cfg``'s dataset; prints its size."""
+    from repro_torch.graph.synthetic import dataset_like
     graph = dataset_like(cfg, seed=args.seed)
     print(f"[data] {graph.name}: {graph.num_nodes} nodes, "
           f"{graph.num_edges} edges")
+    return graph
+
+
+def _spawns_ranks(cfg, device) -> bool:
+    """A card for each partition and no group yet: one process each."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import device_count
+    return (cfg.partitions > 1 and device_count(device) >= cfg.partitions
+            and not (dist.is_available() and dist.is_initialized()))
+
+
+def run_gnn(args) -> Dict:
+    """Train ``args.steps`` steps per epoch and print the result and the
+    stage split.  Returns the trainer and its ``RunResult``; with
+    ``--partitions`` > 1, what ``run_gnn_multipartition`` returns (what
+    ``spawn_gnn_multipartition`` returns where it spawns the ranks); with
+    ``--autotune``, what ``run_autotune`` returns."""
+    from repro_torch.core.a3gnn import A3GNNTrainer
+
+    cfg = gnn_config(args)
+    if _spawns_ranks(cfg, args.device):
+        return spawn_gnn_multipartition(args, cfg)
+    graph = load_graph(args, cfg)
     if cfg.partitions > 1:
         return run_gnn_multipartition(args, cfg, graph)
     tr = A3GNNTrainer(graph, cfg, seed=args.seed, device=args.device)
@@ -243,8 +387,10 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=[None, "seq", "mode1", "mode2"])
     ap.add_argument("--bias-rate", type=float, default=None)
     ap.add_argument("--partitions", type=int, default=None,
-                    help="data-parallel graph partitions (scale-out path; "
-                         "every partition on the one --device)")
+                    help="data-parallel graph partitions (scale-out path: "
+                         "one process a card, cuda:r, joined by nccl where "
+                         "there are as many cards; otherwise every "
+                         "partition on the one --device)")
     ap.add_argument("--halo-budget", type=int, default=None,
                     help="per-partition cap on boundary feature rows "
                          "exchanged through the mesh (0 = drop cut edges, "

@@ -214,6 +214,25 @@ class CheckpointManager:
         return out, step
 
 
+class GroupCheckpointManager(CheckpointManager):
+    """One checkpoint directory shared by the processes of a ``GroupMesh``
+    (launch/mesh.py): rank 0 writes each step, synchronously, and every
+    rank then waits at a barrier, so each step is committed before any
+    rank goes on and every rank reads the same steps.  ``save`` is a
+    collective: every rank calls it."""
+
+    def __init__(self, directory: str | Path, mesh, keep: int = 3):
+        super().__init__(directory, keep=keep, async_save=False)
+        self.mesh = mesh
+
+    def save(self, step: int, state: Dict[str, Any],
+             extra: Optional[Dict] = None):
+        from repro_torch.distributed.collectives import barrier
+        if self.mesh.rank == 0:
+            super().save(step, state, extra)
+        barrier(self.mesh)
+
+
 class TrainerCheckpointMixin:
     """Shared checkpoint/restore contract for the GNN trainers (single- and
     multi-partition, core/a3gnn.py and core/multipart.py).

@@ -17,11 +17,15 @@ among ties).
 
 ``compressed_psum_int8`` is the cross-member mean with an int8 payload,
 over the members of a host-simulated mesh (``launch/mesh.HostSimMesh``:
-every member's tensor on one device, as ``grad_allreduce`` works): each
-member quantizes by the shared (max) scale, the int32 payloads are summed
-in member order, and the sum is dequantized and divided by the member
-count.  ``make_crosspod_grad_transform`` is the ``grad_transform`` hook of
-``train/trainer.make_train_step`` for a mesh with a ``pod`` axis.
+every member's tensor on one device, as ``grad_allreduce`` works) or of a
+``GroupMesh`` (one member a process): each member quantizes by the shared
+(max) scale, the int32 payloads are summed in member order, and the sum
+is dequantized and divided by the member count.  Over a group the scale
+is an ``all_reduce(MAX)`` (exact) and the int8 payloads travel as int8
+(one ``all_gather``), so every member computes the host-sim result on its
+tensor's device.  ``make_crosspod_grad_transform`` is the
+``grad_transform`` hook of ``train/trainer.make_train_step`` for a mesh
+with a ``pod`` axis.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import MULTI_CARD, HostSimMesh, axis_sizes
+from repro_torch.distributed.collectives import all_gather_tensors
+from repro_torch.launch.mesh import GroupMesh, HostSimMesh, axis_sizes
 from repro_torch.models.params import leaves, tree_map, unflatten
 
 
@@ -124,16 +129,37 @@ def _compressed_mean(xs: List[torch.Tensor]) -> torch.Tensor:
     return _div(acc.float() * scale, n).to(xs[0].dtype)
 
 
+def _group_compressed_mean(x: torch.Tensor, mesh: GroupMesh) -> torch.Tensor:
+    """``_compressed_mean`` of the group's members' ``x``, this member's
+    tensor its only input: the same shared scale, the int32 sum in member
+    order and the division, on x's device."""
+    import torch.distributed as dist
+    scale = _scale(x).reshape(1).to(mesh.comm_device)
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX)            # exact
+    scale = scale.to(x.device).reshape(())
+    q = _quantize(x, scale).to(torch.int8)                   # the wire
+    acc = None
+    for (m,) in all_gather_tensors(mesh, [q]):
+        acc = m.to(torch.int32) if acc is None else acc + m.to(torch.int32)
+    return _div(acc.float() * scale, mesh.size).to(x.dtype)
+
+
 def compressed_psum_int8(xs: List[torch.Tensor], mesh) -> torch.Tensor:
-    """Mean of the members' tensors ``xs`` (member order, one per member of
-    the host-simulated ``mesh``) with an int8 payload: what every member
-    holds after the JAX package's ``compressed_psum_int8``.
+    """Mean of the members' tensors with an int8 payload: what every member
+    holds after the JAX package's ``compressed_psum_int8``.  ``xs`` holds
+    one tensor per member of a host-simulated ``mesh``, in member order;
+    over a ``GroupMesh`` it is a one-element list, this process's tensor.
 
     Wire format per tensor: the int8 payload (summed as int32) and one f32
     scale (max-reduced), about 4x fewer bytes than an f32 all-reduce."""
+    if isinstance(mesh, GroupMesh):
+        if len(xs) != 1:
+            raise ValueError(f"{len(xs)} tensors: a member of a GroupMesh "
+                             f"passes its own, as a 1-list")
+        return _group_compressed_mean(xs[0], mesh)
     if not isinstance(mesh, HostSimMesh):
-        raise NotImplementedError(f"compressed_psum_int8 over {mesh!r}: "
-                                  f"{MULTI_CARD}")
+        raise NotImplementedError(f"compressed_psum_int8 over {mesh!r}: it "
+                                  f"runs over a HostSimMesh or a GroupMesh")
     if len(xs) != mesh.size:
         raise ValueError(f"{len(xs)} tensors for a mesh of {mesh.size}")
     return _compressed_mean(xs)
@@ -142,11 +168,16 @@ def compressed_psum_int8(xs: List[torch.Tensor], mesh) -> torch.Tensor:
 def make_crosspod_grad_transform(mesh, kind: str = "int8"):
     """``grad_transform`` hook for ``make_train_step``: each gradient leaf
     through the compressed mean over the mesh's ``pod`` axis; None for a
-    mesh without one.  The port's step holds one replicated gradient tree,
-    so each leaf enters as ``pod``-many equal members, as a replicated
-    tree enters the JAX package's ``shard_map``."""
+    mesh without one.  On a ``GroupMesh`` whose axis is ``pod`` each
+    process's gradient is its member's, and the mean runs over the group.
+    Otherwise the port's step holds one replicated gradient tree, so each
+    leaf enters as ``pod``-many equal members, as a replicated tree enters
+    the JAX package's ``shard_map``."""
     if "pod" not in mesh.axis_names:
         return None
+    if isinstance(mesh, GroupMesh):
+        return lambda grads: tree_map(
+            lambda g: _group_compressed_mean(g, mesh), grads)
     n = axis_sizes(mesh)["pod"]
 
     def transform(grads):

@@ -1453,3 +1453,104 @@ def test_lm_train_step_on_card_matches_cpu(card, arch):
         assert g is not None and bool(torch.isfinite(g).all())
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
             w.abs().max()) + 1e-12
+
+
+# the partition mesh as a torch.distributed group on the card
+GROUP_CFG = dict(smoke=True, partitions=2, halo_budget=32,
+                 fused_gather_agg=True, sampling_device="device",
+                 cache_policy="static", cache_volume_mb=0.1)
+
+
+def _group_args(ckpt_dir):
+    from repro_torch.launch.train import build_parser
+    return build_parser().parse_args(
+        ["--arch", "graphsage-products", "--smoke", "--steps", "4",
+         "--ckpt-dir", str(ckpt_dir)])
+
+
+def _bit_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def test_group_gloo_ranks_sharing_the_card_match_host_sim(card, tmp_path):
+    """2 gloo ranks on cuda:0 run the launcher's rank code (fused, smoke
+    size): bit-equal to the host-simulated run on the card, and the
+    kernels' launches summed over the ranks equal to its."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.build import build
+    from repro_torch.launch.group import spawn_partitions
+    from repro_torch.launch.train import (gnn_rank, halo_rows, load_graph,
+                                          multipartition_summary,
+                                          run_gnn_multipartition)
+    build(["gather", "segment_agg", "fused_gather_agg"])
+    cfg = gnn_config("products", **GROUP_CFG)
+    ranks = spawn_partitions(gnn_rank, 2, "gloo", ["cuda:0", "cuda:0"],
+                             init_method=f"file://{tmp_path}/store",
+                             args=(_group_args(tmp_path / "group"), cfg),
+                             timeout=120)
+    args = _group_args(tmp_path / "host")
+    before = launch_counts()
+    rep = run_gnn_multipartition(args, cfg, load_graph(args, cfg))
+    torch.cuda.synchronize()
+    launches = {k: n - before[k] for k, n in launch_counts().items()}
+    try:
+        want = multipartition_summary(rep)
+        want["halo_rows"] = halo_rows(rep["trainer"])
+    finally:
+        for t in (rep["trainer"], rep["restored"]):
+            for s in t.slots:
+                s.pipe.shutdown()
+    assert launches["gather_aggregate"] == 8
+    assert {k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
+            for k in launches} == launches
+    for r, got in enumerate(ranks):
+        assert _bit_equal(got["losses"][r], want["losses"][r])
+        assert _bit_equal(got["halo_rows"][r], want["halo_rows"][r])
+        for k, v in want["state"].items():
+            assert _bit_equal(got["state"][k], v), k
+        for key in ("acc", "restored_acc", "cache_hit_rate", "halo_hit_rate",
+                    "report", "fused_grad_calls"):
+            assert got[key] == want[key], key
+        assert not {"jax", "repro"} & set(got["modules"])
+
+
+@pytest.mark.parametrize("backend,n", [("gloo", 2), ("nccl", 1)])
+def test_group_collectives_on_the_card_match_host_sim(card, tmp_path,
+                                                      backend, n):
+    """Every group collective with its tensors on cuda:0, over 2 gloo
+    ranks and over a one-rank nccl group (device, layout and dtypes on
+    NCCL), bit-equal to the host-simulated forms on the card."""
+    from repro_torch.distributed.collectives import (flash_decode_attention,
+                                                     grad_allreduce)
+    from repro_torch.launch.group import (collectives_rank, decode_inputs,
+                                          spawn_partitions)
+    from repro_torch.launch.mesh import HostSimMesh
+    from repro_torch.train.compression import compressed_psum_int8
+    rng = np.random.default_rng(n)
+    inputs = {"grad_trees": [{"w": rng.normal(0, 1, (5, 3)).astype("f4"),
+                              "z": np.full(4, -0.0, np.float32)}
+                             for _ in range(n)],
+              "compress": [rng.normal(0, 1, (64, 48)).astype(np.float32)
+                           for _ in range(n)],
+              "decode": {"shape": (3, 16 * n, 4, 32), "seed": n},
+              "objects": backend}
+    got = spawn_partitions(collectives_rank, n, backend, ["cuda:0"] * n,
+                           init_method=f"file://{tmp_path}/store",
+                           args=(inputs,), timeout=120)
+
+    def cuda(a):
+        return torch.from_numpy(a).cuda()
+    mean = grad_allreduce(HostSimMesh(n))(
+        [{k: cuda(v) for k, v in t.items()} for t in inputs["grad_trees"]])
+    comp = compressed_psum_int8([cuda(x) for x in inputs["compress"]],
+                                HostSimMesh(n, "pod"))
+    dec = flash_decode_attention(HostSimMesh(n, "model"), "model")(
+        *decode_inputs((3, 16 * n, 4, 32), n, "cuda"))
+    for r, out in enumerate(got):
+        for k, v in mean.items():
+            assert _bit_equal(out["grad_trees"][k], v.cpu().numpy()), k
+        assert _bit_equal(out["compress"], comp.cpu().numpy())
+        assert _bit_equal(out["decode"], dec.cpu().numpy())
+        assert out["objects"] == [(q, backend) for q in range(n)]

@@ -55,7 +55,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "configs.mamba2_1_3b", "configs.zamba2_7b",
                  "models.encdec", "configs.whisper_medium",
                  "configs.qwen2_vl_2b", "train.optimizer", "train.trainer",
-                 "train.data"):
+                 "train.data", "launch.group", "launch.dryrun",
+                 "train.compression", "distributed.pp",
+                 "distributed.sharding"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["leaked"] == []
 

@@ -36,7 +36,8 @@ from repro_torch.graph.partition import plan_partitions
 from repro_torch.graph.storage import FeatureStore
 from repro_torch.graph.synthetic import dataset_like
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.launch.mesh import HostSimMesh, make_partition_mesh
+from repro_torch.launch.mesh import (GroupMesh, HostSimMesh,
+                                     make_partition_mesh)
 from repro_torch.launch.train import main
 from repro_torch.models.convert import opt_state_from_jax, params_from_jax
 from repro_torch.models.params import leaves, unflatten
@@ -78,19 +79,34 @@ def _from_jax(tr, jtr):
 # mesh + collectives
 # ---------------------------------------------------------------------------
 
-def test_partition_mesh_host_simulated_when_devices_scarce(monkeypatch):
+def test_partition_mesh_host_simulated_when_devices_scarce(monkeypatch,
+                                                             tmp_path):
+    # inside a group of P processes (here one): the group; of another
+    # size: refused
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_partition_mesh(1, "cpu")
+        assert isinstance(mesh, GroupMesh)
+        assert (mesh.size, mesh.rank, mesh.backend) == (1, 0, "gloo")
+        with pytest.raises(ValueError, match="group of 1"):
+            make_partition_mesh(2, "cpu")
+    finally:
+        dist.destroy_process_group()
     for n in (1, 2, 4):
         mesh = make_partition_mesh(n, "cpu")
         assert isinstance(mesh, HostSimMesh)
         assert mesh.shape == {"part": n} and mesh.axis_names == ("part",)
-    # a card per partition would be a real mesh, which is refused, not
-    # quietly simulated
+    # a card per partition and no group: one process per card is the
+    # launcher's to spawn, and the mesh is refused, not quietly simulated
     monkeypatch.setattr(mesh_mod, "device_count", lambda device: 4)
     assert isinstance(make_partition_mesh(1, "cuda"), HostSimMesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="launch.train --partitions 2 "
+                                           "spawns them"):
         make_partition_mesh(2, "cuda")
     assert isinstance(make_partition_mesh(8, "cuda"), HostSimMesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="GroupMesh"):
         grad_allreduce(object())
 
 
