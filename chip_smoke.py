@@ -287,14 +287,40 @@ Phases; any failure exits non-zero:
    on the card; a line saying that the two-rank ``nccl`` run needs a
    second card (``scripts/group_nccl.py`` runs it where there are two);
    no rank may import JAX or the JAX package.  The script drives one
-   card: with more it stops at once (``CUDA_VISIBLE_DEVICES=0`` runs it).
+   card: with more it stops at once (``CUDA_VISIBLE_DEVICES=0`` runs it);
+17. the fleet's live reconfiguration as a process group — 2 ``gloo``
+   ranks sharing the card, spawned by ``launch/group.spawn_partitions``
+   with the launcher's rank code (``launch.train.autotune_rank``) at
+   phase 9's full width (``--partitions 2 --halo-budget 4096
+   --halo-refresh-interval 2``, the static cache), against the same
+   sequence host-simulated in this process on the card (run first): (a)
+   one 2-partition trainer, 2 global steps after each of the halo budget
+   swapped 4096 -> 0 -> 4096, 50,000 seeded edges added on every rank and
+   ``rebalance_partitions``, a streamed ``update_rows`` of 64 halo rows of
+   each partition (the periodic refresh fires in the second step); (b) a
+   scripted auto-tuner run on it (partitions 2 -> 1 -> 2 through the
+   restart, the halo budget, γ and Θ moved, ``w_throughput=0``; the best
+   episode, the one-partition one, is applied at the end); (c) an
+   unscripted run of 3 episodes of 4 steps on what (b) left.  Each
+   partition's losses, params, ``opt_state``, hit rates, manifests,
+   episodes (but their clock's throughput) and halo rows through the
+   planes are held bit-equal to the reference through (b); for (c) the
+   ranks must agree (rank 0's episodes broadcast); the launches summed
+   over the ranks equal the reference's and the steps run (one
+   ``gather_aggregate``, two ``neighbor_agg`` and two backward a
+   partition's step; ``flash_attention`` and ``reservoir_topm`` 0); each
+   operation's host seconds per rank (the periodic refresh's and each
+   restart's apart), each episode's fleet throughput beside the
+   reference's with each rank's own MEASURE wall; no rank may import JAX
+   or the JAX package.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels (the
 ``flash_attention`` entry with ``path_launches`` of phases 12 and 13's
 prefills and the forward's ``train_launches`` of phase 14; the backward's
 own entry, ``flash_attention_bwd``; the GNN training kernels'
-``group_launches`` of phase 16, summed over the ranks) and the last line is ``{"ok": true,
+``group_launches`` of phase 16 and ``live_launches`` of phase 17, summed
+over the ranks) and the last line is ``{"ok": true,
 "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -4705,6 +4731,238 @@ def phase_group(torch, stamp: str, multipart: dict) -> dict:
     return {"train": train, "nccl": nccl, "shims": shims}
 
 
+# phase 17: the fleet's live reconfiguration as 2 gloo ranks on the card
+LIVE_EPISODE_STEPS = 4      # global steps an auto-tuner episode
+LIVE_ARGS = ["--arch", ARCH, "--partitions", "2", "--halo-budget", "4096",
+             "--sampling-device", "device", "--fused-gather-agg",
+             "--halo-refresh-interval", "2", "--steps",
+             str(LIVE_EPISODE_STEPS), "--episodes-autotune", "3"]
+LIVE_EDGES = 50_000         # seeded random edges added on every rank
+LIVE_STREAMED = 64          # halo rows of each partition updated
+LIVE_OPS = [("halo", 0), ("steps", 2), ("halo", 4096), ("steps", 2),
+            ("edges", (17, LIVE_EDGES)), ("rebalance", None), ("steps", 2),
+            ("update", (19, LIVE_STREAMED)), ("steps", 2), ("snapshot", None)]
+# (b): episodes 1..; episode 0 measures the seed configuration (2
+# partitions, a 4,096-row halo, γ 2, Θ 40 MB)
+LIVE_SCRIPT = [dict(bias_rate=4.0, cache_volume_mb=20.0, partitions=1,
+                    halo_budget=0),
+               dict(bias_rate=1.5, cache_volume_mb=40.0, partitions=2,
+                    halo_budget=2048),
+               dict(bias_rate=2.0, cache_volume_mb=30.0, partitions=2,
+                    halo_budget=4096)]
+LIVE_SCRIPT = [dict(c, parallel_mode="seq", workers=1) for c in LIVE_SCRIPT]
+LIVE_TUNER = dict(presample=32, surrogate_trees=8, ppo_updates=1,
+                  ppo_horizon=4)
+LIVE_SCRIPTED = dict(LIVE_TUNER, episodes=len(LIVE_SCRIPT) + 1,
+                     warmup_steps=1, max_partitions=2, max_halo_budget=4096,
+                     w_throughput=0.0, w_memory=1.0, w_accuracy=0.0,
+                     throughput_source="wallclock", script=LIVE_SCRIPT)
+LIVE_UNSCRIPTED = dict(LIVE_TUNER, episodes=3, warmup_steps=0,
+                       throughput_source="wallclock")
+LIVE_SEQUENCE = LIVE_OPS + [("autotune", LIVE_SCRIPTED), ("snapshot", None),
+                            ("autotune", LIVE_UNSCRIPTED)]
+EPISODE_KEYS = ("index", "config", "reward", "cache_hit_rate", "steps")
+
+
+def _hold_summary(r: int, got: dict, want: dict, label: str) -> list:
+    """Where rank r's ``fleet_summary`` differs from the reference's."""
+    bad = []
+    if (got["partitions"], got["held"]) != (want["partitions"],
+                                            r < want["partitions"]):
+        return [f"{label}: rank {r} holds {got['partitions'], got['held']}"]
+    if not got["held"]:
+        return bad
+    diff = _first_difference(got["state"], want["state"],
+                             f"{label} rank {r} state")
+    bad += [diff] if diff else []
+    for key in ("cache_hit_rate", "halo_hit_rate", "manifest"):
+        if got[key] != want[key]:
+            bad.append(f"{label}: rank {r} {key} {got[key]} vs {want[key]}")
+    if "halo_rows" in want and not _same(got["halo_rows"][r],
+                                         want["halo_rows"][r]):
+        bad.append(f"{label}: rank {r} halo rows differ")
+    return bad
+
+
+def _hold_live_rank(r: int, got: dict, ref: dict) -> list:
+    """Where rank r's ``autotune_rank`` run of ``LIVE_SEQUENCE`` differs
+    from the host-simulated reference's, up to the unscripted run (c)."""
+    import numpy as np
+    bad = []
+    for i, (g, w) in enumerate(zip(got["ops"], ref["ops"])):
+        label = f"op {i} {w['op']}"
+        if w["op"] == "snapshot":
+            bad += _hold_summary(r, g, w, label)
+        elif w["op"] == "autotune" and "script" in LIVE_SEQUENCE[i][1]:
+            for eg, ew in zip(g["episodes"], w["episodes"], strict=True):
+                for key in EPISODE_KEYS:
+                    if eg[key] != ew[key]:
+                        bad.append(f"{label} episode {ew['index']}: rank {r} "
+                                   f"{key} {eg[key]} vs {ew[key]}")
+                for key in ("memory", "accuracy"):
+                    if eg["metrics"][key] != ew["metrics"][key]:
+                        bad.append(f"{label} episode {ew['index']}: rank {r} "
+                                   f"{key} {eg['metrics'][key]} vs "
+                                   f"{ew['metrics'][key]}")
+            for k, (lg, lw) in enumerate(zip(g["losses"], w["losses"])):
+                holds = w["episodes"][k]["config"]["partitions"] > r
+                if holds and not _same(np.array(lg), np.array(lw)):
+                    bad.append(f"{label} episode {k}: rank {r} losses")
+            for key in ("best", "manifests"):
+                if g[key] != w[key]:
+                    bad.append(f"{label}: rank {r} {key} differs")
+        elif w["op"] != "autotune":
+            for key, value in w.items():
+                if key.endswith("seconds"):
+                    continue
+                if key == "losses":
+                    if not _same(np.array(g[key][r]), np.array(value[r])):
+                        bad.append(f"{label}: rank {r} losses "
+                                   f"{g[key][r]} vs {value[r]}")
+                elif g[key] != value:
+                    bad.append(f"{label}: rank {r} {key} {g[key]} vs "
+                               f"{value}")
+    return bad
+
+
+def predicted_launches(run: dict, parts: int) -> int:
+    """``gather_aggregate`` launches of a run of ``LIVE_SEQUENCE`` summed
+    over the partitions: one a partition's fused step (the global steps
+    of the live operations, each auto-tuner run's warm-up steps at its
+    starting partition count and its episodes' per-partition steps)."""
+    n = 0
+    for (name, arg), rec in zip(LIVE_SEQUENCE, run["ops"]):
+        if name == "steps":
+            n += int(arg) * parts
+        elif name == "autotune":
+            n += arg.get("warmup_steps", 0) * \
+                rec["episodes"][0]["config"].get("partitions", parts)
+            n += sum(ep["steps"] for ep in rec["episodes"])
+            parts = rec["episodes"][rec["best"]]["config"].get("partitions",
+                                                                parts)
+    return n
+
+
+def _live_lines(ranks: list, ref: dict, stamp: str):
+    """Each operation's host seconds, each episode's broadcast throughput
+    beside the reference's and each rank's own MEASURE wall."""
+    for i, (name, _) in enumerate(LIVE_SEQUENCE[:len(ref["ops"])]):
+        w = ref["ops"][i]
+        secs = [r["ops"][i]["seconds"] for r in ranks]
+        extra = ""
+        if name == "steps" and w.get("refresh_seconds"):
+            extra = (f"; periodic halo refresh "
+                     f"{[[round(s, 4) for s in r['ops'][i]['refresh_seconds']] for r in ranks]}"
+                     f" s (reference "
+                     f"{[round(s, 4) for s in w['refresh_seconds']]})")
+        if name == "autotune":
+            def restarts(rec):
+                return [round(s, 3) for k, s in rec["reconfigure_seconds"]
+                        if k == "restart"]
+            extra = (f"; restarts by rank "
+                     f"{[restarts(r['ops'][i]) for r in ranks]} s "
+                     f"(reference {restarts(w)})")
+        print(f"[live] op {i} {name}: host s rank 0 {secs[0]:.3f}, rank 1 "
+              f"{secs[1]:.3f}, reference {w['seconds']:.3f}{extra}  "
+              f"[{stamp}]", flush=True)
+        if name != "autotune":
+            continue
+        for k, ep in enumerate(ranks[0]["ops"][i]["episodes"]):
+            c = ep["config"]
+            walls = [r["ops"][i]["t_walls"][k] for r in ranks]
+            print(f"[live]   episode {k}: p={c.get('partitions')} "
+                  f"halo={c.get('halo_budget')} γ={c['bias_rate']:.2f} "
+                  f"Θ={c['cache_volume_mb']:.2f}MB mode={c['parallel_mode']}"
+                  f" w={int(c['workers'])} | fleet "
+                  f"{ep['metrics']['throughput']:.2f} mini-batches/s "
+                  f"(reference {w['episodes'][k]['metrics']['throughput']:.2f}"
+                  f"; rank walls "
+                  f"{['no partition' if t is None else round(t, 3) for t in walls]}"
+                  f" s) mem={ep['metrics']['memory'] / 2**20:.1f} MiB "
+                  f"acc={ep['metrics']['accuracy']:.4f} "
+                  f"hit={ep['cache_hit_rate']:.3f}  [{stamp}]", flush=True)
+
+
+def hold_live(ranks: list, ref: dict, stamp: str, label: str):
+    """Print and hold ranks' ``autotune_rank`` runs of ``LIVE_SEQUENCE``
+    (or its first ops) against the host-simulated reference ``ref``: the
+    launches summed over the ranks equal to the reference's and to the
+    steps run, each rank bit-equal to the reference up to the unscripted
+    run (c), which the ranks must agree on.  Returns the summed launches
+    and the differences found."""
+    _live_lines(ranks, ref, stamp)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    fused = predicted_launches(ref, 2)
+    want = {"gather_aggregate": fused, "neighbor_agg": 2 * fused,
+            "neighbor_agg_backward": 2 * fused, "flash_attention": 0,
+            "reservoir_topm": 0}
+    print(f"[live] {label}: launches by rank "
+          f"{[r['launches'] for r in ranks]}, summed {launches}; the "
+          f"reference's {ref['launches']}; predicted from the steps run "
+          f"{want} (cache_gather: the halo rows read back through the "
+          f"planes)  [{stamp}]", flush=True)
+    bad = [f"launches {k}: {launches[k]} (reference {ref['launches'][k]}), "
+           f"predicted {n}" for k, n in want.items()
+           if not launches[k] == ref["launches"][k] == n]
+    if launches["cache_gather"] != ref["launches"]["cache_gather"]:
+        bad.append(f"cache_gather {launches['cache_gather']} vs the "
+                   f"reference's {ref['launches']['cache_gather']}")
+    bad += [d for r, got in enumerate(ranks)
+            for d in _hold_live_rank(r, got, ref)]
+    if len(ref["ops"]) == len(LIVE_SEQUENCE):               # (c) ran
+        tuned = [r["ops"][-1] for r in ranks]
+        if any(t["episodes"] != tuned[0]["episodes"]
+               or t["best"] != tuned[0]["best"] for t in tuned):
+            bad.append("(c): the ranks' reports differ")
+        if ranks[1]["held"] and _first_difference(
+                ranks[1]["state"], ranks[0]["state"], "(c)"):
+            bad.append("(c): the ranks' final states differ")
+    leaked = sorted({m for r in ranks for m in r["modules"]}
+                    & {"jax", "repro"})
+    if leaked:
+        bad.append(f"a rank imported {leaked}")
+    w = ref["ops"]
+    print(f"[check] {label}: (a) halo 4096 -> 0 -> 4096, {LIVE_EDGES} edges "
+          f"and a rebalance ({w[5]['moved_nodes']} nodes moved, cut "
+          f"{w[5]['cut_before']:.4f} -> {w[5]['cut_after']:.4f}), "
+          f"{w[7]['rows']} streamed rows refreshed "
+          f"{w[8]['halo_refreshes']} time(s); (b) {len(LIVE_SCRIPT) + 1} "
+          f"scripted episodes, partitions "
+          f"{[e['config']['partitions'] for e in w[10]['episodes']]}, "
+          f"{len(w[10]['manifests'])} restarts, best episode "
+          f"{w[10]['best']}: every partition's losses, params and "
+          f"opt_state, hit rates, manifests and halo rows against the "
+          f"host-simulated reference, (c) across the ranks where it ran: "
+          f"{'bit-equal' if not bad else bad}; the ranks imported "
+          f"{leaked or 'neither jax nor repro'}", flush=True)
+    return launches, bad
+
+
+def phase_live(torch, stamp: str) -> dict:
+    """Phase 17: the fleet's live reconfiguration as 2 gloo ranks sharing
+    the card, against the same sequence host-simulated in this process."""
+    from repro_torch.launch.group import spawn_partitions
+    from repro_torch.launch.train import autotune_rank, build_parser
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    args = build_parser().parse_args(LIVE_ARGS)
+    t0 = time.perf_counter()
+    ref = autotune_rank(0, "cuda:0", args, ops=LIVE_SEQUENCE)
+    t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_partitions(autotune_rank, 2, "gloo", ["cuda:0", "cuda:0"],
+                             args=(args, None, None, LIVE_SEQUENCE),
+                             timeout=GROUP_JOIN_S)
+    t_group = time.perf_counter() - t0
+    launches, bad = hold_live(ranks, ref, stamp, "2 gloo ranks on cuda:0")
+    if bad:
+        fail(f"phase 17: {bad[0]}")
+    secs = time.perf_counter() - t_phase
+    print(f"[live] phase 17 in {secs:.1f} s (reference {t_ref:.1f} s, spawn "
+          f"to both results {t_group:.1f} s)  [{stamp}]", flush=True)
+    return {"launches": launches, "seconds": secs}
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4781,6 +5039,11 @@ def main() -> int:
     entries[2]["group_launches"] = group_launches["neighbor_agg"]
     entries[2]["group_backward_launches"] = \
         group_launches["neighbor_agg_backward"]
+    live = phase_live(torch, stamp)["launches"]
+    entry["live_launches"] = live["cache_gather"]
+    entries[1]["live_launches"] = live["gather_aggregate"]
+    entries[2]["live_launches"] = live["neighbor_agg"]
+    entries[2]["live_backward_launches"] = live["neighbor_agg_backward"]
     entry["fabric_launches"] = sum(n for k, n in fabric["parts"].items()
                                    if k != "train")
     entry["fabric_warmup_train_launches"] = fabric["parts"]["train"]

@@ -24,6 +24,13 @@ run on the host-simulated mesh; needs two CUDA cards.
    the gradient mean, ``compressed_psum_int8``, the cross-pod transform,
    ``flash_decode_attention`` at qwen3-4b's decode shape), bit-equal to
    the host-simulated forms on ``cuda:0``.
+5. ``chip_smoke.py``'s phase 17 (a) and (b) over 2 ``nccl`` ranks, a card
+   each (``launch.train.autotune_rank``: the halo-budget swaps, the edges
+   and the rebalance, the streamed rows and their refresh, the scripted
+   auto-tuner with its ``partitions`` restarts 2 -> 1 -> 2), held as phase
+   17 holds its gloo ranks (``chip_smoke.hold_live``) to the same sequence
+   host-simulated in a child that sees one card, each episode's fleet
+   throughput beside the reference's.
 
 Prints the cards' name and power limit; exits non-zero on a mismatch or
 with fewer than two cards.  Imports nothing of JAX.
@@ -81,10 +88,22 @@ def _reference(out: str) -> int:
     return 0
 
 
+def _live_reference(out: str) -> int:
+    """Step 5's reference, in the child that sees one card."""
+    import chip_smoke as cs
+    from repro_torch.launch.train import autotune_rank, build_parser
+    args = build_parser().parse_args(cs.LIVE_ARGS)
+    ref = autotune_rank(0, "cuda:0", args, ops=cs.LIVE_SEQUENCE[:-1])
+    Path(out).write_bytes(pickle.dumps(ref))
+    return 0
+
+
 def main() -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     if len(sys.argv) == 3 and sys.argv[1] == "--reference":
         return _reference(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--live-reference":
+        return _live_reference(sys.argv[2])
     import torch
     if torch.cuda.device_count() < 2:
         print(f"[fail] {torch.cuda.device_count()} CUDA cards: the two-rank "
@@ -190,6 +209,33 @@ def main() -> int:
           f"{'bit-equal' if not bad else bad}", flush=True)
     if bad:
         cs.fail(f"nccl collectives: {bad[0]}")
+
+    # 5. phase 17 (a) and (b) over 2 nccl ranks
+    from repro_torch.launch.train import autotune_rank
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "live.pkl"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, __file__, "--live-reference", str(out)],
+            env={**env, "CUDA_VISIBLE_DEVICES": "0"}, text=True,
+            capture_output=True, timeout=LAUNCH_TIMEOUT_S)
+        if proc.returncode != 0:
+            print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+            cs.fail("the live reference failed")
+        ref = pickle.loads(out.read_bytes())
+    t_ref = time.perf_counter() - t0
+    args = build_parser().parse_args(cs.LIVE_ARGS)
+    t0 = time.perf_counter()
+    ranks = spawn_partitions(autotune_rank, 2, "nccl", ["cuda:0", "cuda:1"],
+                             args=(args, None, None, cs.LIVE_SEQUENCE[:-1]),
+                             timeout=cs.GROUP_JOIN_S)
+    t_group = time.perf_counter() - t0
+    _, bad = cs.hold_live(ranks, ref, stamp, "2 nccl ranks, a card each")
+    print(f"[live] nccl: reference {t_ref:.1f} s host (its child's start "
+          f"included), spawn to both results {t_group:.1f} s  [{stamp}]",
+          flush=True)
+    if bad:
+        cs.fail(f"the nccl live run differs: {bad[0]}")
     print(f"[card] {stamp}")
     return 0
 

@@ -348,23 +348,8 @@ class A3GNNTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         pipeline and returns the ``AutotuneReport`` — measured Pareto
         points, per-episode configs/metrics, and the recommendation the
         trainer is left running."""
-        from repro_torch.core.autotune.controller import AutotuneController
-        acfg = autotune or self.cfg.autotune
-        if seed is not None:
-            acfg = acfg.replace(seed=seed)
-        ctrl = AutotuneController(self, self.make_pipeline(), acfg)
-        try:
-            report = ctrl.run()
-            if ctrl.tr is not self:
-                # a `partitions` restart rebuilt the trainer mid-run; keep
-                # this object's params/opt state current — the rebuilt
-                # topology lives in report.final_trainer
-                self.load_state_dict(ctrl.tr.state_dict())
-            return report
-        finally:
-            # the controller may have swapped (trainer, pipe) through the
-            # partitions restart path — shut down whatever is current
-            ctrl.pipe.shutdown()
+        from repro_torch.core.autotune.controller import fit_autotuned
+        return fit_autotuned(self, autotune, seed)
 
     # ------------------------------------------------------------------
     def evaluate(self, max_batches: int = 8) -> float:

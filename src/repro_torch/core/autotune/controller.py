@@ -43,6 +43,24 @@ The recommendation (``AutotuneReport.best``) is the measured episode with
 the highest reward ``w·(throughput, −memory, accuracy)`` subject to the
 ``memory_limit_bytes`` constraint; ``T*``/``M*`` endpoints come off the
 measured Pareto front exactly as in Tab. II.
+
+Inside a ``torch.distributed`` group every process runs a controller, in
+lockstep.  MEASURE runs on the processes that hold a partition; rank 0's
+episode (metrics, hit rate, steps) and its analytic pre-warm points are
+broadcast over the world (``GroupMesh.world``), so every process pushes
+the same points, refits the same surrogate and draws the same PPO
+proposal (each process's agent has its own seeded generator); each
+episode's proposal is gathered and any disagreement raises.  Under
+``wallclock`` a group's fleet rate is every partition's steps over the
+slowest partition process's wall clock (each process's own is kept in
+``t_walls``).  The configuration of record (``_current_config``) is rank
+0's, broadcast, so a process with no partition answers it too.  The
+``partitions`` restart runs over the world: the partition processes save
+through a ``GroupCheckpointManager`` in rank 0's directory, every process
+waits for the commit, the processes below the new count rebuild and
+restore, the rest become ``IdleRank``s (``core/multipart.py``) until a
+later restart gives them a partition.  The world is spawned at
+``max(partitions, max_partitions)`` processes; a restart past it raises.
 """
 from __future__ import annotations
 
@@ -61,6 +79,9 @@ from repro_torch.core.locality import accuracy_drop_model, expected_hit_rate
 from repro_torch.core.perf_model import (MemoryTerms, StageTimes,
                                    bottleneck_step_time, memory_mode1,
                                    memory_mode2, memory_seq)
+from repro_torch.distributed.collectives import (agree, all_gather_objects,
+                                                 barrier, broadcast_object)
+from repro_torch.launch.mesh import world_mesh
 
 # relative cost of a cache hit vs a host fetch during batch generation —
 # scales the analytic t_batch estimate used only for surrogate pre-warming
@@ -208,6 +229,8 @@ class AutotuneController:
         self.tr = trainer
         self.pipe = pipe
         self.acfg = acfg or trainer.cfg.autotune
+        self.world = world_mesh()        # None outside a process group
+        self.t_walls: List[Optional[float]] = []   # this process's MEASURE
         self.space = episode_space(self.acfg)
         self._knob_names = {k.name for k in self.space.knobs}
         self._restart_mgr = None        # lazy CheckpointManager (restart path)
@@ -233,26 +256,49 @@ class AutotuneController:
     def feasible(self, metrics: Dict[str, float]) -> bool:
         return metrics["memory"] <= self.acfg.memory_limit_bytes
 
+    # -- a process group: rank 0 speaks for the fleet -----------------------
+    @property
+    def holds_partition(self) -> bool:
+        return getattr(self.tr, "holds_partition", True)
+
+    def _from_rank0(self, fn):
+        """``fn()`` on rank 0 of the world, broadcast to every process (the
+        others do not call it); ``fn()`` outside a group."""
+        if self.world is None:
+            return fn()
+        return broadcast_object(self.world,
+                                fn() if self.world.rank == 0 else None)
+
     # -- surrogate pre-warm (analytic models → training points) --------------
     def prewarm(self, base_stats, base_acc: float):
         """Seed the surrogate from Eqs. 1-5 before any tuning episode.
 
         ``base_stats``: PipelineStats of the baseline episode — its measured
         per-stage times anchor the analytic throughput/memory predictions;
-        ``accuracy_drop_model`` (Eq. 1) anchors accuracy."""
-        st0 = base_stats.stage_times()
-        base_hit = self._hit_model(self._current_config())
-        for u in self.space.sample(self.rng, self.acfg.presample):
-            cfg = self.space.decode(u)
-            m = self._analytic_metrics(cfg, st0, base_hit, base_stats,
-                                       base_acc)
+        ``accuracy_drop_model`` (Eq. 1) anchors accuracy.  In a group rank
+        0 computes the points (its stats and partition 0's subgraph) and
+        every process pushes them."""
+        base_cfg = self._current_config()
+        cfgs = [self.space.decode(u)
+                for u in self.space.sample(self.rng, self.acfg.presample)]
+
+        def analytic():
+            st0 = base_stats.stage_times()
+            base_hit = self._hit_model(base_cfg)
+            return [self._analytic_metrics(cfg, st0, base_hit, base_stats,
+                                           base_acc) for cfg in cfgs]
+        for cfg, m in zip(cfgs, self._from_rank0(analytic), strict=True):
             self._push_point(self.space.encode(cfg), m)
         self._refit()
 
     def _current_config(self) -> Dict:
         """The trainer's TRUE live knobs (cache_volume_mb may be 0 — a
         cache-less trainer; clamping to the space bounds happens only at
-        encode time, see ``_encode``)."""
+        encode time, see ``_encode``).  In a group rank 0's, broadcast:
+        a collective, which a process with no partition answers too."""
+        return self._from_rank0(self._live_config)
+
+    def _live_config(self) -> Dict:
         c = self.tr.cfg
         cfg = {"bias_rate": c.bias_rate,
                "cache_volume_mb": (self.tr.cache.volume_mb
@@ -378,6 +424,23 @@ class AutotuneController:
     # -- MEASURE -------------------------------------------------------------
     def measure(self, index: int, cfg: Dict,
                 predicted: Optional[Dict] = None) -> Episode:
+        """MEASURE on the processes that hold a partition; in a group rank
+        0's episode is every process's."""
+        got = self._measure_here() if self.holds_partition else None
+        self.t_walls.append(got[4] if got else None)
+        metrics, hit_rate, steps, runtime, _ = self._from_rank0(lambda: got)
+        ep = Episode(index=index, config=dict(cfg), metrics=metrics,
+                     reward=self.reward(metrics), cache_hit_rate=hit_rate,
+                     steps=steps, predicted=predicted,
+                     tuned_runtime=runtime)
+        self._measured_keys.add(_cfg_key(cfg))
+        self._push_point(self._encode(cfg), metrics)        # FEEDBACK
+        self._refit()
+        return ep
+
+    def _measure_here(self):
+        """(metrics, hit rate, steps, runtime stamp, this process's wall
+        seconds) of ``steps_per_episode`` steps of the live pipeline."""
         for c in getattr(self.tr, "caches", [self.tr.cache]):
             if c is not None:
                 c.stats.reset()
@@ -386,9 +449,13 @@ class AutotuneController:
         if resolve_throughput_source(self.acfg) == "wallclock":
             # real multi-core host: threads overlap, the wall clock is the
             # truth (stats.steps counts per-partition mini-batches, so this
-            # is already the aggregate fleet rate) — stamped with the host
-            # runtime (tcmalloc/XLA flags) it was taken under
-            throughput = stats.throughput_steps_per_s()
+            # is already the aggregate fleet rate; a group's over its
+            # slowest process) — stamped with the host runtime
+            # (tcmalloc/XLA flags) it was taken under
+            walls = all_gather_objects(getattr(self.tr, "mesh", None),
+                                       stats.t_wall)
+            throughput = (stats.steps / max(walls) if len(walls) > 1
+                          else stats.throughput_steps_per_s())
             runtime = tuned_runtime_status()
         else:
             st = stats.stage_times()
@@ -403,18 +470,10 @@ class AutotuneController:
                                              workers=self.pipe.workers_n),
             "accuracy": self.tr.evaluate(max_batches=self.acfg.eval_batches),
         }
-        ep = Episode(index=index, config=dict(cfg), metrics=metrics,
-                     reward=self.reward(metrics),
-                     cache_hit_rate=getattr(
-                         self.tr, "cache_hit_rate",
-                         self.tr.cache.stats.hit_rate
-                         if self.tr.cache else 0.0),
-                     steps=stats.steps, predicted=predicted,
-                     tuned_runtime=runtime)
-        self._measured_keys.add(_cfg_key(cfg))
-        self._push_point(self._encode(cfg), metrics)        # FEEDBACK
-        self._refit()
-        return ep
+        hit_rate = getattr(self.tr, "cache_hit_rate",
+                           self.tr.cache.stats.hit_rate
+                           if self.tr.cache else 0.0)
+        return metrics, hit_rate, stats.steps, runtime, stats.t_wall
 
     # -- RECONFIGURE: restart-capable path for the `partitions` knob ---------
     def _proposed_partitions(self, cfg: Dict) -> int:
@@ -429,39 +488,56 @@ class AutotuneController:
         (the same machinery a real elastic restart uses), so training
         resumes exactly where it left off on the new topology.  A proposed
         ``halo_budget`` rides along into the rebuild so the subsequent
-        live-swap pass finds it already applied (one slot build, not two)."""
+        live-swap pass finds it already applied (one slot build, not two).
+        In a group (see the module docstring) every process calls it: rank
+        0 writes into its directory, every process waits for the commit,
+        and the processes below ``new_partitions`` rebuild and restore."""
         import tempfile
 
-        import torch.distributed as dist
-
-        from repro_torch.core.a3gnn import make_trainer
-        from repro_torch.launch.mesh import GROUP_TODO
-        from repro_torch.train.checkpoint import CheckpointManager
-        if dist.is_available() and dist.is_initialized():
-            raise NotImplementedError(f"a partitions restart inside a "
-                                      f"torch.distributed group: "
-                                      f"{GROUP_TODO}")
+        from repro_torch.core.multipart import make_rank_trainer
+        from repro_torch.train.checkpoint import (CheckpointManager,
+                                                  GroupCheckpointManager)
+        world = self.world
+        if world is not None and new_partitions > world.size:
+            raise ValueError(f"a partitions restart to {new_partitions} in "
+                             f"a torch.distributed group of {world.size}: "
+                             f"spawn max(partitions, max_partitions) "
+                             f"processes")
         if self._restart_mgr is None:
-            d = self.acfg.restart_dir or tempfile.mkdtemp(
-                prefix="a3gnn_restart_")
-            self._restart_mgr = CheckpointManager(d, keep=1, async_save=False)
-        old_p = max(int(getattr(self.tr.cfg, "partitions", 1)), 1)
+            if world is None:
+                d = self.acfg.restart_dir or tempfile.mkdtemp(
+                    prefix="a3gnn_restart_")
+                self._restart_mgr = CheckpointManager(d, keep=1,
+                                                      async_save=False)
+            else:
+                d = self.acfg.restart_dir or all_gather_objects(
+                    world, tempfile.mkdtemp(prefix="a3gnn_restart_")
+                    if world.rank == 0 else None)[0]
+                self._restart_mgr = GroupCheckpointManager(d, world, keep=1)
+        # the configuration and the assigner of record: rank 0's (keep the
+        # assigner the caller chose: a bfs/hash trainer must not silently
+        # migrate to the locality default mid-autotune)
+        cfg, method = self._from_rank0(lambda: (self.tr.cfg, getattr(
+            getattr(self.tr, "plan", None), "method", "locality")))
+        old_p = max(int(getattr(cfg, "partitions", 1)), 1)
         self.restarts += 1
         # the trainer's own save() records the full manifest extra
         # (partitions, global_steps, cache accounting) so progress counters
         # survive the migration
-        self.tr.save(self._restart_mgr, step=self.restarts)
-        self.pipe.shutdown()
-        new_cfg = self.tr.cfg.replace(partitions=new_partitions)
+        if self.holds_partition:
+            self.tr.save(self._restart_mgr, step=self.restarts)
+            self.pipe.shutdown()
+        else:
+            barrier(world)               # the commit barrier of the save
+        new_cfg = cfg.replace(partitions=new_partitions)
         if halo_budget is not None:
             new_cfg = new_cfg.replace(halo_budget=max(int(halo_budget), 0))
-        # keep the assigner the caller chose (a bfs/hash trainer must not
-        # silently migrate to the locality default mid-autotune)
-        method = getattr(getattr(self.tr, "plan", None), "method", "locality")
-        new_tr = make_trainer(self.tr.full_graph, new_cfg, seed=self.tr.seed,
-                              partition_method=method, device=self.tr.device)
-        new_tr.restore(self._restart_mgr, step=self.restarts,
-                       expect_partitions=old_p)
+        new_tr = make_rank_trainer(self.tr.full_graph, new_cfg,
+                                   seed=self.tr.seed, partition_method=method,
+                                   device=self.tr.device)
+        if getattr(new_tr, "holds_partition", True):
+            new_tr.restore(self._restart_mgr, step=self.restarts,
+                           expect_partitions=old_p)
         # an attached FeatureStore follows the live trainer: the old
         # subscription is detached (updates must not route into the dead
         # topology) and the rebuilt trainer re-attaches to the same store
@@ -484,7 +560,7 @@ class AutotuneController:
     def run(self) -> AutotuneReport:
         report = AutotuneReport()
         acfg = self.acfg
-        if acfg.warmup_steps:
+        if acfg.warmup_steps and self.holds_partition:
             self.pipe.run(mode="seq", max_steps=acfg.warmup_steps)
             self.pipe.reconfigure(mode=self.tr.cfg.parallel_mode)
         # episode 0: the fixed seed configuration = the baseline
@@ -492,9 +568,11 @@ class AutotuneController:
         base = self.measure(0, base_cfg)
         report.episodes.append(base)
         report.baseline = base
-        self.prewarm(self.pipe.stats, base.metrics["accuracy"])
+        self.prewarm(self.pipe.stats if self.holds_partition else None,
+                     base.metrics["accuracy"])
         for e in range(1, acfg.episodes):
             cfg, pred = self.propose()
+            agree(self.world, f"episode {e}'s proposal", _cfg_key(cfg))
             self._apply_config(cfg)                         # RECONFIGURE
             report.episodes.append(self.measure(e, cfg, predicted=pred))
         feasible = [ep for ep in report.episodes
@@ -512,3 +590,31 @@ class AutotuneController:
             self._apply_config(report.best.config)
         report.final_trainer = self.tr
         return report
+
+
+def fit_autotuned(tr, autotune: Optional[AutotuneConfig] = None,
+                  seed: Optional[int] = None,
+                  configure=None) -> AutotuneReport:
+    """The trainers' ``fit_autotuned``: ``AutotuneController(tr, ...)
+    .run()`` on a fresh pipeline of ``tr``, ``autotune`` (default
+    ``tr.cfg.autotune``) with ``seed`` if given; ``configure(ctrl)``, if
+    given, sees the controller first (a caller scripts its proposals or
+    wraps its methods there).  Where a ``partitions`` restart rebuilt the
+    trainer, ``tr`` takes the rebuilt one's params and optimizer state
+    (where both hold a partition); the rebuilt trainer is
+    ``report.final_trainer``.  The live pipeline is shut down at the end."""
+    acfg = autotune or tr.cfg.autotune
+    if seed is not None:
+        acfg = acfg.replace(seed=seed)
+    ctrl = AutotuneController(tr, tr.make_pipeline(), acfg)
+    if configure is not None:
+        configure(ctrl)
+    try:
+        report = ctrl.run()
+        if (ctrl.tr is not tr and ctrl.holds_partition
+                and getattr(tr, "holds_partition", True)):
+            tr.load_state_dict(ctrl.tr.state_dict())
+        return report
+    finally:
+        if ctrl.pipe is not None:
+            ctrl.pipe.shutdown()

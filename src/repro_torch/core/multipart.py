@@ -46,13 +46,32 @@ statistics, modeled memory, the pipeline's merged stats, the checkpoint's
 manifest) is gathered over the group in partition order, so every
 process reports the same as the host-simulated trainer: those reads are
 collectives, and every process makes them in the same order.  Rank 0
-writes the checkpoints (``GroupCheckpointManager``).  Re-partitioning in
-place (``rebalance_partitions``, ``set_halo_budget``), streaming feature
-updates and the auto-tuner are not ported over a group and raise.
+writes the checkpoints (``GroupCheckpointManager``).
+
+The live operations run over a group as the JAX package runs them over
+its real mesh.  ``set_halo_budget`` and ``rebalance_partitions`` derive
+the new plan on every process (``with_halo_budget`` and
+``incremental_rebalance`` are deterministic), rebuild this process's slot
+and refill its halo rows through ``halo_all_to_all``.  The contract of a
+streaming graph: every process receives the same topology edits
+(``Graph.add_edges``) and the same ``FeatureStore.update_rows`` stream, in
+the same order, between the same global steps — each process holds its
+own copy of the full graph.  An update fills the owning process's plane;
+``_halo_dirty`` follows from the plan, so every process agrees on it and
+the periodic ``refresh_halo_features`` is a collective made at the same
+global step.  Before a rebalance the processes gather their topology
+version and the digests of their adjacency and plan, and with a drift
+trigger (``cfg.rebalance_drift``) their version and decision each global
+step: any disagreement raises, rather than train on diverged plans.  The
+auto-tuner (``fit_autotuned``) runs one controller a process, in lockstep
+(core/autotune/controller.py); a group spawned for more processes than
+partitions holds ``IdleRank``s past the partition count
+(``make_rank_trainer``).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -69,7 +88,7 @@ from repro_torch.core.perf_model import (MemoryTerms, bottleneck_step_time,
                                          memory_seq)
 from repro_torch.core.pipeline import Pipeline, PipelineStats
 from repro_torch.core.sampling import NeighborSampler, seed_loader
-from repro_torch.distributed.collectives import (all_gather_objects,
+from repro_torch.distributed.collectives import (agree, all_gather_objects,
                                                  grad_allreduce,
                                                  halo_all_to_all)
 from repro_torch.graph.batch import (batch_device_arrays, compute_level_caps,
@@ -79,8 +98,8 @@ from repro_torch.graph.partition import (PartitionPlan, RebalanceResult,
                                          incremental_rebalance,
                                          plan_partitions)
 from repro_torch.graph.storage import FeatureStreamConsumer, Graph
-from repro_torch.launch.mesh import (GROUP_TODO, GroupMesh,
-                                     make_partition_mesh)
+from repro_torch.launch.mesh import (GroupMesh, make_partition_mesh,
+                                     world_mesh)
 from repro_torch.models.gnn import (decls_gnn, make_apply_fn, make_eval_fn,
                                     make_grad_fn, make_grad_fn_allfused)
 from repro_torch.models.params import init_params, param_bytes
@@ -309,10 +328,15 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         return [v for vals in all_gather_objects(
             self.mesh, [fn(s) for s in self.slots]) for v in vals]
 
-    def _refuse_group(self, what: str):
-        if self._group:
-            raise NotImplementedError(f"{what} over a GroupMesh: "
-                                      f"{GROUP_TODO}")
+    def fleet_fingerprint(self):
+        """(graph topology version, plan topology version, digest of the
+        current adjacency and of the plan's owner map): what every process
+        of a group must hold alike before a rebalance."""
+        h = hashlib.blake2b(digest_size=16)
+        for a in (*self.full_graph.adj(), self.plan.owner):
+            h.update(np.ascontiguousarray(a).tobytes())
+        return (int(self.full_graph.topology_version),
+                int(self.plan.topology_version), h.hexdigest())
 
     # ------------------------------------------------------------------
     def _fill_halo_features(self) -> int:
@@ -338,9 +362,6 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
     # streaming feature updates — attach/detach from FeatureStreamConsumer
     # (graph/storage.py); fleet routing: owner's plane now, halo later
     # ------------------------------------------------------------------
-    def _check_feature_store_target(self):
-        self._refuse_group("streaming feature updates")
-
     def _owned_local(self) -> np.ndarray:
         """(N,) local id of each node WITHIN its owning partition — the
         plan's shared ownership-lookup index (``PartitionPlan.local_ids``)."""
@@ -365,7 +386,9 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         partitions only go stale — re-filling them is the bounded periodic
         exchange's job (``cfg.halo_refresh_interval`` /
         ``refresh_halo_features``): streaming updates must not turn every
-        row write into cross-partition traffic."""
+        row write into cross-partition traffic.  Over a group only the
+        slot this process holds is filled: the owner's plane, whose
+        subgraph rows are what the exchange sends."""
         ids = np.asarray(ids, dtype=np.int64)
         owners = self.plan.owner[ids]
         local = self._owned_local()[ids]
@@ -384,7 +407,8 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         same affinity-ranked rows move again through the mesh, through
         each partition's feature plane (mirror invalidation included), so
         halo copies catch up with streamed feature drift.  Returns the
-        exchanged volume in bytes (0 with no halo)."""
+        exchanged volume in bytes (0 with no halo).  A collective over a
+        group: every process calls it."""
         volume = self._fill_halo_features()
         self.halo_refreshes += 1
         self._halo_dirty = False
@@ -508,8 +532,13 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         untouched (they are partition-independent); cache and halo
         accounting start FRESH because node ownership moved — the same
         invariant ``_after_restore`` enforces across a partition-count
-        migration."""
-        self._refuse_group("rebalance_partitions")
+        migration.  Over a group every process calls it, after the same
+        topology edits: it first checks that they agree
+        (``fleet_fingerprint``)."""
+        if self._group:
+            agree(self.mesh, "rebalance_partitions: every process must "
+                  "receive the same topology edits between the same "
+                  "global steps", self.fleet_fingerprint())
         if max_move_frac is None:
             max_move_frac = getattr(self.cfg, "rebalance_max_move", 0.25)
         if pipe is not None:
@@ -531,9 +560,15 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
     def _maybe_rebalance(self):
         """Drift trigger, checked between global steps (never mid-window:
         ``MultiPipeline.run`` holds submitted batches in the slot pipes,
-        and a rebalance replaces those pipes)."""
+        and a rebalance replaces those pipes).  Over a group the processes
+        gather their topology version and decision first."""
         thresh = getattr(self.cfg, "rebalance_drift", 0.0)
-        if thresh > 0 and self.cut_drift() > thresh:
+        if thresh <= 0:
+            return
+        drifted = self.cut_drift() > thresh
+        agree(self.mesh, "the drift trigger",
+              (int(self.full_graph.topology_version), drifted))
+        if drifted:
             self.rebalance_partitions()
 
     def global_step(self, fail_worker: Optional[int] = None):
@@ -725,12 +760,12 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         accounting carry over; in-flight batches are drained first (nothing
         dropped).  Halo accounting starts FRESH — it describes the current
         halo topology, and a budget change swaps that topology (the same
-        invariant ``_after_restore`` enforces on the checkpoint path)."""
+        invariant ``_after_restore`` enforces on the checkpoint path).
+        Over a group every process calls it with the same budget."""
         budget = max(int(budget), 0)
         if budget == self.plan.halo_budget:
             self.cfg = self.cfg.replace(halo_budget=budget)
             return
-        self._refuse_group("set_halo_budget")
         if pipe is not None:
             pipe.drain()
         old = self.slots
@@ -786,25 +821,11 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
     def fit_autotuned(self, autotune=None, seed: Optional[int] = None):
         """Online auto-tuning over the partition fleet (paper §III-C); with
         ``autotune.max_partitions > 1`` the controller also tunes the
-        partition count through the checkpoint → rebuild → restore path."""
-        from repro_torch.core.autotune.controller import AutotuneController
-        # each process measures its own throughput, so the processes'
-        # controllers would propose different configurations
-        self._refuse_group("the auto-tuner")
-        acfg = autotune or self.cfg.autotune
-        if seed is not None:
-            acfg = acfg.replace(seed=seed)
-        ctrl = AutotuneController(self, self.make_pipeline(), acfg)
-        try:
-            report = ctrl.run()
-            if ctrl.tr is not self:
-                # a `partitions` restart rebuilt the trainer mid-run; keep
-                # this object's params/opt state current — the rebuilt
-                # topology lives in report.final_trainer
-                self.load_state_dict(ctrl.tr.state_dict())
-            return report
-        finally:
-            ctrl.pipe.shutdown()
+        partition count through the checkpoint → rebuild → restore path.
+        Over a group every process runs it (one controller a process, in
+        lockstep)."""
+        from repro_torch.core.autotune.controller import fit_autotuned
+        return fit_autotuned(self, autotune, seed)
 
     # ------------------------------------------------------------------
     def evaluate(self, max_batches: int = 8) -> float:
@@ -907,3 +928,66 @@ class MultiPartitionTrainer(TrainerCheckpointMixin, FeatureStreamConsumer):
         state, rep = sup.run(self.state_dict(), step_fn, steps)
         self.load_state_dict(state)
         return rep
+
+
+class IdleRank(FeatureStreamConsumer):
+    """A process of a ``torch.distributed`` group past the fleet's
+    partition count: it holds no partition and runs no step.  It keeps
+    what the auto-tuner's controller needs between restarts — the full
+    graph, the configuration of record, the seed, the assigner and the
+    device — and any attached ``FeatureStore``, whose stream goes on
+    writing this process's copy of the full graph, so the process rejoins
+    a later restart's fleet from the current features and that restart's
+    checkpoint.  Over more than one partition it joins the fleet's process
+    group as it is made (``make_partition_mesh``, a collective of every
+    process)."""
+
+    holds_partition = False
+
+    def __init__(self, graph: Graph, cfg: GNNConfig, seed: int = 0,
+                 method: str = "locality", device="cuda"):
+        self.full_graph = graph
+        self.cfg = cfg
+        self.seed = seed
+        self.method = method
+        self.device = torch.device(device)
+        self.mesh = (make_partition_mesh(cfg.partitions, self.device)
+                     if cfg.partitions > 1 else None)
+        world = world_mesh()
+        if world is None or world.rank < cfg.partitions:
+            raise ValueError(f"an idle rank is a process past the "
+                             f"{cfg.partitions} partitions of a group, not "
+                             f"rank {None if world is None else world.rank}")
+
+    def _on_feature_update(self, ids: np.ndarray, rows: np.ndarray):
+        del ids, rows            # the store wrote this process's full graph
+
+    def apply_live_config(self, knobs: Dict, pipe=None):
+        """Nothing to apply: the fleet applies the knobs, and rank 0 holds
+        the configuration of record."""
+        del knobs, pipe
+
+    def make_pipeline(self):
+        return None
+
+    def fit_autotuned(self, autotune=None, seed: Optional[int] = None):
+        """This process's controller of the group's auto-tuner: it proposes
+        with the others, runs no step and rejoins at a restart that gives
+        it a partition."""
+        from repro_torch.core.autotune.controller import fit_autotuned
+        return fit_autotuned(self, autotune, seed)
+
+
+def make_rank_trainer(graph: Graph, cfg: GNNConfig, seed: int = 0,
+                      partition_method: str = "locality", device="cuda"):
+    """This process's share of a ``cfg.partitions`` fleet: ``make_trainer``
+    outside a group and on ranks below the partition count, an
+    ``IdleRank`` past it.  Inside a group every process calls it at the
+    same point: the fleet's process group is made then."""
+    from repro_torch.core.a3gnn import make_trainer
+    world = world_mesh()
+    if world is not None and world.rank >= cfg.partitions:
+        return IdleRank(graph, cfg, seed=seed, method=partition_method,
+                        device=device)
+    return make_trainer(graph, cfg, seed=seed,
+                        partition_method=partition_method, device=device)

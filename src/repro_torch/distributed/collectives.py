@@ -13,7 +13,11 @@ travel through ``torch.distributed`` (an ``all_gather`` of their bytes on
 the mesh's ``comm_device``, or an ``all_to_all``), and each process then
 runs the host-sim arithmetic, in member order, on the tensors' own
 device.  So every member of a group holds what the host-simulated mesh
-computes on that device, bit for bit.  No reduction runs inside the
+computes on that device, bit for bit.  A mesh over the first P ranks of a
+larger group runs each collective on its own process group
+(``GroupMesh.group``), sized by the mesh; a rank that holds no partition
+calls none of them.  ``broadcast_object`` runs over any ``GroupMesh``,
+the world's (``GroupMesh.world``) included.  No reduction runs inside the
 transport (``all_reduce(SUM)``'s ring and tree orders are not member
 order); only ``compressed_psum_int8``'s max, which is exact, does.
 """
@@ -33,6 +37,9 @@ def _is_group(mesh) -> bool:
     """True for a ``GroupMesh``, False for a host-simulated one (or none);
     any other mesh (a device-free ``AbstractMesh``) holds no tensors."""
     if isinstance(mesh, GroupMesh):
+        if not mesh.holds_partition:
+            raise ValueError(f"rank {mesh.rank} holds no member of a "
+                             f"{mesh.size}-member mesh")
         return True
     if mesh is None or isinstance(mesh, HostSimMesh):
         return False
@@ -48,11 +55,12 @@ def all_gather_tensors(mesh: GroupMesh, xs: List[torch.Tensor]
     tensors of the same shapes and dtypes.  The member's own come back
     bit for bit."""
     import torch.distributed as dist
+    _is_group(mesh)
     flat = [x.detach().contiguous().reshape(-1).view(torch.uint8) for x in xs]
     sizes = [f.numel() for f in flat]
     buf = torch.cat(flat).to(mesh.comm_device)
     got = [torch.empty_like(buf) for _ in range(mesh.size)]
-    dist.all_gather(got, buf)
+    dist.all_gather(got, buf, group=mesh.group)
     return [[p.clone().view(x.dtype).reshape(x.shape).to(x.device)
              for p, x in zip(torch.split(g, sizes), xs, strict=True)]
             for g in got]
@@ -66,8 +74,29 @@ def all_gather_objects(mesh, value: Any) -> List[Any]:
         return [value]
     import torch.distributed as dist
     out = [None] * mesh.size
-    dist.all_gather_object(out, value)
+    dist.all_gather_object(out, value, group=mesh.group)
     return out
+
+
+def agree(mesh, what: str, value: Any):
+    """Raise ``RuntimeError`` unless every process of the mesh holds an
+    equal ``value`` (a collective over a group; nothing on a
+    host-simulated mesh)."""
+    values = all_gather_objects(mesh, value)
+    if any(v != values[0] for v in values):
+        raise RuntimeError(f"{what}: the processes disagree ({values})")
+
+
+def broadcast_object(mesh, value: Any, src: int = 0) -> Any:
+    """Rank ``src``'s ``value`` on every process of the mesh (pickled over
+    its group); ``value`` itself on a host-simulated mesh.  Every process
+    passes a value; only ``src``'s is read."""
+    if not _is_group(mesh):
+        return value
+    import torch.distributed as dist
+    box = [value]
+    dist.broadcast_object_list(box, src=src, group=mesh.group)
+    return box[0]
 
 
 def barrier(mesh):
@@ -77,9 +106,9 @@ def barrier(mesh):
         return
     import torch.distributed as dist
     if mesh.backend == "nccl":
-        dist.barrier(device_ids=[mesh.comm_device.index])
+        dist.barrier(group=mesh.group, device_ids=[mesh.comm_device.index])
     else:
-        dist.barrier()
+        dist.barrier(group=mesh.group)
 
 
 def _partial_attend(q, k, v, mask):
@@ -264,7 +293,8 @@ def _group_exchange(mesh: GroupMesh):
             buf[p, :len(send[r][p])] = own[send[r][p]]
         out = torch.from_numpy(buf).to(mesh.comm_device)
         got = torch.empty_like(out)
-        dist.all_to_all_single(got, out)       # got[q] = block q shipped to r
+        dist.all_to_all_single(got, out,       # got[q] = block q shipped to r
+                               group=mesh.group)
         recv = got.cpu().numpy()
         rows = np.zeros((len(plan.halo_sets[r]), feat_dim), np.float32)
         for q in range(plan.parts):

@@ -4,6 +4,9 @@ JAX package's production and host LM meshes as device-free meshes.
 The partition mesh is a ``HostSimMesh`` (every partition in one process,
 on one device) or a ``GroupMesh`` (one process per partition, joined by a
 ``torch.distributed`` group; ``launch/group.py`` spawns the processes).
+A ``GroupMesh`` may span the first P ranks of a larger group: its
+collectives then run on a process group of those ranks, made once per P
+(``partition_group``), and the ranks past P hold no partition.
 Functions (not module-level constants) so importing this module never
 touches device state.  ``make_production_mesh`` and ``make_host_mesh``
 return an :class:`AbstractMesh`: the axis names and sizes of the JAX
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import math
 from collections.abc import Mapping
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Tuple
 
 import torch
@@ -52,19 +55,26 @@ class HostSimMesh:
 
 @dataclass(frozen=True)
 class GroupMesh:
-    """A 1-D mesh whose members are the processes of the default
-    ``torch.distributed`` group: this process is member ``rank`` of
-    ``size`` and holds that member's tensors only.
+    """A 1-D mesh whose members are the first ``size`` processes of the
+    default ``torch.distributed`` group: this process is rank ``rank`` of
+    the group and, where ``rank < size``, holds member ``rank``'s tensors
+    only.
 
-    ``comm_device`` is where the collectives' buffers live: the CPU under
-    ``gloo``, this process's card under ``nccl``.  The collectives
-    (distributed/collectives.py) compute on the tensors' own device and
-    move only the exchanged buffers to ``comm_device``."""
+    ``world_size`` is the default group's size (0: ``size``, the mesh is
+    the whole group).  A mesh over fewer ranks runs its collectives on
+    ``group``, the process group of ranks 0..size-1; a rank past ``size``
+    holds no partition (``holds_partition``) and takes part in none of
+    them.  ``world`` is the default group as a mesh, for what every rank
+    must agree on.  ``comm_device`` is where the collectives' buffers
+    live: the CPU under ``gloo``, this process's card under ``nccl``.  The
+    collectives (distributed/collectives.py) compute on the tensors' own
+    device and move only the exchanged buffers to ``comm_device``."""
     size: int
     rank: int
     axis: str
     backend: str
     comm_device: torch.device
+    world_size: int = 0
 
     @property
     def axis_names(self):
@@ -73,6 +83,32 @@ class GroupMesh:
     @property
     def shape(self):
         return {self.axis: self.size}
+
+    @property
+    def holds_partition(self) -> bool:
+        return self.rank < self.size
+
+    @property
+    def spans_world(self) -> bool:
+        return self.world_size in (0, self.size)
+
+    @property
+    def group(self):
+        """The mesh's process group: None (the default group) where the
+        mesh spans it, else the one ``partition_group(size)`` made."""
+        if self.spans_world:
+            return None
+        found = _SUBGROUPS["groups"].get(self.size)
+        if found is not None:
+            return found
+        raise RuntimeError(f"no process group of ranks 0..{self.size - 1}: "
+                           f"make_partition_mesh({self.size}) makes it on "
+                           f"every rank")
+
+    @property
+    def world(self) -> "GroupMesh":
+        return self if self.spans_world else replace(
+            self, size=self.world_size, world_size=0)
 
 
 @dataclass(frozen=True)
@@ -120,6 +156,34 @@ def device_count(device="cuda") -> int:
     return 1
 
 
+# the process groups of the first P ranks, {P: group}, of the default
+# group they were made in (a new default group starts a new map)
+_SUBGROUPS: Dict = {"world": None, "groups": {}}
+
+
+def partition_group(size: int):
+    """The process group of ranks 0..size-1 of the default group, made on
+    its first call for ``size`` and cached.  ``dist.new_group`` is a
+    collective of the default group: every rank calls this, for the same
+    sizes in the same order, members or not."""
+    import torch.distributed as dist
+    if _SUBGROUPS["world"] is not dist.group.WORLD:
+        _SUBGROUPS.update(world=dist.group.WORLD, groups={})
+    groups = _SUBGROUPS["groups"]
+    if size not in groups:
+        groups[size] = dist.new_group(list(range(size)))
+    return groups[size]
+
+
+def world_mesh(axis: str = "part"):
+    """The default ``torch.distributed`` group as a ``GroupMesh``, or None
+    outside one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return group_mesh(axis)
+    return None
+
+
 def group_mesh(axis: str = "part") -> GroupMesh:
     """The default ``torch.distributed`` group as a ``GroupMesh``."""
     import torch.distributed as dist
@@ -135,9 +199,14 @@ def make_partition_mesh(num_partitions: int, device="cuda",
     """1-D mesh over the data-parallel GNN partitions, decided in this
     order:
 
-    * inside an initialised default ``torch.distributed`` group of
-      ``num_partitions`` processes, a ``GroupMesh`` (one partition a
-      process); a group of another size raises ``ValueError``;
+    * inside an initialised default ``torch.distributed`` group of W
+      processes, a ``GroupMesh`` over its first ``num_partitions`` ranks
+      (one partition a process; the group itself where W equals it, else
+      ``partition_group``'s, which every rank makes here: every rank
+      calls this, and ranks past ``num_partitions`` get a mesh that holds
+      no partition); more partitions than W raise ``ValueError`` (the
+      JAX package falls back to its host-simulated mesh there; a group
+      process drives one card);
     * for one partition, or where the process sees fewer devices of
       ``device``'s kind than partitions (one card, the CPU), a
       ``HostSimMesh``: every partition on the one device, as the JAX
@@ -148,10 +217,15 @@ def make_partition_mesh(num_partitions: int, device="cuda",
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         world = dist.get_world_size()
-        if world != num_partitions:
+        if num_partitions > world:
             raise ValueError(f"{num_partitions} partitions in a "
-                             f"torch.distributed group of {world}")
-        return group_mesh(axis)
+                             f"torch.distributed group of {world}: a group "
+                             f"holds one partition a process")
+        mesh = group_mesh(axis)
+        if num_partitions == world:
+            return mesh
+        partition_group(num_partitions)
+        return replace(mesh, size=num_partitions, world_size=world)
     if num_partitions <= 1 or device_count(device) < num_partitions:
         return HostSimMesh(num_partitions, axis)
     raise RuntimeError(

@@ -22,7 +22,11 @@ on ``cuda:r``, joined by ``nccl`` (``spawn_gnn_multipartition``, over
 ``launch/group.py``); rank 0 prints.  With fewer cards every partition
 runs on the one ``--device`` in this process.  ``--autotune`` trains the single-partition trainer
 under the online auto-tuner (``fit_autotuned``: ``--episodes-autotune``
-episodes of ``--steps`` steps each):
+episodes of ``--steps`` steps each); the fleet's live reconfiguration
+(halo-budget swaps, rebalances, streamed updates and the auto-tuner with
+its ``partitions`` restart) runs a process a partition through
+``autotune_rank``, spawned by ``launch/group.spawn_partitions`` at
+``max(partitions, max_partitions)`` processes:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage-products \
       --sampling-device device --fused-gather-agg --autotune \
@@ -213,6 +217,219 @@ def spawn_gnn_multipartition(args, cfg) -> Dict:
         gnn_rank, cfg.partitions, "nccl",
         [f"cuda:{r}" for r in range(cfg.partitions)], args=(rank_args, cfg))
     return {"ranks": ranks, "ckpt_dir": ckpt_dir}
+
+
+def _held(tr) -> bool:
+    return getattr(tr, "holds_partition", True)
+
+
+def streamed_rows(tr, seed: int, n: int):
+    """Global ids of the first ``n`` halo rows of every partition (each
+    owned by another partition) and seeded new values for them: the same
+    on every process, from the plan each one holds whole."""
+    import numpy as np
+    ids = np.unique(np.concatenate(
+        [hs[:n] for hs in tr.plan.halo_sets] or [np.zeros(0, np.int64)]
+    ).astype(np.int64))
+    rng = np.random.default_rng(seed)
+    return ids, rng.standard_normal(
+        (len(ids), tr.full_graph.feat_dim)).astype(np.float32)
+
+
+def fleet_summary(tr) -> Dict:
+    """For the partitions this process holds: the params and
+    ``opt_state`` by checkpoint name, the hit rates, the manifest's payload
+    (``checkpoint_extra``) and the halo rows through the planes (read last:
+    a fetch counts in the cache statistics).  Over a group a collective of
+    the partition processes."""
+    out = {"partitions": tr.cfg.partitions, "held": _held(tr)}
+    if _held(tr):
+        out.update(state=_named_numpy(tr.state_dict()),
+                   cache_hit_rate=getattr(tr, "cache_hit_rate", None),
+                   halo_hit_rate=getattr(tr, "halo_hit_rate", None),
+                   manifest=tr.checkpoint_extra())
+        if hasattr(tr, "slots"):
+            out["halo_rows"] = halo_rows(tr)
+    return out
+
+
+def _live_op(tr, name: str, arg, rec: Dict):
+    """One live operation of ``autotune_rank`` on this process's share of
+    the fleet; what it reports goes into ``rec``.  A process with no
+    partition applies only what every process's copy of the full graph
+    receives (topology edits, feature updates) and records the rest."""
+    import numpy as np
+
+    from repro_torch.graph.storage import FeatureStore
+    held = _held(tr)
+    if name == "steps":
+        if held:
+            before = {s.index: len(s.pipe.stats.losses) for s in tr.slots}
+            refresh, rec["refresh_seconds"] = (tr.refresh_halo_features,
+                                               [])
+
+            def timed_refresh():              # a periodic refresh's seconds
+                t0 = time.perf_counter()
+                volume = refresh()
+                rec["refresh_seconds"].append(time.perf_counter() - t0)
+                return volume
+            tr.refresh_halo_features = timed_refresh
+            try:
+                for _ in range(int(arg)):
+                    tr.global_step()
+            finally:
+                del tr.refresh_halo_features
+            rec["losses"] = {s.index: list(s.pipe.stats.losses[
+                before[s.index]:]) for s in tr.slots}
+            rec["halo_refreshes"] = tr.halo_refreshes
+    elif name == "halo":
+        if held:
+            tr.set_halo_budget(int(arg))
+            rec["halo_exchange_bytes"] = tr.halo_exchange_bytes
+    elif name == "edges":
+        seed, n = arg
+        rng = np.random.default_rng(seed)
+        g = tr.full_graph
+        rec["added"] = g.add_edges(rng.integers(0, g.num_nodes, n),
+                                   rng.integers(0, g.num_nodes, n))
+        rec["topology_version"] = g.topology_version
+    elif name == "rebalance":
+        if held:
+            res = tr.rebalance_partitions()
+            rec.update(moved_nodes=res.moved_nodes, cut_before=res.cut_before,
+                       cut_after=res.cut_after,
+                       halo_exchange_bytes=tr.halo_exchange_bytes)
+    elif name == "update":
+        if not held:
+            raise ValueError("the streamed rows come from the plan: every "
+                             "process of the group holds a partition here")
+        seed, n = arg
+        if tr.feature_store is None:
+            tr.attach_feature_store(FeatureStore(tr.full_graph))
+        ids, rows = streamed_rows(tr, seed, n)
+        rec["rows"] = len(ids)
+        rec["version"] = tr.feature_store.update_rows(ids, rows)
+        rec["halo_dirty"] = tr._halo_dirty
+    elif name == "snapshot":
+        rec.update(fleet_summary(tr))
+    else:
+        raise ValueError(f"unknown live operation {name!r}")
+
+
+def _autotune_op(tr, args, kw: Dict, script, rec: Dict):
+    """``fit_autotuned`` with ``--episodes-autotune`` episodes of
+    ``--steps`` steps, ``kw`` overriding the ``AutotuneConfig`` (``script``
+    there, or the argument, a list of proposals that replaces
+    ``propose``).  Records every episode, each one's losses (over every
+    partition), this process's MEASURE wall seconds, the host seconds of
+    each RECONFIGURE and restart and each restart's manifest (a process
+    with no partition in an episode records None for its losses and
+    wall).  Returns the trainer the run left live."""
+    import dataclasses as dc
+
+    from repro_torch.core.autotune.controller import fit_autotuned
+    kw = dict(kw)
+    script = kw.pop("script", script)
+    acfg = tr.cfg.autotune.replace(**{
+        "episodes": args.episodes_autotune, "steps_per_episode": args.steps,
+        "seed": args.seed, **kw})
+    losses, seconds, manifests, box = [], [], [], {}
+
+    def configure(ctrl):
+        box["ctrl"] = ctrl
+        if script is not None:
+            proposals = iter(script)
+            ctrl.propose = lambda: (dict(next(proposals)), None)
+        measure, apply, restart = (ctrl.measure, ctrl._apply_config,
+                                   ctrl._restart)
+
+        def measured(index, cfg, predicted=None):
+            ep = measure(index, cfg, predicted)
+            losses.append(list(ctrl.pipe.stats.losses)
+                          if ctrl.holds_partition else None)
+            return ep
+
+        def applied(cfg):
+            t0 = time.perf_counter()
+            apply(cfg)
+            seconds.append(("reconfigure", time.perf_counter() - t0))
+
+        def restarted(new_partitions, halo_budget=None):
+            t0 = time.perf_counter()
+            restart(new_partitions, halo_budget)
+            seconds.append(("restart", time.perf_counter() - t0))
+            manifests.append(ctrl._restart_mgr.read_manifest(
+                ctrl.restarts)["extra"])
+        ctrl.measure, ctrl._apply_config, ctrl._restart = (
+            measured, applied, restarted)
+
+    rep = fit_autotuned(tr, acfg, configure=configure)
+    rec.update(episodes=[dc.asdict(ep) for ep in rep.episodes],
+               best=rep.best.index, losses=losses,
+               reconfigure_seconds=seconds,
+               manifests=manifests, t_walls=box["ctrl"].t_walls)
+    return rep.final_trainer
+
+
+def autotune_rank(rank: int, device, args, cfg=None, script=None,
+                  ops=None) -> Dict:
+    """One process of the fleet's live reconfiguration: the graph, this
+    process's share of a ``cfg.partitions`` fleet (``make_rank_trainer``)
+    on ``device``, then ``ops`` in order, each a ``(name, arg)``:
+
+      ``("steps", n)``            n global steps
+      ``("halo", budget)``        ``set_halo_budget``
+      ``("edges", (seed, n))``    n seeded random edges added to the graph
+      ``("rebalance", None)``     ``rebalance_partitions``
+      ``("update", (seed, n))``   ``FeatureStore.update_rows`` of
+                                  ``streamed_rows(tr, seed, n)`` (a store
+                                  attached on the first)
+      ``("snapshot", None)``      ``fleet_summary`` at that point
+      ``("autotune", kw)``        ``fit_autotuned`` (``_autotune_op``);
+                                  the trainer it leaves live goes on
+
+    (default: one ``("autotune", {})``).  Inside a ``torch.distributed``
+    group every process runs the same ``ops`` (``launch/group
+    .spawn_partitions`` calls it with the rank first); outside one it is
+    the host-simulated run of the same sequence.  Returns numpy and
+    numbers: a record of each op (its host seconds on this process, what
+    it reports), ``fleet_summary`` at the end, this process's kernel
+    launches over the call and the top-level modules it imported."""
+    import torch
+
+    from repro_torch.core.multipart import make_rank_trainer
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.group import imported_modules
+    device = torch.device(device)
+    args = argparse.Namespace(**{**vars(args), "device": str(device)})
+    cfg = cfg if cfg is not None else gnn_config(args)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        graph = load_graph(args, cfg)
+    before = launch_counts()
+    tr = make_rank_trainer(graph, cfg, seed=args.seed, device=device)
+    records = []
+    try:
+        for name, arg in ops if ops is not None else [("autotune", {})]:
+            rec = {"op": name}
+            t0 = time.perf_counter()
+            if name == "autotune":
+                tr = _autotune_op(tr, args, arg, script, rec)
+            else:
+                _live_op(tr, name, arg, rec)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            rec["seconds"] = time.perf_counter() - t0
+            records.append(rec)
+        out = {"ops": records, **fleet_summary(tr)}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out["launches"] = {k: n - before[k]
+                           for k, n in launch_counts().items()}
+    finally:
+        for slot in getattr(tr, "slots", []):
+            slot.pipe.shutdown()
+    return {**out, "rank": rank, "modules": imported_modules()}
 
 
 def run_autotune(args, tr) -> Dict:

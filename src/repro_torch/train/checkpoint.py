@@ -217,9 +217,12 @@ class CheckpointManager:
 class GroupCheckpointManager(CheckpointManager):
     """One checkpoint directory shared by the processes of a ``GroupMesh``
     (launch/mesh.py): rank 0 writes each step, synchronously, and every
-    rank then waits at a barrier, so each step is committed before any
-    rank goes on and every rank reads the same steps.  ``save`` is a
-    collective: every rank calls it."""
+    rank of the mesh then waits at a barrier over the mesh's group, so
+    each step is committed before any rank goes on and every rank reads
+    the same steps.  ``save`` is a collective of the mesh: every rank
+    calls it (only rank 0's ``state`` is read).  The auto-tuner's
+    ``partitions`` restart gives it the world (``GroupMesh.world``), so
+    ranks that hold no partition wait for the commit too."""
 
     def __init__(self, directory: str | Path, mesh, keep: int = 3):
         super().__init__(directory, keep=keep, async_save=False)

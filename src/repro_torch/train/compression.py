@@ -135,7 +135,8 @@ def _group_compressed_mean(x: torch.Tensor, mesh: GroupMesh) -> torch.Tensor:
     order and the division, on x's device."""
     import torch.distributed as dist
     scale = _scale(x).reshape(1).to(mesh.comm_device)
-    dist.all_reduce(scale, op=dist.ReduceOp.MAX)            # exact
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX,            # exact
+                    group=mesh.group)
     scale = scale.to(x.device).reshape(())
     q = _quantize(x, scale).to(torch.int8)                   # the wire
     acc = None

@@ -1554,3 +1554,83 @@ def test_group_collectives_on_the_card_match_host_sim(card, tmp_path,
         assert _bit_equal(out["compress"], comp.cpu().numpy())
         assert _bit_equal(out["decode"], dec.cpu().numpy())
         assert out["objects"] == [(q, backend) for q in range(n)]
+
+
+# the fleet's live reconfiguration over a one-rank nccl world
+LIVE_SCRIPT = [dict(bias_rate=3.0, cache_volume_mb=0.05, parallel_mode="seq",
+                    workers=1, partitions=1, halo_budget=0)]
+LIVE_ACFG = dict(episodes=2, steps_per_episode=2, warmup_steps=0,
+                 presample=8, surrogate_trees=4, ppo_updates=1, ppo_horizon=2,
+                 max_partitions=2, max_halo_budget=32, w_throughput=0.0,
+                 w_memory=1.0, w_accuracy=0.0, throughput_source="modeled")
+
+
+def _live_args():
+    from repro_torch.launch.train import build_parser
+    return build_parser().parse_args(
+        ["--arch", "graphsage-products", "--smoke", "--steps", "2",
+         "--episodes-autotune", "2"])
+
+
+def _one_rank_live(rank, device):
+    """A one-partition multi-partition trainer over the world (its mesh a
+    GroupMesh of one): two global steps around ``set_halo_budget``; then
+    ``autotune_rank``'s scripted 1 -> 1 episode."""
+    from repro_torch.core.multipart import MultiPartitionTrainer
+    from repro_torch.launch.train import autotune_rank
+    cfg = gnn_config("products", **{**GROUP_CFG, "partitions": 1})
+    tr = MultiPartitionTrainer(dataset_like(cfg, seed=0), cfg, seed=0,
+                               device=device)
+    try:
+        tr.global_step()
+        tr.set_halo_budget(0)
+        tr.global_step()
+        swap = {"mesh": tr.mesh, "budget": tr.plan.halo_budget,
+                "steps": tr.global_steps,
+                "losses": list(tr.slots[0].pipe.stats.losses)}
+    finally:
+        for s in tr.slots:
+            s.pipe.shutdown()
+    return {"swap": swap,
+            "live": autotune_rank(rank, device, _live_args(), cfg,
+                                  script=LIVE_SCRIPT,
+                                  ops=[("autotune", LIVE_ACFG)])}
+
+
+def test_one_rank_nccl_world_swaps_the_halo_and_autotunes(card, tmp_path):
+    """``set_halo_budget`` and a scripted 1 -> 1 auto-tuner episode inside
+    a one-rank ``nccl`` world (the controller's broadcasts and gathers over
+    NCCL): the episode bit-equal to the same run outside a group, and the
+    fused kernels launched for every step."""
+    from repro_torch.kernels.build import build
+    from repro_torch.launch.group import spawn_partitions
+    from repro_torch.launch.mesh import GroupMesh
+    from repro_torch.launch.train import autotune_rank
+    build(["gather", "segment_agg", "fused_gather_agg"])
+    (got,) = spawn_partitions(_one_rank_live, 1, "nccl", ["cuda:0"],
+                              init_method=f"file://{tmp_path}/store",
+                              timeout=120)
+    swap = got["swap"]
+    assert isinstance(swap["mesh"], GroupMesh) and \
+        swap["mesh"].backend == "nccl" and swap["mesh"].size == 1
+    assert swap["budget"] == 0 and swap["steps"] == 2
+    assert len(swap["losses"]) == 1 and np.isfinite(swap["losses"]).all()
+    cfg = gnn_config("products", **{**GROUP_CFG, "partitions": 1})
+    want = autotune_rank(0, card, _live_args(), cfg, script=LIVE_SCRIPT,
+                         ops=[("autotune", LIVE_ACFG)])
+    g, w = got["live"]["ops"][0], want["ops"][0]
+    assert [e["config"] for e in g["episodes"]] == \
+        [e["config"] for e in w["episodes"]]
+    assert g["episodes"][1]["config"]["bias_rate"] == 3.0
+    for eg, ew in zip(g["episodes"], w["episodes"], strict=True):
+        for key in ("cache_hit_rate", "steps", "reward"):
+            assert eg[key] == ew[key], key
+        assert eg["metrics"]["memory"] == ew["metrics"]["memory"]
+    for a, b in zip(g["losses"], w["losses"], strict=True):
+        assert _bit_equal(a, b)
+    for k, v in want["state"].items():
+        assert _bit_equal(got["live"]["state"][k], v), k
+    # 2 episodes of 2 fused steps each
+    assert got["live"]["launches"]["gather_aggregate"] == \
+        want["launches"]["gather_aggregate"] == 4
+    assert not {"jax", "repro"} & set(got["live"]["modules"])

@@ -39,6 +39,7 @@ import pytest
 import torch
 
 from repro_torch.configs.gnn import gnn_config
+from repro_torch.core.autotune.controller import AutotuneController
 from repro_torch.core.multipart import MultiPartitionTrainer
 from repro_torch.distributed.collectives import (flash_decode_attention,
                                                  grad_allreduce)
@@ -126,16 +127,16 @@ def _two_rank_checks(rank, device, args, cfg, fail_dir, inputs):
                 "state": _named(tr.state_dict()),
                 "losses": {s.index: s.pipe.stats.losses for s in tr.slots}}
         refused = {}
-        for name, op in (("rebalance_partitions", tr.rebalance_partitions),
-                         ("set_halo_budget", lambda: tr.set_halo_budget(0)),
-                         ("attach_feature_store", tr.attach_feature_store),
-                         ("fit_autotuned", tr.fit_autotuned)):
-            try:
-                op()
-                refused[name] = None
-            except NotImplementedError as e:
-                refused[name] = str(e)
-        refused["halo_budget_kept"] = tr.plan.halo_budget
+        pipe = tr.make_pipeline()
+        ctrl = AutotuneController(tr, pipe, cfg.autotune.replace(
+            max_partitions=3))
+        try:
+            ctrl._restart(3)
+            refused["restart_beyond_the_world"] = None
+        except ValueError as e:
+            refused["restart_beyond_the_world"] = str(e)
+        refused["kept"] = (tr.cfg.partitions, ctrl.restarts,
+                           ctrl._restart_mgr)
     finally:
         _shutdown(tr)
     return {"mesh": mesh, "wrong_size": wrong, "train": train, "fail": fail,
@@ -283,11 +284,15 @@ def test_partition_mesh_inside_a_group(two):
 
 
 def test_group_refuses_what_is_not_ported_over_it(two):
+    """What still refuses over a group: a ``partitions`` restart past the
+    world's processes (before it checkpoints anything) and the pipeline
+    schedule over a ``GroupMesh``."""
     for got in two["ranks"]:
         refused = got["refused"]
-        assert refused.pop("halo_budget_kept") == 32
-        for name, msg in refused.items():
-            assert msg and "GroupMesh" in msg and "ROADMAP" in msg, name
+        assert refused.pop("kept") == (2, 0, None)
+        msg = refused.pop("restart_beyond_the_world")
+        assert msg and "restart to 3" in msg and "group of 2" in msg
+        assert refused == {}
     from repro_torch.distributed.pp import make_pipeline_fn
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_pipeline_fn(lambda w, x: x, 2, 4,
