@@ -312,7 +312,23 @@ Phases; any failure exits non-zero:
    operation's host seconds per rank (the periodic refresh's and each
    restart's apart), each episode's fleet throughput beside the
    reference's with each rank's own MEASURE wall; no rank may import JAX
-   or the JAX package.
+   or the JAX package;
+18. the GPipe pipeline over a stage group — llama3.2-3b's 28 seeded bf16
+   layers (phase 15's draw) in 2 stages of 14, 8 microbatches of 1 x 128
+   tokens, forward and the hand-written backward of ``(out.float() **
+   2).mean()``: first host-simulated in this process on the card (the
+   reference: a warm-up run, then a timed one; its values kept on the
+   host as per-leaf SHA-256 digests), then as 2 ``gloo`` ranks sharing
+   the card (``launch.group.pipeline_rank``: rank s builds the stack,
+   keeps stage s, and runs the same two runs).  The outputs, every
+   stage's parameter gradients and the gradient of the microbatches
+   must match the reference's digests (a mismatch prints the first
+   differing leaf and its max |diff|); ``flash_attention`` and its
+   backward launched 224 times each, summed over the ranks, as in the
+   reference, and no other kernel; each rank's forward + backward wall
+   beside the reference's, the bytes each boundary between ticks sends
+   and the phase's seconds; no rank may import JAX or the JAX package.
+   ``scripts/group_nccl.py`` step 6 runs it over 2 ``nccl`` cards.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels (the
@@ -320,7 +336,8 @@ limit.  The next-to-last line is a JSON list of the ported kernels (the
 prefills and the forward's ``train_launches`` of phase 14; the backward's
 own entry, ``flash_attention_bwd``; the GNN training kernels'
 ``group_launches`` of phase 16 and ``live_launches`` of phase 17, summed
-over the ranks) and the last line is ``{"ok": true,
+over the ranks; both flash entries' ``pipeline_group_launches`` of phase
+18) and the last line is ``{"ok": true,
 "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -4386,9 +4403,8 @@ def _pipeline(torch, stamp: str):
     from repro_torch.configs import get_config
     from repro_torch.distributed.pp import make_pipeline_fn
     from repro_torch.launch.mesh import HostSimMesh
-    from repro_torch.models import layers as L
     from repro_torch.models.params import init_params, stack_decls, tree_map
-    from repro_torch.models.transformer import decls_layer
+    from repro_torch.models.transformer import decls_layer, pipeline_stage
 
     cfg = get_config(TRAIN_ARCH)
     n, per = cfg.num_layers, cfg.num_layers // PIPE_STAGES
@@ -4400,18 +4416,7 @@ def _pipeline(torch, stamp: str):
     h = torch.randn(PIPE_MICRO, 1, PIPE_TOKENS, cfg.d_model, generator=g,
                     device="cuda").to(torch.bfloat16)
 
-    def run_layers(p_stage, x):
-        B = x.shape[0]
-        pos = torch.arange(PIPE_TOKENS, dtype=torch.int32,
-                           device="cuda")[None].expand(B, PIPE_TOKENS)
-        for i in range(p_stage["ln1"]["scale"].shape[0]):
-            lp = tree_map(lambda a, i=i: a[i], p_stage)
-            x = x + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], x,
-                                                      cfg.norm_eps), cfg, pos)
-            x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
-                          cfg)
-        return x
-
+    run_layers = pipeline_stage(cfg)
     pipe = make_pipeline_fn(run_layers, PIPE_STAGES, PIPE_MICRO,
                             HostSimMesh(PIPE_STAGES, "stage"))
     with torch.no_grad():
@@ -4963,6 +4968,106 @@ def phase_live(torch, stamp: str) -> dict:
           f"to both results {t_group:.1f} s)  [{stamp}]", flush=True)
     return {"launches": launches, "seconds": secs}
 
+# phase 18: the GPipe pipeline over a stage group: llama3.2-3b's 28 seeded
+# bf16 layers (phase 15's draw: seeds 5 and 6) in 2 stages of 14
+PIPE_GROUP = {"stages": 2, "micro": PIPE_MICRO, "loss": "mean", "runs": 2,
+              "lm": {"arch": TRAIN_ARCH, "num_layers": 28,
+                     "dtype": "bfloat16", "seed": 5, "x_seed": 6,
+                     "micro": PIPE_MICRO, "mb": 1, "tokens": PIPE_TOKENS}}
+
+
+def _pipeline_launches(launches: dict, label: str) -> list:
+    """Where a pipeline run's launches are not 224 forward and 224
+    backward ``flash_attention`` (28 layers x 8 microbatches) and nothing
+    else."""
+    want = PIPE_GROUP["lm"]["num_layers"] * PIPE_GROUP["micro"]
+    return [f"{label}: {k} launched {n}, expected "
+            f"{want if k.startswith('flash_attention') else 0}"
+            for k, n in launches.items()
+            if n != (want if k.startswith("flash_attention") else 0)]
+
+
+def phase_pipeline(torch, stamp: str, backend: str = "gloo",
+                   devices=("cuda:0", "cuda:0")) -> dict:
+    """Phase 18: the pipeline as 2 ranks (``backend`` over ``devices``)
+    held to the host-simulated pipeline on ``devices[0]``."""
+    from repro_torch.launch.group import (pipeline_rank, spawn_partitions,
+                                          tensor_digest)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ref = pipeline_rank(0, devices[0], PIPE_GROUP)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = {k: tensor_digest(v) for k, v in ref["values"].items()}
+    t_digest = time.perf_counter() - t0
+    bad = _pipeline_launches(ref["launches"], "the reference")
+    t0 = time.perf_counter()
+    ranks = spawn_partitions(pipeline_rank, 2, backend, list(devices),
+                             args=({**PIPE_GROUP, "digest": True,
+                                    "want": want},),
+                             timeout=GROUP_JOIN_S)
+    t_group = time.perf_counter() - t0
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    bad += _pipeline_launches(launches, "summed over the ranks")
+    if launches != ref["launches"]:
+        bad.append(f"launches {launches}, the reference's {ref['launches']}")
+    seen = set()
+    for r, got in enumerate(ranks):
+        seen |= set(got["values"])
+        if got["differs"]:
+            key, t = got["differs"]
+            diff = float((t.float() - ref["values"][key].float()).abs().max())
+            bad.append(f"rank {r}: first differing leaf {key}, max |diff| "
+                       f"{diff:.3e}")
+        bad += [f"rank {r}: {k} absent from the reference"
+                for k in set(got["values"]) - set(want)]
+    if seen != set(want):
+        bad.append(f"no rank holds {sorted(set(want) - seen)}")
+    leaked = sorted({m for r in ranks for m in r["modules"]}
+                    & {"jax", "repro"})
+    if leaked:
+        bad.append(f"a rank imported {leaked}")
+    del ref["values"]
+    cfg = PIPE_GROUP["lm"]
+    grads = sum(k.startswith("grad/") for k in want)
+    print(f"[pipeline] {TRAIN_ARCH}'s {cfg['num_layers']} seeded bf16 "
+          f"layers in 2 stages of {cfg['num_layers'] // 2}, "
+          f"{PIPE_GROUP['micro']} microbatches of 1 x {cfg['tokens']}, "
+          f"forward + backward of mean(out.float() ** 2), 2 {backend} ranks "
+          f"on {', '.join(devices)}: launches by rank "
+          f"{[r['launches'] for r in ranks]}, summed {launches} (the "
+          f"host-simulated reference's {ref['launches']})  [{stamp}]",
+          flush=True)
+    print(f"[check] the outputs, the gradient of the microbatches and "
+          f"{grads} parameter-gradient leaves (2 stages) against the "
+          f"host-simulated pipeline on {devices[0]}, by SHA-256: "
+          f"{'bit-equal' if not bad else bad}; the ranks imported "
+          f"{leaked or 'neither jax nor repro'}", flush=True)
+    for r, got in enumerate(ranks):
+        for pass_ in ("forward", "backward"):
+            ticks = [(t, sent) for p, t, sent, _ in got["traffic"]
+                     if p == pass_ and sent]
+            print(f"[pipeline] rank {r} {pass_}: sends "
+                  f"{sum(n for _, n in ticks)} B over {len(ticks)} "
+                  f"boundaries ({sorted({n for _, n in ticks})} B each, "
+                  f"before ticks {[t for t, _ in ticks]})", flush=True)
+    walls = [[round(w * 1e3, 1) for w in r["seconds"]] for r in ranks]
+    ref_ms = [round(w * 1e3, 1) for w in ref["seconds"]]
+    print(f"[pipeline] forward + backward wall (ms; warm-up, timed): rank 0 "
+          f"{walls[0]}, rank 1 {walls[1]}; the host-simulated reference "
+          f"{ref_ms}; reference digests {t_digest:.1f} s host, spawn to "
+          f"both results {t_group:.1f} s  [{stamp}]", flush=True)
+    if bad:
+        fail(f"phase 18: {bad[0]}")
+    secs = time.perf_counter() - t_phase
+    print(f"[pipeline] phase 18 in {secs:.1f} s  [{stamp}]", flush=True)
+    return {"flash_attention": launches["flash_attention"],
+            "flash_attention_bwd": launches["flash_attention_bwd"],
+            "rank_ms": [w[-1] for w in walls], "ref_ms": ref_ms[-1],
+            "seconds": secs}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5040,6 +5145,10 @@ def main() -> int:
     entries[2]["group_backward_launches"] = \
         group_launches["neighbor_agg_backward"]
     live = phase_live(torch, stamp)["launches"]
+    pipeline = phase_pipeline(torch, stamp)
+    flash["pipeline_group_launches"] = pipeline["flash_attention"]
+    train_lm["entry"]["pipeline_group_launches"] = \
+        pipeline["flash_attention_bwd"]
     entry["live_launches"] = live["cache_gather"]
     entries[1]["live_launches"] = live["gather_aggregate"]
     entries[2]["live_launches"] = live["neighbor_agg"]

@@ -2,7 +2,7 @@
 """The multi-partition run over ``nccl``, a card a rank, held to the same
 run on the host-simulated mesh; needs two CUDA cards.
 
-  python3 scripts/group_nccl.py
+  python3 scripts/group_nccl.py [--steps 1 2 3 4 5 6]
 
 1. The launcher as a user runs it: ``python -m repro_torch.launch.train``
    with ``chip_smoke.py``'s phase-9 arguments (graphsage-products at full
@@ -31,8 +31,16 @@ run on the host-simulated mesh; needs two CUDA cards.
    17 holds its gloo ranks (``chip_smoke.hold_live``) to the same sequence
    host-simulated in a child that sees one card, each episode's fleet
    throughput beside the reference's.
+6. ``chip_smoke.py``'s phase 18 over 2 ``nccl`` ranks, a card each: the
+   GPipe pipeline of llama3.2-3b's 28 seeded bf16 layers in 2 stages of 14
+   (``launch.group.pipeline_rank``, stage r on ``cuda:r``), forward and
+   backward, held by SHA-256 digests to the host-simulated pipeline run
+   first in this process on ``cuda:0``, the launches summed over the
+   ranks (224 forward and 224 backward ``flash_attention``), each rank's
+   wall beside the reference's.
 
-Prints the cards' name and power limit; exits non-zero on a mismatch or
+``--steps`` runs the steps named (all by default; step 3 runs step 2, its
+reference).  Prints the cards' name and power limit; exits non-zero on a mismatch or
 with fewer than two cards.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -104,6 +112,13 @@ def main() -> int:
         return _reference(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--live-reference":
         return _live_reference(sys.argv[2])
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, nargs="+", default=[1, 2, 3, 4, 5, 6],
+                    choices=range(1, 7))
+    steps = set(ap.parse_args().steps)
+    if 3 in steps:
+        steps.add(2)
     import torch
     if torch.cuda.device_count() < 2:
         print(f"[fail] {torch.cuda.device_count()} CUDA cards: the two-rank "
@@ -111,19 +126,26 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.kernels.build import build
-    from repro_torch.launch.group import collectives_rank, spawn_partitions
-    from repro_torch.launch.train import build_parser, gnn_rank
     stamp = cs.card_stamp()
     print(f"[card] {stamp}; {torch.cuda.device_count()} cards; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    build(["gather", "segment_agg", "fused_gather_agg"])
+    build(["gather", "segment_agg", "fused_gather_agg"] +
+          (["flash_attention", "flash_attention_bwd"] if 6 in steps else []))
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join([str(ROOT / "src"),
                                           os.environ.get("PYTHONPATH", "")])}
+    for step, run in ((1, _launcher), (2, _group_run), (4, _collectives),
+                      (5, _live), (6, _pipeline)):
+        if step in steps:
+            run(torch, cs, stamp, env, steps)
+    print(f"[card] {stamp}")
+    return 0
 
-    # 1. the launcher
+
+def _launcher(torch, cs, stamp, env, steps):
+    """1. the launcher."""
     ckpt = tempfile.mkdtemp(prefix="group_nccl_cli_")
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -142,7 +164,12 @@ def main() -> int:
         print(proc.stderr[-4000:], file=sys.stderr)
         cs.fail("the launcher over nccl failed")
 
-    # 2. the reference on one card
+
+def _group_run(torch, cs, stamp, env, steps):
+    """2. the reference on one card and, when asked, 3. the group run held
+    to it."""
+    from repro_torch.launch.group import spawn_partitions
+    from repro_torch.launch.train import build_parser, gnn_rank
     with tempfile.TemporaryDirectory() as d:
         out = Path(d) / "ref.pkl"
         t0 = time.perf_counter()
@@ -157,6 +184,8 @@ def main() -> int:
     print(f"[group] reference: host-simulated, both partitions on one card, "
           f"{time.perf_counter() - t0:.1f} s host; median warm global step "
           f"{ref['step_ms']:.1f} ms  [{stamp}]", flush=True)
+    if 3 not in steps:
+        return
 
     # 3. the group run, held to the reference
     ckpt = Path(tempfile.mkdtemp(prefix="group_nccl_run_"))
@@ -198,7 +227,10 @@ def main() -> int:
     if bad:
         cs.fail(f"the nccl group run differs: {bad[0]}")
 
-    # 4. the collectives over 2 nccl ranks
+
+def _collectives(torch, cs, stamp, env, steps):
+    """4. the collectives over 2 nccl ranks."""
+    from repro_torch.launch.group import collectives_rank, spawn_partitions
     inputs = cs._group_shim_inputs(torch, 2, 18)
     got = spawn_partitions(collectives_rank, 2, "nccl",
                            ["cuda:0", "cuda:1"], args=(inputs,),
@@ -210,8 +242,11 @@ def main() -> int:
     if bad:
         cs.fail(f"nccl collectives: {bad[0]}")
 
-    # 5. phase 17 (a) and (b) over 2 nccl ranks
-    from repro_torch.launch.train import autotune_rank
+
+def _live(torch, cs, stamp, env, steps):
+    """5. phase 17 (a) and (b) over 2 nccl ranks."""
+    from repro_torch.launch.group import spawn_partitions
+    from repro_torch.launch.train import autotune_rank, build_parser
     with tempfile.TemporaryDirectory() as d:
         out = Path(d) / "live.pkl"
         t0 = time.perf_counter()
@@ -236,8 +271,11 @@ def main() -> int:
           flush=True)
     if bad:
         cs.fail(f"the nccl live run differs: {bad[0]}")
-    print(f"[card] {stamp}")
-    return 0
+
+
+def _pipeline(torch, cs, stamp, env, steps):
+    """6. phase 18 over 2 nccl ranks, a card each."""
+    cs.phase_pipeline(torch, stamp, "nccl", ("cuda:0", "cuda:1"))
 
 
 if __name__ == "__main__":

@@ -209,3 +209,160 @@ def imported_modules() -> list:
     """The top-level names of every module this process has imported."""
     import sys
     return sorted({name.split(".")[0] for name in sys.modules})
+
+
+def _toy_stage(p, x):
+    """``tests/test_distributed.py``'s pipeline stage: tanh(x @ w)."""
+    import torch
+    return torch.tanh(x @ p["w"])
+
+
+def pipeline_model(spec: dict, stages: int, device):
+    """``(params, xs, layer_fn)`` of a pipeline run on ``device``: the
+    whole stack's parameters, each leaf with a leading dim of ``stages``,
+    the microbatches ``xs`` (M, mb, ...) and the stage function.  ``spec``
+    holds one of
+
+      ``toy``  ``{"w": (S, D, D), "xs": (M, mb, D)}`` (numpy): a stage is
+               ``tanh(x @ w)``;
+      ``lm``   ``{"arch", "num_layers", "dtype", "smoke"}`` and either
+               ``"layers"`` (the stacked layer tree as numpy, e.g. JAX's
+               converted) and ``"xs"`` (M, mb, T, D), or ``"seed"``,
+               ``"x_seed"``, ``"micro"``, ``"mb"`` and ``"tokens"`` to draw
+               them on ``device`` (``init_params`` of the stacked layers
+               in ``dtype``, then ``randn`` hidden states): a stage is
+               ``transformer.pipeline_stage``, ``num_layers / stages``
+               layers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.params import tree_map
+    device = torch.device(device)
+    if "toy" in spec:
+        toy = spec["toy"]
+        return ({"w": torch.from_numpy(np.asarray(toy["w"])).to(device)},
+                torch.from_numpy(np.asarray(toy["xs"])).to(device),
+                _toy_stage)
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.params import init_params, stack_decls
+    from repro_torch.models.transformer import decls_layer, pipeline_stage
+    lm = spec["lm"]
+    dtype = getattr(torch, lm["dtype"])
+    n = lm["num_layers"]
+    cfg = get_config(lm["arch"], smoke=lm.get("smoke", False)).replace(
+        num_layers=n, compute_dtype=lm["dtype"])
+    if "layers" in lm:
+        stack = tree_map(lambda a: a.to(dtype),
+                         params_from_jax(lm["layers"], device))
+        xs = torch.from_numpy(np.asarray(lm["xs"])).to(device, dtype)
+    else:
+        stack = init_params(stack_decls(decls_layer(cfg), n),
+                            torch.Generator(device).manual_seed(lm["seed"]),
+                            device, dtype_override=dtype)
+        g = torch.Generator(device).manual_seed(lm["x_seed"])
+        xs = torch.randn(lm["micro"], lm["mb"], lm["tokens"], cfg.d_model,
+                         generator=g, device=device).to(dtype)
+    staged = tree_map(lambda a: a.view(stages, n // stages, *a.shape[1:]),
+                      stack)
+    return staged, xs, pipeline_stage(cfg)
+
+
+def named_leaves(tree, prefix: str = "") -> dict:
+    """``{"a/b": leaf}`` of a nested dict, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in named_leaves(tree[key], f"{prefix}{key}/").items()}
+    return {prefix.rstrip("/"): tree}
+
+
+def tensor_digest(t) -> tuple:
+    """(SHA-256 of the bytes, shape, dtype) of a tensor."""
+    import hashlib
+    import torch
+    flat = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+    return (hashlib.sha256(flat.numpy()).hexdigest(), tuple(t.shape),
+            str(t.dtype))
+
+
+def pipeline_rank(rank: int, device, inputs: dict) -> dict:
+    """The GPipe pipeline's forward and backward (``distributed/pp.py``)
+    on ``device``, for the checks that hold its group form to the
+    host-simulated one.
+
+    Inside a group, this process is stage ``rank`` of
+    ``make_partition_mesh(inputs["stages"], axis="stage")`` (a rank past
+    it returns ``{"stage": None}`` and calls nothing); outside one, every
+    stage runs here on a ``HostSimMesh``, the reference.  ``inputs``:
+    ``stages``, ``micro``, the model (``pipeline_model``'s ``toy`` or
+    ``lm``), ``loss`` ("sum" or "mean" of ``out.float() ** 2``), ``runs``
+    (forward + backward runs, default 1: each is timed; the last one's
+    launches and traffic are reported), ``digest`` (each value as
+    ``tensor_digest`` instead of a CPU tensor: a full-width stack's
+    gradients do not cross the result queue) and ``want`` (digests by
+    key: ``differs`` is then the first key, in name order, whose digest
+    differs, with this process's tensor of it).
+
+    ``values``: ``out``, ``dxs`` (the gradient of ``xs``) and
+    ``grad/<stage>/<leaf>`` (leaves (1, ...)): this stage's, or every
+    stage's."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.pp import make_pipeline_fn
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.launch.mesh import HostSimMesh, make_partition_mesh
+    from repro_torch.models.params import leaves, tree_map, unflatten
+
+    def counts():
+        return {**launch_counts(),
+                "flash_attention_bwd": flash_attention_bwd.launches}
+
+    S, M = inputs["stages"], inputs["micro"]
+    in_group = dist.is_available() and dist.is_initialized()
+    mesh = (make_partition_mesh(S, device, axis="stage") if in_group
+            else HostSimMesh(S, "stage"))
+    if in_group and not mesh.holds_partition:
+        return {"stage": None, "modules": imported_modules()}
+    params, xs, layer_fn = pipeline_model(inputs, S, device)
+    stages = [rank] if in_group else list(range(S))
+    if in_group:                    # this stage's block, the rest freed
+        params = tree_map(lambda a: a[rank:rank + 1].clone(), params)
+    pipe = make_pipeline_fn(layer_fn, S, M, mesh)
+    flat = [a.requires_grad_() for a in leaves(params)]
+    xs.requires_grad_()
+    cuda = torch.device(device).type == "cuda"
+    seconds = []
+    for _ in range(inputs.get("runs", 1)):
+        before = counts()
+        t0 = time.perf_counter()
+        out = pipe(unflatten(params, flat), xs)
+        sq = out.float() ** 2
+        loss = sq.sum() if inputs["loss"] == "sum" else sq.mean()
+        *dp, dxs = torch.autograd.grad(loss, flat + [xs])
+        if cuda:
+            torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+        launches = {k: n - before[k] for k, n in counts().items()}
+    values = {"out": out.detach(), "dxs": dxs}
+    grads = named_leaves(unflatten(params, dp))
+    for s in stages:
+        for name, g in grads.items():
+            values[f"grad/{s}/{name}"] = g if in_group else g[s:s + 1]
+    del params, flat, dp, grads, out, dxs
+    res = {"stage": rank if in_group else None, "seconds": seconds,
+           "launches": launches,
+           "traffic": list(getattr(pipe, "traffic", [])),
+           "modules": imported_modules()}
+    if not inputs.get("digest"):
+        res["values"] = {k: v.cpu() for k, v in values.items()}
+        return res
+    res["values"] = {k: tensor_digest(v) for k, v in values.items()}
+    want = inputs.get("want") or {}
+    bad = sorted(k for k, d in res["values"].items()
+                 if k in want and want[k] != d)
+    res["differs"] = (bad[0], values[bad[0]].cpu()) if bad else None
+    return res

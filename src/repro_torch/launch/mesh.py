@@ -25,8 +25,6 @@ from typing import Dict, Tuple
 
 import torch
 
-GROUP_TODO = "not ported over a process group yet — see ROADMAP.md"
-
 
 @dataclass(frozen=True)
 class HostSimMesh:

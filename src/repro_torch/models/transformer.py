@@ -147,6 +147,33 @@ def _logits(params, h, cfg):
     return (h @ W).float()
 
 
+def layer_fwd(lp, h, cfg, positions):
+    """One block (JAX's ``_layer_fwd``): attention, then the MLP (or the
+    MoE), each a residual over its RMSNorm.  Returns (h, the MoE's
+    auxiliary loss, or None for a dense model)."""
+    h = h + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                        cfg, positions)
+    hn = L.rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    if cfg.is_moe:
+        m, a = moe_mlp(lp["moe"], hn, cfg)
+        return h + m, a
+    return h + L.mlp(lp["mlp"], hn, cfg), None
+
+
+def pipeline_stage(cfg):
+    """The ``layer_fn`` of a pipeline stage (``distributed/pp.py``) of a
+    dense model: ``stage(p, h)`` runs the layers of the stacked tree ``p``
+    (a leading layer axis) in turn over hidden states h (B, S, D) at
+    positions 0..S-1, each ``layer_fwd`` with no remat."""
+    def stage(p, h):
+        B, S, _ = h.shape
+        positions = _positions({}, cfg, B, S, h.device)
+        for lp in _unstack(p, leaves(p)[0].shape[0]):
+            h = layer_fwd(lp, h, cfg, positions)[0]
+        return h
+    return stage
+
+
 def forward(params, batch, cfg):
     """tokens → final hidden states (B, S, D) and the summed MoE auxiliary
     loss (f32; 0 for a dense model)."""
@@ -155,13 +182,8 @@ def forward(params, batch, cfg):
     positions = _positions(batch, cfg, B, S, h.device)
 
     def body(h, aux, lp):
-        h = h + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
-                            cfg, positions)
-        hn = L.rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        if cfg.is_moe:
-            m, a = moe_mlp(lp["moe"], hn, cfg)
-            return h + m, aux + a
-        return h + L.mlp(lp["mlp"], hn, cfg), aux
+        h, a = layer_fwd(lp, h, cfg, positions)
+        return h, aux if a is None else aux + a
 
     body = _remat(body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -1634,3 +1634,41 @@ def test_one_rank_nccl_world_swaps_the_halo_and_autotunes(card, tmp_path):
     assert got["live"]["launches"]["gather_aggregate"] == \
         want["launches"]["gather_aggregate"] == 4
     assert not {"jax", "repro"} & set(got["live"]["modules"])
+
+
+# the GPipe pipeline over a stage group on the card
+PIPE_SMOKE = {"stages": 2, "micro": 4, "loss": "mean", "runs": 1,
+              "lm": {"arch": "llama3.2-3b", "smoke": True, "num_layers": 4,
+                     "dtype": "bfloat16", "seed": 5, "x_seed": 6,
+                     "micro": 4, "mb": 2, "tokens": 64}}
+
+
+def test_group_pipeline_on_the_card_bit_equal_to_host_sim(card, tmp_path):
+    """2 gloo ranks sharing cuda:0, each a stage of 2 of the smoke
+    llama3.2-3b's 4 bf16 layers (seeded on the card), forward and the
+    hand-written backward: the outputs, every gradient and the gradient of
+    the microbatches bit-equal to the host-simulated pipeline on the card,
+    and ``flash_attention`` and its backward launched once a layer and
+    microbatch, summed over the ranks."""
+    from repro_torch.kernels.build import build
+    from repro_torch.launch.group import pipeline_rank, spawn_partitions
+    build(["flash_attention", "flash_attention_bwd"])
+    want = pipeline_rank(0, "cuda:0", PIPE_SMOKE)
+    ranks = spawn_partitions(pipeline_rank, 2, "gloo", ["cuda:0", "cuda:0"],
+                             init_method=f"file://{tmp_path}/store",
+                             args=(PIPE_SMOKE,), timeout=120)
+    n = 4 * 4
+    assert want["launches"]["flash_attention"] == \
+        want["launches"]["flash_attention_bwd"] == n
+    summed = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
+              for k in want["launches"]}
+    assert summed == want["launches"]
+    seen = set()
+    for got in ranks:
+        for k, v in got["values"].items():
+            assert v.dtype == torch.bfloat16 and _bit_equal(
+                v.view(torch.int16).numpy(),
+                want["values"][k].view(torch.int16).numpy()), k
+            seen.add(k)
+        assert not {"jax", "repro"} & set(got["modules"])
+    assert seen == set(want["values"])

@@ -251,7 +251,9 @@ def test_pipeline_gradient_matches_the_sequential_stack():
 
 
 def test_pipeline_takes_only_a_host_simulated_stage_axis():
-    with pytest.raises(NotImplementedError):
+    """A device-free ``AbstractMesh`` holds no stage, and a host-simulated
+    mesh needs the stage axis (the group form: test_torch_group_pipeline)."""
+    with pytest.raises(NotImplementedError, match="HostSimMesh or a GroupMesh"):
         make_pipeline_fn(_layer, S, M, AbstractMesh((S,), ("stage",)))
     with pytest.raises(ValueError):
         make_pipeline_fn(_layer, S, M, HostSimMesh(S, "part"))

@@ -284,9 +284,9 @@ def test_partition_mesh_inside_a_group(two):
 
 
 def test_group_refuses_what_is_not_ported_over_it(two):
-    """What still refuses over a group: a ``partitions`` restart past the
-    world's processes (before it checkpoints anything) and the pipeline
-    schedule over a ``GroupMesh``."""
+    """What refuses over a group: a ``partitions`` restart past the
+    world's processes (before it checkpoints anything), and a pipeline over
+    a ``GroupMesh`` whose axis is not its stage axis."""
     for got in two["ranks"]:
         refused = got["refused"]
         assert refused.pop("kept") == (2, 0, None)
@@ -294,9 +294,9 @@ def test_group_refuses_what_is_not_ported_over_it(two):
         assert msg and "restart to 3" in msg and "group of 2" in msg
         assert refused == {}
     from repro_torch.distributed.pp import make_pipeline_fn
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no 'stage' axis of 2 stages"):
         make_pipeline_fn(lambda w, x: x, 2, 4,
-                         GroupMesh(2, 0, "stage", "gloo", torch.device("cpu")))
+                         GroupMesh(2, 0, "part", "gloo", torch.device("cpu")))
 
 
 def test_group_all_gathers_objects_in_rank_order(two):
