@@ -329,6 +329,36 @@ Phases; any failure exits non-zero:
    beside the reference's, the bytes each boundary between ticks sends
    and the phase's seconds; no rank may import JAX or the JAX package.
    ``scripts/group_nccl.py`` step 6 runs it over 2 ``nccl`` cards.
+19. the sharded LM step — (a) the dry-run's collective bytes
+   (``launch.dryrun.collectives``: the port's step traced on ``meta``
+   DTensors over a fake group, both depth probes, in one child process)
+   of llama3.2-3b and qwen2-moe-a2.7b ``train_4k`` on the (16, 16) and
+   (2, 16, 16) production meshes, per op, with each trace's host seconds;
+   (b) ``launch.group.sharded_lm_rank`` as 2 ``gloo`` ranks sharing the
+   card on a (1, 2) ``(data, model)`` mesh (``gloo-host``: DTensor's
+   collectives of card tensors run gloo's on a host copy of the buffer,
+   ``launch.group.stage_collectives_through_host``; gloo faults on card
+   tensors in the card's PyTorch): llama3.2-3b at full width
+   (``SHARDED_LM``: 4 bf16 layers of tame seeded weights, each N(0, 1 /
+   its whole fan-in; a batch of 2 x 1024 tokens), 3 AdamW steps of the
+   step sharded as DTensors (12 q and 4 kv heads a rank, the vocab and
+   the MLP split in two), held to the same steps unsharded in this
+   process on the card: the first loss within ``SHARDED_LOSS_REL``,
+   every gradient leaf within ``SHARDED_GRAD_REL`` (||g - g_ref|| /
+   ||g_ref||) and every parameter leaf after the steps within
+   ``SHARDED_PARAM_REL`` of the unsharded step's own move (bf16: the
+   partial sums over the model axis are rounded and added in another
+   order; ``scripts/sharded_fault.py`` plants faults that these bounds
+   catch), the bytes each rank's collectives moved in its first step,
+   by op, equal to (a)'s trace of the same config, shape and mesh, the
+   hand-written ``flash_attention`` forward and backward launched on each
+   rank's head shard (twice and once a layer a step: the ``dots``
+   recompute), each rank's peak allocation beside the unsharded step's
+   and its wall (this run checks the step and times no rank: its
+   collectives' buffers pass through the host); no rank may import JAX
+   or the JAX package.
+   ``scripts/group_nccl.py`` step 7 runs it over 4 ``nccl`` cards as
+   (2, 2) and times each rank's step.
 
 Every line with a time, rate or size carries the card's name and power
 limit.  The next-to-last line is a JSON list of the ported kernels (the
@@ -337,7 +367,7 @@ prefills and the forward's ``train_launches`` of phase 14; the backward's
 own entry, ``flash_attention_bwd``; the GNN training kernels'
 ``group_launches`` of phase 16 and ``live_launches`` of phase 17, summed
 over the ranks; both flash entries' ``pipeline_group_launches`` of phase
-18) and the last line is ``{"ok": true,
+18 and the ``sharded_launches`` of phase 19) and the last line is ``{"ok": true,
 "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -4470,7 +4500,8 @@ def _dryrun_cells(stamp: str):
             for shape in SHAPES_BY_NAME:
                 t = time.perf_counter()
                 try:
-                    res = dryrun.run_cell(arch, shape, mesh)
+                    res = dryrun.run_cell(arch, shape, mesh,
+                                          collectives_too=False)
                 except Exception as e:  # noqa: BLE001 — every cell is tried
                     errors.append(f"{mesh}/{arch}/{shape}: "
                                   f"{type(e).__name__}: {e}")
@@ -5068,6 +5099,160 @@ def phase_pipeline(torch, stamp: str, backend: str = "gloo",
             "seconds": secs}
 
 
+# phase 19: the sharded LM step over a (1, 2) mesh of 2 gloo ranks, from
+# tame weights (``init_params``' seeded stack is chaotic: its loss 245.9,
+# where ln V is 11.8, and a bf16 step's own gradient error the size of the
+# gradient)
+SHARDED_LM = {"arch": TRAIN_ARCH, "num_layers": 4, "dtype": "bfloat16",
+              "seed": 11, "init": "fan_in", "batch": 2, "seq": 1024,
+              "mesh": (1, 2), "steps": 3}
+# a rank against the unsharded bf16 step from the same weights: the first
+# step's loss, relative; each gradient leaf's ||g - g_ref|| / ||g_ref||;
+# each parameter leaf's ||p - p_ref|| after the steps over the unsharded
+# step's own move.  Set from readings on the card (PERF.md, PR 30): sound
+# runs read loss 3.0e-5, gradients 1.85e-2 at worst, parameters 9.2e-2;
+# with a fault planted (scripts/sharded_fault.py) the gradients read 0.72
+# (the norm scales' all-reduce left out) and 0.105 (dK 10% off).  AdamW's
+# sign-like steps hide both from the parameters (0.092, 0.101): their
+# bound catches a gross fault only (a leaf left unchanged reads 1).
+SHARDED_LOSS_REL = 2 ** -10
+SHARDED_GRAD_REL = 2 ** -4
+SHARDED_PARAM_REL = 2 ** -2
+SHARDED_CELLS = [(arch, multi) for arch in (TRAIN_ARCH, "qwen2-moe-a2.7b")
+                 for multi in (False, True)]
+
+
+def _sharded_counts(stamp: str, tracer) -> list:
+    """(a): the collective bytes of the production train_4k cells."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    rows = []
+    for arch, multi in SHARDED_CELLS:
+        mesh = make_production_mesh(multi_pod=multi)
+        t0 = time.perf_counter()
+        got = dryrun.collectives(get_config(arch), SHAPES_BY_NAME["train_4k"],
+                                 mesh, tracer)
+        secs = time.perf_counter() - t0
+        if not got["per_op"] or min(got["per_op"].values()) < 0 or \
+                not set(got["per_op"]) <= set(dryrun.COLLECTIVE_OPS):
+            fail(f"phase 19: {arch} {mesh.sizes} counted {got['per_op']}")
+        probes = [round(c["seconds"], 2) for c in got["probes"]]
+        ops = ", ".join(f"{k} {v / 2**30:.3f}"
+                        for k, v in got["per_op"].items())
+        print(f"[sharded] dry-run collectives, {arch} train_4k on "
+              f"{mesh.sizes}: {got['total'] / 2**30:.3f} GiB a device a "
+              f"step ({ops} GiB), probe traces {probes} s, {secs:.1f} s of "
+              f"host  [{stamp}]", flush=True)
+        rows.append({"arch": arch, "mesh": mesh.sizes,
+                     "per_op": got["per_op"], "seconds": secs})
+    return rows
+
+
+def phase_sharded(torch, stamp: str, devices=("cuda:0", "cuda:0"),
+                  backend: str = "gloo-host", spec=None,
+                  cells: bool = True, rank=None) -> dict:
+    """Phase 19: (a) the dry-run's collective bytes (where ``cells``), (b)
+    the sharded step (``spec``, ``SHARDED_LM`` by default) as a rank
+    (``rank``, ``sharded_lm_rank`` by default) on each of ``devices`` over
+    ``backend``, held to the unsharded step on ``devices[0]``.  Over
+    ``gloo-host`` every collective's buffer passes through the host, so
+    that run checks the step and times no rank (``scripts/group_nccl.py``
+    step 7 times them over ``nccl``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.group import (HOST_STAGED, lm_config,
+                                          sharded_lm_rank, spawn_partitions)
+    from repro_torch.launch.mesh import AbstractMesh
+    t_phase = time.perf_counter()
+    spec = spec or SHARDED_LM
+    n = len(devices)
+    mesh = AbstractMesh(spec["mesh"], ("data", "model"))
+    with dryrun.CollectiveTracer() as tracer:
+        cells = _sharded_counts(stamp, tracer) if cells else []
+        want = dryrun.count_collectives(
+            lm_config(spec),
+            ShapeConfig("sharded", "train", spec["seq"], spec["batch"]),
+            mesh, tracer)
+    torch.cuda.empty_cache()
+    ref = sharded_lm_rank(0, devices[0], spec)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        torch.save({"grads": ref.pop("grads"), "params": ref.pop("params"),
+                    "moves": ref["moves"]}, tmp / "ref.pt")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_partitions(rank or sharded_lm_rank, n, backend,
+                                 list(devices),
+                                 args=({**spec, "ref": str(tmp / "ref.pt")},),
+                                 timeout=GROUP_JOIN_S)
+        t_group = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    L = spec["num_layers"]
+    flash = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    bad = []
+    for r, got in enumerate(ranks):
+        loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        worst = {key: sorted(got[key].items(), key=lambda kv: -kv[1])[:3]
+                 for key in ("grad_err", "param_err")}
+        print(f"[sharded] rank {r}: loss {got['loss']:.6f} against the "
+              f"unsharded step's {ref['loss']:.6f} (relative {loss_rel:.3e}, "
+              f"bound {SHARDED_LOSS_REL:.3e}); worst gradient leaves "
+              f"||g - g_ref|| / ||g_ref|| "
+              f"{[(k, f'{v:.3e}') for k, v in worst['grad_err']]} (bound "
+              f"{SHARDED_GRAD_REL:.3e}); worst parameter leaves after "
+              f"{spec['steps']} steps, ||p - p_ref|| over the unsharded "
+              f"step's move {[(k, f'{v:.3e}') for k, v in worst['param_err']]}"
+              f" (bound {SHARDED_PARAM_REL:.3e})", flush=True)
+        if not loss_rel <= SHARDED_LOSS_REL:
+            bad.append(f"rank {r}: loss {got['loss']} against {ref['loss']}")
+        for key, bound in (("grad_err", SHARDED_GRAD_REL),
+                           ("param_err", SHARDED_PARAM_REL)):
+            k, v = worst[key][0]
+            if not v <= bound:
+                bad.append(f"rank {r}: {key} of {k} {v:.3e} past {bound:.3e}")
+        if got["traffic"]["per_op"] != want["per_op"]:
+            bad.append(f"rank {r}: moved {got['traffic']['per_op']}, the "
+                       f"trace counts {want['per_op']}")
+        if got["launches"] != flash:
+            bad.append(f"rank {r}: launches {got['launches']}, expected "
+                       f"{2 * L} forward and {L} backward")
+        if {"jax", "repro"} & set(got["modules"]):
+            bad.append(f"rank {r} imported jax or repro")
+    if ref["launches"] != flash:
+        bad.append(f"the unsharded step launched {ref['launches']}")
+    peaks = [f"{got['peak_bytes'] / 2**30:.2f}" for got in ranks]
+    ms = [[round(w * 1e3, 1) for w in got["seconds"]] for got in ranks]
+    walls = ("no rank timed: each collective's buffer passes through the "
+             "host" if backend == HOST_STAGED else
+             f"step walls (ms; {spec['steps']} steps) by rank {ms}")
+    print(f"[sharded] {spec['arch']} full width, {L} bf16 layers "
+          f"({spec.get('init', 'seeded')} weights), batch {spec['batch']} "
+          f"x {spec['seq']}, mesh (data, model) = {spec['mesh']} as {n} "
+          f"{backend} ranks on {', '.join(devices)}: {walls}; unsharded "
+          f"{[round(w * 1e3, 1) for w in ref['seconds']]}; peak allocation "
+          f"by rank {peaks} GiB, unsharded "
+          f"{ref['peak_bytes'] / 2**30:.2f} GiB; spawn to every result "
+          f"{t_group:.1f} s  [{stamp}]", flush=True)
+    moved = [r["traffic"]["per_op"] for r in ranks]
+    calls = [r["traffic"]["counts"] for r in ranks]
+    print(f"[sharded] bytes a rank's collectives moved in its first step: "
+          f"{moved} ({calls} calls); the dry-run's trace of the same step on "
+          f"meta: {want['per_op']}; launches by rank "
+          f"{[r['launches'] for r in ranks]}  [{stamp}]", flush=True)
+    if bad:
+        fail(f"phase 19: {bad[0]}")
+    secs = time.perf_counter() - t_phase
+    print(f"[sharded] phase 19 in {secs:.1f} s  [{stamp}]", flush=True)
+    return {"cells": cells,
+            "flash_attention": sum(r["launches"]["flash_attention"]
+                                   for r in ranks),
+            "flash_attention_bwd": sum(r["launches"]["flash_attention_bwd"]
+                                       for r in ranks),
+            "seconds": secs}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5149,6 +5334,9 @@ def main() -> int:
     flash["pipeline_group_launches"] = pipeline["flash_attention"]
     train_lm["entry"]["pipeline_group_launches"] = \
         pipeline["flash_attention_bwd"]
+    sharded = phase_sharded(torch, stamp)
+    flash["sharded_launches"] = sharded["flash_attention"]
+    train_lm["entry"]["sharded_launches"] = sharded["flash_attention_bwd"]
     entry["live_launches"] = live["cache_gather"]
     entries[1]["live_launches"] = live["gather_aggregate"]
     entries[2]["live_launches"] = live["neighbor_agg"]

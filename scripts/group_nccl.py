@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The multi-partition run over ``nccl``, a card a rank, held to the same
-run on the host-simulated mesh; needs two CUDA cards.
+run on the host-simulated mesh; needs two CUDA cards (step 7 four).
 
-  python3 scripts/group_nccl.py [--steps 1 2 3 4 5 6]
+  python3 scripts/group_nccl.py [--steps 1 2 3 4 5 6 7]
 
 1. The launcher as a user runs it: ``python -m repro_torch.launch.train``
    with ``chip_smoke.py``'s phase-9 arguments (graphsage-products at full
@@ -38,6 +38,17 @@ run on the host-simulated mesh; needs two CUDA cards.
    first in this process on ``cuda:0``, the launches summed over the
    ranks (224 forward and 224 backward ``flash_attention``), each rank's
    wall beside the reference's.
+
+7. ``chip_smoke.py``'s phase 19 (b) over 4 ``nccl`` ranks, a card each,
+   as a (2, 2) ``(data, model)`` mesh: llama3.2-3b at full width, 4
+   seeded bf16 layers, the train step sharded as DTensors
+   (``launch.group.sharded_lm_rank``: batch rows and, on the model axis,
+   heads, vocab and MLP split in two; FSDP gathers and reduce-scatters
+   over the data axis), held as phase 19 holds its gloo ranks to the
+   unsharded step on ``cuda:0`` (loss, every gradient against an f32
+   witness, the bytes each rank's collectives moved equal to the
+   dry-run's trace of the same step, the flash launches) with each
+   rank's step wall and peak allocation.  Needs four cards.
 
 ``--steps`` runs the steps named (all by default; step 3 runs step 2, its
 reference).  Prints the cards' name and power limit; exits non-zero on a mismatch or
@@ -114,8 +125,8 @@ def main() -> int:
         return _live_reference(sys.argv[2])
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, nargs="+", default=[1, 2, 3, 4, 5, 6],
-                    choices=range(1, 7))
+    ap.add_argument("--steps", type=int, nargs="+",
+                    default=[1, 2, 3, 4, 5, 6, 7], choices=range(1, 8))
     steps = set(ap.parse_args().steps)
     if 3 in steps:
         steps.add(2)
@@ -130,14 +141,19 @@ def main() -> int:
     print(f"[card] {stamp}; {torch.cuda.device_count()} cards; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
+    if 7 in steps and torch.cuda.device_count() < 4:
+        print(f"[fail] {torch.cuda.device_count()} CUDA cards: step 7's "
+              f"(2, 2) mesh needs four", file=sys.stderr)
+        return 1
     build(["gather", "segment_agg", "fused_gather_agg"] +
-          (["flash_attention", "flash_attention_bwd"] if 6 in steps else []))
+          (["flash_attention", "flash_attention_bwd"]
+           if steps & {6, 7} else []))
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join([str(ROOT / "src"),
                                           os.environ.get("PYTHONPATH", "")])}
     for step, run in ((1, _launcher), (2, _group_run), (4, _collectives),
-                      (5, _live), (6, _pipeline)):
+                      (5, _live), (6, _pipeline), (7, _sharded)):
         if step in steps:
             run(torch, cs, stamp, env, steps)
     print(f"[card] {stamp}")
@@ -276,6 +292,12 @@ def _live(torch, cs, stamp, env, steps):
 def _pipeline(torch, cs, stamp, env, steps):
     """6. phase 18 over 2 nccl ranks, a card each."""
     cs.phase_pipeline(torch, stamp, "nccl", ("cuda:0", "cuda:1"))
+
+
+def _sharded(torch, cs, stamp, env, steps):
+    """7. phase 19 (b) over 4 nccl ranks as a (2, 2) mesh."""
+    cs.phase_sharded(torch, stamp, tuple(f"cuda:{r}" for r in range(4)),
+                     "nccl", {**cs.SHARDED_LM, "mesh": (2, 2)}, cells=False)
 
 
 if __name__ == "__main__":

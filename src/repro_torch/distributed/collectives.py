@@ -20,11 +20,18 @@ calls none of them.  ``broadcast_object`` runs over any ``GroupMesh``,
 the world's (``GroupMesh.world``) included.  No reduction runs inside the
 transport (``all_reduce(SUM)``'s ring and tree orders are not member
 order); only ``compressed_psum_int8``'s max, which is exact, does.
+
+``CollectiveTraffic`` counts the collectives the sharded LM step issues
+(DTensor's functional collectives), by op and bytes, with the JAX
+package's volume model: the dry-run's ``collective_bytes_per_device``
+(launch/dryrun.py) and a real rank's own traffic (launch/group.py) read
+the same counter.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, List
+from collections import defaultdict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -303,3 +310,105 @@ def _group_exchange(mesh: GroupMesh):
         halo_feats[r] = rows
         return halo_feats, _volume(plan, feat_dim)
     return exchange
+
+
+# ---------------------------------------------------------------------------
+# The traffic of the sharded step
+# ---------------------------------------------------------------------------
+
+# DTensor's functional collectives → the JAX package's op names, each with
+# its volume factor (``src/repro/launch/dryrun.py:62-69``: result bytes,
+# twice for a reduction; ring algorithms, (n-1)/n taken as 1)
+_TRAFFIC_OPS = {
+    "all_gather_into_tensor": ("all-gather", 1),
+    "all_gather_into_tensor_coalesced": ("all-gather", 1),
+    "all_reduce": ("all-reduce", 2),
+    "all_reduce_coalesced": ("all-reduce", 2),
+    "reduce_scatter_tensor": ("reduce-scatter", 2),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", 2),
+    "all_to_all_single": ("all-to-all", 1),
+    "shard_dim_alltoall": ("all-to-all", 1),
+}
+
+
+def _group_size(func, args) -> int:
+    """The size of the group a functional collective runs over (its last
+    argument names it)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = args[-1]
+    if isinstance(name, str):
+        return _resolve_process_group(name).size()
+    return name.size()
+
+
+class CollectiveTraffic:
+    """Counts, while entered, the functional collectives that DTensor
+    issues beneath it, by the JAX package's op names: ``per_op`` {op:
+    bytes} and ``counts`` {op: calls}, ``total`` their sum.  An op's bytes
+    are its result's, twice for ``all-reduce`` and ``reduce-scatter``; a
+    collective over a group of one moves nothing and is not counted.  A
+    ``TorchDispatchMode`` that lets DTensor run first (it returns
+    ``NotImplemented`` to a DTensor), so it sees the collectives of the
+    redistributions DTensor makes.  With ``sites``, ``summary()`` also
+    lists every collective with the port's innermost frames that issued it
+    (``sites``: op, bytes, shape, dtype, ``at``)."""
+
+    def __init__(self, sites: bool = False):
+        self.per_op: Dict[str, int] = defaultdict(int)
+        self.counts: Dict[str, int] = defaultdict(int)
+        self.sites: Optional[list] = [] if sites else None
+        self._mode = None
+
+    @property
+    def total(self) -> int:
+        return sum(self.per_op.values())
+
+    def summary(self) -> dict:
+        out = {"per_op": dict(self.per_op), "counts": dict(self.counts),
+               "total": self.total}
+        if self.sites is not None:
+            out["sites"] = self.sites
+        return out
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        counter = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(t.__name__ == "DTensor" for t in types):
+                    return NotImplemented
+                out = func(*args, **(kwargs or {}))
+                counter._saw(func, args, out)
+                return out
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self._mode = None
+        return False
+
+    def _saw(self, func, args, out):
+        ns = func.namespace
+        if ns not in ("_c10d_functional", "_dtensor"):
+            return
+        kind = _TRAFFIC_OPS.get(func._opname)
+        if kind is None or _group_size(func, args) <= 1:
+            return
+        op, factor = kind
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        nbytes = factor * sum(o.numel() * o.element_size() for o in outs)
+        self.per_op[op] += nbytes
+        self.counts[op] += 1
+        if self.sites is not None:
+            import traceback
+            at = [f"{f.filename.split('repro_torch/')[-1]}:{f.lineno} "
+                  f"{f.name}" for f in traceback.extract_stack()
+                  if "repro_torch/" in f.filename
+                  and not f.filename.endswith("distributed/collectives.py")]
+            self.sites.append({"op": op, "bytes": nbytes,
+                               "shape": list(outs[0].shape),
+                               "dtype": str(outs[0].dtype).split(".")[-1],
+                               "at": at[-3:]})

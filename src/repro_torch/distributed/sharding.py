@@ -14,16 +14,26 @@ resolves them against a mesh's axis names and sizes, per architecture:
   * ``kvseq``  → ``model`` when the config selects sequence-sharded KV
     (``kv_shard == "sequence"``, or ``auto`` with kv heads indivisible).
 
-The port places nothing by these specs: it runs on one card, and the
-specs serve the dry-run's accounting (launch/dryrun.py), which sizes each
-device's share of every tensor.  So ``constrain`` is an identity and
-``shardings_of`` returns the spec tree (there is no ``NamedSharding``).
-``P`` stands in for JAX's ``PartitionSpec``; two specs are equal when they
-agree with trailing ``None``s dropped and a one-name tuple read as the
-name.  The mesh is any of ``launch/mesh.py``'s (``axis_sizes``).
+The specs serve two things.  The dry-run's memory accounting
+(launch/dryrun.py) sizes each device's share of every tensor by them
+(``shard_bytes``).  And the sharded LM step places its tensors by them as
+``torch.distributed.tensor`` DTensors, PyTorch's counterpart of JAX's
+``NamedSharding``: ``placements`` turns a physical spec into DTensor
+placements over a ``DeviceMesh`` with the mesh's axis names (a mesh axis
+named in dim i is ``Shard(i)``; ``("pod", "data")`` on one dim is
+``Shard(i)`` on both), and ``constrain`` is JAX's
+``with_sharding_constraint``: inside a ``shard_ctx`` that holds a
+``DeviceMesh``, a DTensor is redistributed to the spec's placements.  On a
+plain tensor, or with no ``DeviceMesh`` installed, ``constrain`` is an
+identity, so the one-card paths run as they are.  ``shardings_of`` returns
+the spec tree.  ``P`` stands in for JAX's ``PartitionSpec``; two specs are
+equal when they agree with trailing ``None``s dropped and a one-name tuple
+read as the name.  The mesh is any of ``launch/mesh.py``'s
+(``axis_sizes``).
 """
 from __future__ import annotations
 
+from contextlib import ExitStack
 from typing import Any, Dict, Optional
 
 from repro_torch.launch.mesh import axis_sizes
@@ -186,39 +196,98 @@ def shard_bytes(shape, dtype_size: int, spec: P, mesh) -> int:
     return n
 
 
+def placements(spec: P, device_mesh) -> tuple:
+    """A physical spec as DTensor placements over ``device_mesh``, one a
+    mesh dim: ``Shard(i)`` where dim i names the mesh axis (alone or in a
+    tuple), ``Replicate()`` where no dim does or the axis has size 1 (a
+    one-wide axis holds the whole dim, as in JAX)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, ax in enumerate(spec):
+        for a in ax if isinstance(ax, tuple) else (ax,):
+            if a is not None and device_mesh.size(names.index(a)) > 1:
+                out[names.index(a)] = Shard(i)
+    return tuple(out)
+
+
+def shard_axis(x, dim: int):
+    """The first mesh dim on which the DTensor ``x`` is sharded along its
+    dim ``dim``, or None."""
+    for j, pl in enumerate(x.placements):
+        if pl.is_shard(dim):
+            return j
+    return None
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor`` (without
+    importing the DTensor package for a plain tensor)."""
+    return type(x).__name__ == "DTensor" and hasattr(x, "placements")
+
+
 # ---------------------------------------------------------------------------
 # Sharding context: the mesh and rules the model code reads (``ctx_dp_size``
-# groups the MoE's tokens by it).  Unset, every size is 1.
+# groups the MoE's tokens by it; ``constrain`` places DTensors by it).
+# Unset, every size is 1 and ``constrain`` does nothing.
 # ---------------------------------------------------------------------------
 
 class _ShardCtx:
     mesh: Optional[Any] = None
     rules: Optional[Dict[str, Any]] = None
+    device_mesh: Optional[Any] = None
 
 
 _CTX = _ShardCtx()
 
 
 class shard_ctx:
-    """Context manager installing (mesh, rules) for ``ctx_dp_size``."""
+    """Context manager installing (mesh, rules) for ``ctx_dp_size`` and,
+    with a ``device_mesh`` (a ``DeviceMesh`` of ``mesh``'s axis names and
+    sizes), the mesh ``constrain`` places DTensors on.  With a
+    ``device_mesh`` it also enters DTensor's ``implicit_replication``, so
+    the tensors the model makes itself (RoPE tables, masks, positions) act
+    as replicated operands beside the DTensors."""
 
-    def __init__(self, cfg, mesh):
+    def __init__(self, cfg, mesh, device_mesh=None):
         self.mesh = mesh
         self.rules = make_rules(cfg, mesh)
+        self.device_mesh = device_mesh
+        if device_mesh is not None and \
+                axis_sizes(mesh) != axis_sizes(device_mesh):
+            raise ValueError(f"device mesh {axis_sizes(device_mesh)} is not "
+                             f"the mesh {axis_sizes(mesh)}")
 
     def __enter__(self):
-        self._saved = (_CTX.mesh, _CTX.rules)
+        self._saved = (_CTX.mesh, _CTX.rules, _CTX.device_mesh)
         _CTX.mesh, _CTX.rules = self.mesh, self.rules
+        _CTX.device_mesh = self.device_mesh
+        self._stack = ExitStack()
+        if self.device_mesh is not None:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            self._stack.enter_context(implicit_replication())
         return self
 
     def __exit__(self, *exc):
-        _CTX.mesh, _CTX.rules = self._saved
+        self._stack.close()
+        _CTX.mesh, _CTX.rules, _CTX.device_mesh = self._saved
         return False
 
 
 def constrain(x, *logical_axes):
-    """An identity: the port places no tensor by a spec."""
-    return x
+    """JAX's ``constrain``: inside a ``shard_ctx`` with a ``DeviceMesh``, a
+    DTensor ``x`` redistributed to the placements of its logical spec
+    (resolved by the context's rules, any dim the mesh does not divide
+    replicated); anything else returned as it is."""
+    if _CTX.device_mesh is None or not is_dtensor(x):
+        return x
+    spec = enforce_divisible(resolve_spec(P(*logical_axes), _CTX.rules),
+                             x.shape, _CTX.mesh)
+    want = placements(spec, _CTX.device_mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(_CTX.device_mesh, want)
 
 
 def ctx_dp_size() -> int:

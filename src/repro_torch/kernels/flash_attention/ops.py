@@ -44,6 +44,19 @@ autodiff, which is what XLA counts; ``_forward`` and
 ``flash_attention.launches`` counts forward kernel launches,
 ``flash_attention_bwd.launches`` backward ones (one a call: the C entry
 launches its two kernels), and nothing else.
+
+Sharded (the sharded LM step): DTensor ``q, k, v`` run per shard under
+``local_map``, each rank's call on its own batch rows and heads, so the
+attention moves no data (Megatron's head-parallel attention): q keeps its
+placements (batch on the ``dp`` axes, heads on the ``model`` axis where
+they divide it, else replicated); k and v follow q's batch placements and
+are sharded on heads alongside q's where the kv heads divide that axis.
+Where they do not (``tp_kv`` resolves to replicated), each rank holds
+every kv head and takes the ones its q heads read: a slice where its q
+heads cover whole GQA groups or lie in one, else one kv head per q head;
+their gradient is then a partial sum over that axis.  On the card each
+rank's call launches the kernels at its own head counts (e.g. 12 q and 4
+kv heads of llama3.2-3b's 24 and 8 on a 2-wide axis).
 """
 from __future__ import annotations
 
@@ -52,6 +65,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 
@@ -217,11 +231,71 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _kv_for_heads(k, v, h0: int, Hl: int, group: int):
+    """The kv heads local q heads h0..h0+Hl-1 read (head h reads kv head
+    h // group), laid out so that local head i reads local kv head
+    i // (Hl // kv heads): a slice where the q heads cover whole groups or
+    lie in one, else one kv head per q head."""
+    if Hl % group == 0 or group % Hl == 0:
+        a = h0 // group
+        b = (h0 + Hl - 1) // group + 1
+        return k[:, :, a:b].contiguous(), v[:, :, a:b].contiguous()
+    idx = torch.div(torch.arange(h0, h0 + Hl, device=k.device), group,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _sharded(q, k, v, causal: bool):
+    """``flash_attention`` of DTensors, per shard (see the module
+    docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    q_in, kv_in, kv_grad = [], [], []
+    head_axis = None
+    for j, pl in enumerate(q.placements):
+        n = mesh.size(j)
+        if pl.is_shard(0):
+            q_in.append(Shard(0))
+            kv_in.append(Shard(0))
+            kv_grad.append(Shard(0))
+        elif pl.is_shard(2) and head_axis is None and H % n == 0:
+            q_in.append(Shard(2))
+            if Hkv % n == 0:
+                kv_in.append(Shard(2))
+                kv_grad.append(Shard(2))
+            else:
+                head_axis = j
+                kv_in.append(Replicate())
+                kv_grad.append(Partial())
+        else:
+            q_in.append(Replicate())
+            kv_in.append(Replicate())
+            kv_grad.append(Replicate())
+    h0 = (0 if head_axis is None
+          else mesh.get_local_rank(head_axis) * (H // mesh.size(head_axis)))
+
+    def local(ql, kl, vl):
+        ql = ql.contiguous()
+        if head_axis is not None:
+            kl, vl = _kv_for_heads(kl, vl, h0, ql.shape[2], H // Hkv)
+        return flash_attention(ql, kl.contiguous(), vl.contiguous(), causal)
+    q_in, kv_in, kv_grad = tuple(q_in), tuple(kv_in), tuple(kv_grad)
+    return local_map(local, out_placements=list(q_in),
+                     in_placements=(q_in, kv_in, kv_in),
+                     in_grad_placements=(q_in, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def flash_attention(q, k, v, causal: bool = True):
     """q (B, S, H, Dh), k/v (B, S, Hkv, Dh) → (B, S, H, Dh) in q's dtype.
     Differentiable through ``FlashAttention`` when grad is enabled and an
     input requires it; otherwise the forward alone, with no log-sum-exp.
-    On ``meta``, the plain version under ordinary autograd."""
+    On ``meta``, the plain version under ordinary autograd; DTensors run
+    per shard (``_sharded``)."""
+    if is_dtensor(q):
+        return _sharded(q, k, v, causal)
     if q.device.type == "meta":
         _check(q, k, v)
         return flash_attention_ref(q, k, v, causal)

@@ -35,17 +35,33 @@ tensor or touching a device:
    ``flops_per_device`` is that total over ``n_devices``: it counts no
    replicated work (XLA counts what each device runs, replicas included).
 
+4. COLLECTIVES: ``collective_bytes_per_device`` and ``per_op`` are the
+   traffic of the port's own sharded step, not XLA's: the kind's step
+   (train: the loss, its backward, each gradient redistributed to its
+   parameter's placements, the clipped AdamW update and the replicated
+   metrics, ``train/trainer.make_train_step``; prefill; decode, its
+   outputs placed as JAX's ``out_shardings`` place them) run on ``meta``
+   DTensors placed by ``physical_specs`` over ``fake_production_mesh``
+   (a ``fake`` group of 256 or 512 ranks, in a child process of its own:
+   ``CollectiveTracer``), and every functional collective DTensor issues
+   counted by ``distributed/collectives.CollectiveTraffic`` with the JAX
+   package's volume model: the result's bytes for ``all-gather`` and
+   ``all-to-all``, twice them for ``all-reduce`` and ``reduce-scatter``,
+   nothing over a one-wide axis.  The two depth probes are extrapolated
+   as the FLOPs are.  ``per_op`` has the JAX package's op names; DTensor
+   issues no ``collective-permute``.  Under ``remat`` the recompute
+   re-issues the forward's gathers, and they are counted.  The families
+   in ``COLLECTIVE_FAMILIES`` are counted; any other keeps ``null``.
+
 The JSON has the keys of the JAX package's ``run_cell``.  The fields that
 only XLA's compile gives are ``null``: ``t_compile_s``,
 ``memory.temp_bytes`` and ``memory.peak_device_bytes`` (the compiler's
 buffer assignment), ``cost.bytes_per_device`` and ``cost.transcendentals``
-(its cost analysis), ``cost.raw_full_flops_scanned`` (the count of the
-scanned full-depth program) and the collective traffic,
-``cost.collective_bytes_per_device`` and ``cost.per_op`` (read from the
-partitioned HLO by the JAX package's ``parse_collectives``, which has no
-counterpart here).  ``t_lower_s`` is the host seconds of building the
-inputs and resolving every spec, ``t_probe_s`` those of the two traced
-probes.
+(its cost analysis) and ``cost.raw_full_flops_scanned`` (the count of the
+scanned full-depth program).  ``t_lower_s`` is the host seconds of
+building the inputs and resolving every spec, ``t_probe_s`` those of the
+two traced FLOP probes, ``t_collectives_s`` those of the two collective
+traces.
 
 Results are written as JSON under ``build/dryrun/<mesh>/``.
 
@@ -69,11 +85,14 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import (SHAPES_BY_NAME, applicable_shapes,
                                  get_config, list_archs)
+from repro_torch.distributed.collectives import CollectiveTraffic
 from repro_torch.distributed.sharding import (P, enforce_divisible,
                                               make_rules, physical_specs,
-                                              resolve_spec, shard_bytes,
-                                              shard_ctx)
-from repro_torch.launch.mesh import make_production_mesh
+                                              placements, resolve_spec,
+                                              shard_bytes, shard_ctx)
+from repro_torch.launch.mesh import (axis_sizes, fake_device_mesh,
+                                     make_production_mesh,
+                                     release_fake_group)
 from repro_torch.models.api import build
 from repro_torch.models.params import (abstract_params, leaves,
                                        param_count, unflatten)
@@ -81,6 +100,10 @@ from repro_torch.train.optimizer import get_optimizer
 
 ART_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 METRICS = 3                 # loss, grad_norm, aux: f32 scalars
+# the families whose sharded step the collective trace counts
+COLLECTIVE_FAMILIES = ("dense", "moe", "vlm")
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter",
+                  "all-to-all", "collective-permute")
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +286,189 @@ def count_flops(cfg, shape, mesh) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Collectives: the sharded step traced on meta DTensors over a fake group
+# ---------------------------------------------------------------------------
+
+def meta_dtensor(shape, dtype, spec: P, device_mesh):
+    """A ``meta`` DTensor of the global ``shape`` laid out by the physical
+    ``spec`` (which divides it) over ``device_mesh``."""
+    from torch.distributed.tensor import DTensor
+    pl = placements(spec, device_mesh)
+    local = list(shape)
+    for j, p in enumerate(pl):
+        if p.is_shard():
+            local[p.dim] //= device_mesh.size(j)
+    full = torch.empty(shape, dtype=dtype, device="meta")
+    return DTensor.from_local(torch.empty(local, dtype=dtype, device="meta"),
+                              device_mesh, pl, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
+def _meta_tree(decls, cfg, mesh, device_mesh, dtype=None):
+    specs = leaves(physical_specs(decls, cfg, mesh))
+    return unflatten(decls, [meta_dtensor(d.shape, dtype or d.dtype, s,
+                                          device_mesh)
+                             for d, s in zip(leaves(decls), specs)])
+
+
+def _place(t, spec: P, mesh, device_mesh):
+    """A DTensor ``t`` redistributed to ``spec`` (made divisible)."""
+    spec = enforce_divisible(spec, t.shape, mesh)
+    return t.redistribute(device_mesh, placements(spec, device_mesh))
+
+
+def trace_step(cfg, shape, mesh, device_mesh, sites: bool = False) -> dict:
+    """The collectives of the cell's sharded step at ``cfg``'s depth, one
+    device's, traced on ``meta`` DTensors over ``device_mesh`` (a
+    ``DeviceMesh`` of ``mesh``'s axes): ``CollectiveTraffic.summary()``
+    (with each collective's call site where ``sites``)."""
+    from repro_torch.train.trainer import make_train_step
+    model = build(cfg)
+    rules = make_rules(cfg, mesh)
+    spec = model.input_specs(shape)
+    pdt = getattr(torch, cfg.param_dtype)
+    with shard_ctx(cfg, mesh, device_mesh), \
+            CollectiveTraffic(sites) as traffic:
+        params = _meta_tree(model.decls, cfg, mesh, device_mesh, pdt)
+        batch = {k: meta_dtensor(t.shape, t.dtype, enforce_divisible(
+                     resolve_spec(spec["batch_specs"][k], rules), t.shape,
+                     mesh), device_mesh)
+                 for k, t in spec["batch"].items()}
+        if spec["kind"] == "train":
+            opt = get_optimizer(cfg)
+            state = _meta_tree(opt.state_decls(model.decls), cfg, mesh,
+                               device_mesh)
+            state["count"] = 0
+            step, _ = make_train_step(model, cfg, opt,
+                                      grad_accum=getattr(cfg, "grad_accum",
+                                                         1))
+            step(params, state, batch)
+        else:
+            logit_spec = resolve_spec(P("dp", None), rules)
+            with torch.no_grad():
+                if spec["kind"] == "prefill":
+                    cdecls = model.cache_decls(shape.global_batch,
+                                               shape.seq_len)
+                    logits, caches = model.prefill(params, batch)
+                else:
+                    cdecls = spec["cache_decls"]
+                    caches = _meta_tree(cdecls, cfg, mesh, device_mesh)
+                    logits, caches = model.decode(params, caches, batch)
+                _place(logits, logit_spec, mesh, device_mesh)
+                for c, s in zip(leaves(caches),
+                                leaves(physical_specs(cdecls, cfg, mesh))):
+                    _place(c, s, mesh, device_mesh)
+    return traffic.summary()
+
+
+def _tracer_main(conn):
+    """The child of ``CollectiveTracer``: traces each (cfg, shape, mesh)
+    it is sent on a fake group of the mesh's size."""
+    try:
+        while True:
+            job = conn.recv()
+            if job is None:
+                break
+            cfg, shape, mesh, sites = job
+            try:
+                t0 = time.perf_counter()
+                res = trace_step(cfg, shape, mesh, fake_device_mesh(mesh),
+                                 sites)
+                res["seconds"] = time.perf_counter() - t0
+                conn.send(("ok", res))
+            except Exception as e:  # noqa: BLE001 — the parent raises it
+                conn.send(("error", f"{type(e).__name__}: {e}\n"
+                                    f"{traceback.format_exc()[-3000:]}"))
+    finally:
+        release_fake_group()
+        conn.close()
+
+
+class CollectiveTracer:
+    """A child process (``spawn``) that owns the dry-run's fake group and
+    traces cells' steps on it: ``count(cfg, shape, mesh)``.  The group is
+    global state, so it never lives in the caller's process; one child
+    serves a whole sweep (each trace's first ops pay DTensor's one-time
+    set-up)."""
+
+    timeout = 900.0                 # seconds a trace may take
+
+    def __init__(self):
+        self._proc = None           # started by the first ``count``
+
+    def _start(self):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_tracer_main, args=(child,),
+                                 name="collective tracer", daemon=True)
+        self._proc.start()
+        child.close()
+
+    def count(self, cfg, shape, mesh, sites: bool = False) -> dict:
+        if self._proc is None:
+            self._start()
+        self._conn.send((cfg, shape, mesh, sites))
+        if not self._conn.poll(self.timeout):
+            self._proc.kill()
+            self.close()
+            raise TimeoutError(f"no collective trace of {cfg.name} on "
+                               f"{axis_sizes(mesh)} after {self.timeout} s")
+        status, res = self._conn.recv()
+        if status != "ok":
+            raise RuntimeError(f"collective trace failed: {res}")
+        return res
+
+    def close(self):
+        if self._proc is None:
+            return
+        try:
+            self._conn.send(None)
+        except (BrokenPipeError, OSError):
+            pass
+        self._proc.join(30)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join()
+        self._conn.close()
+        self._proc = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def count_collectives(cfg, shape, mesh, tracer=None,
+                      sites: bool = False) -> dict:
+    """One device's collective traffic of the cell's sharded step at
+    ``cfg``'s depth (``trace_step``), traced in a child process
+    (``tracer``'s, else a new one's): ``{"per_op": {op: bytes}, "counts":
+    {op: calls}, "total": bytes, "seconds": host seconds of the trace}``,
+    and where ``sites`` each collective's call site (``sites``)."""
+    if tracer is not None:
+        return tracer.count(cfg, shape, mesh, sites)
+    with CollectiveTracer() as t:
+        return t.count(cfg, shape, mesh, sites)
+
+
+def collectives(cfg, shape, mesh, tracer=None) -> dict:
+    """The cell's collective traffic at full depth: the two depth probes
+    traced and extrapolated, per op (``_extrapolate``)."""
+    (cfg1, u1), (cfg2, u2), uf = depth_probe_cfgs(cfg)
+    c1 = count_collectives(cfg1, shape, mesh, tracer)
+    c2 = count_collectives(cfg2, shape, mesh, tracer)
+    ops = sorted(set(c1["per_op"]) | set(c2["per_op"]))
+    per_op = {op: _extrapolate(c1["per_op"].get(op, 0),
+                               c2["per_op"].get(op, 0), u1, u2, uf)
+              for op in ops}
+    return {"per_op": per_op, "total": sum(per_op.values()),
+            "probes": [c1, c2], "seconds": c1["seconds"] + c2["seconds"]}
+
+
+# ---------------------------------------------------------------------------
 # One cell
 # ---------------------------------------------------------------------------
 
@@ -286,7 +492,11 @@ def account(cfg, shape, mesh) -> dict:
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
-             overrides: dict | None = None, tag: str = ""):
+             overrides: dict | None = None, tag: str = "", tracer=None,
+             collectives_too: bool = True):
+    """The cell's JSON; its collective traffic is traced by ``tracer``
+    (a ``CollectiveTracer``; a new one for this cell if None) where the
+    family is in ``COLLECTIVE_FAMILIES`` and ``collectives_too``."""
     cfg = get_config(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
@@ -302,12 +512,17 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     acc = account(cfg, shape, mesh)
     mem = acc["mem"]
     kind = model.input_specs(shape)["kind"]
+    coll = (collectives(cfg, shape, mesh, tracer)
+            if collectives_too and cfg.family in COLLECTIVE_FAMILIES
+            else None)
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "tag": tag,
         "kind": kind, "skipped": False,
         "n_devices": n_dev,
         "t_lower_s": round(acc["t_lower_s"], 2), "t_compile_s": None,
         "t_probe_s": round(acc["t_probe_s"], 2),
+        "t_collectives_s": None if coll is None else round(coll["seconds"],
+                                                           2),
         "params_total": param_count(model.decls),
         "params_active": cfg.active_param_count(),
         "param_bytes_dtype": getattr(torch, cfg.param_dtype).itemsize,
@@ -326,8 +541,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             "product_flops_per_device": acc["product_flops"] / n_dev,
             "bytes_per_device": None,
             "transcendentals": None,
-            "collective_bytes_per_device": None,
-            "per_op": None,
+            "collective_bytes_per_device": (None if coll is None
+                                            else coll["total"]),
+            "per_op": None if coll is None else coll["per_op"],
             "raw_full_flops_scanned": None,
             "probe_depths": acc["probe_depths"],
             "full_depth_units": acc["full_depth_units"],
@@ -387,6 +603,13 @@ def main(argv=None):
     if not archs:
         ap.error("pass --arch or --all")
 
+    with CollectiveTracer() as tracer:
+        done, failed = _sweep(args, archs, shapes, meshes, overrides, tracer)
+    print(f"done={done} failed={failed}")
+    return 0 if failed == 0 else 1
+
+
+def _sweep(args, archs, shapes, meshes, overrides, tracer):
     done, failed = 0, 0
     for mesh_kind in meshes:
         for arch in archs:
@@ -398,7 +621,7 @@ def main(argv=None):
                 print(f"[run] {mesh_kind}/{arch}/{shape} ...", flush=True)
                 try:
                     res = run_cell(arch, shape, mesh_kind,
-                                   overrides or None, args.tag)
+                                   overrides or None, args.tag, tracer)
                 except Exception as e:  # noqa: BLE001 — sweep must continue
                     res = {"arch": arch, "shape": shape, "mesh": mesh_kind,
                            "tag": args.tag,
@@ -414,13 +637,15 @@ def main(argv=None):
                         print("  skipped:", res["reason"], flush=True)
                     else:
                         c, m = res["cost"], res["memory"]
+                        coll = c["collective_bytes_per_device"]
+                        coll = ("null" if coll is None
+                                else f"{coll / 2**20:.1f}MiB")
                         print(f"  ok: params={res['params_total']} "
                               f"probe={res['t_probe_s']}s "
                               f"flops/dev={c['flops_per_device']:.3e} "
-                              f"args={m['argument_bytes'] / 2**30:.2f}GiB",
-                              flush=True)
-    print(f"done={done} failed={failed}")
-    return 0 if failed == 0 else 1
+                              f"args={m['argument_bytes'] / 2**30:.2f}GiB "
+                              f"coll={coll}", flush=True)
+    return done, failed
 
 
 if __name__ == "__main__":

@@ -11,20 +11,64 @@ multi-partition trainer and the collectives run one partition a process.
 
 ``nccl`` takes one card per rank (it refuses two ranks on one card);
 ``gloo`` runs on the CPU, and its ranks may share one card for their
-tensors while their collectives' buffers pass through the host.  The
-caller names the backend: nothing here falls back from one to the other.
+tensors while their collectives' buffers pass through the host.  Where
+the collectives are issued on card tensors (DTensor's, the sharded LM
+step), ``gloo-host`` carries them: a ``gloo`` group whose functional
+collectives on card tensors run gloo's collective on a host copy of the
+buffer (``stage_collectives_through_host``; this PyTorch's gloo faults
+on card tensors).  Such a run checks what a step computes; its walls time
+the host copies, not the step.  The caller names the backend: nothing
+here falls back from one to the other.
 
 A rank that raises exits non-zero with its traceback on stderr; the
 parent then stops every other rank and raises, so the run fails.
+
+Rank code: ``collectives_rank`` (every group collective),
+``pipeline_rank`` (the GPipe pipeline) and ``sharded_lm_rank`` (the LM
+train step sharded as DTensors on a (data, model) mesh of the group);
+each is, outside a group, the reference it is held to.
 """
 from __future__ import annotations
 
+import math
 import pickle
 import queue
 import shutil
 import tempfile
 import time
 from typing import Any, Callable, List, Optional, Sequence
+
+
+HOST_STAGED = "gloo-host"
+# the functional collectives DTensor issues
+_STAGED_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+               "all_to_all_single")
+_STAGED_LIBS: list = []
+
+
+def stage_collectives_through_host():
+    """Give DTensor's functional collectives (``torch.ops._c10d_functional``
+    ``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+    ``all_to_all_single``) a kernel for card tensors that runs the
+    collective on a host copy of the input, over this process's ``gloo``
+    group, and copies the result back to the input's card: the transport
+    of the ``gloo-host`` backend.  Only the collective's buffer passes
+    through the host (gloo itself faults on card tensors in this
+    PyTorch); every other op stays on the card.  Once a process."""
+    if _STAGED_LIBS:
+        return
+    import torch
+    ops = torch.ops._c10d_functional
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+
+    def staged(op):
+        def kernel(t, *args):
+            out = ops.wait_tensor(op(t.detach().to("cpu"), *args))
+            return out.to(t.device)
+        return kernel
+    for name in _STAGED_OPS:
+        lib.impl(name, staged(getattr(ops, name).default), "CUDA")
+    _STAGED_LIBS.append(lib)
 
 
 def _rank_main(rank: int, fn: Callable, args: tuple, backend: str,
@@ -34,7 +78,10 @@ def _rank_main(rank: int, fn: Callable, args: tuple, backend: str,
     device = torch.device(devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
+    if backend == HOST_STAGED:
+        stage_collectives_through_host()
+    dist.init_process_group("gloo" if backend == HOST_STAGED else backend,
+                            init_method=init_method, rank=rank,
                             world_size=len(devices))
     out = fn(rank, device, *args)
     results.put((rank, pickle.dumps(out)))
@@ -366,3 +413,208 @@ def pipeline_rank(rank: int, device, inputs: dict) -> dict:
                  if k in want and want[k] != d)
     res["differs"] = (bad[0], values[bad[0]].cpu()) if bad else None
     return res
+
+
+def lm_config(spec: dict):
+    """The config of a sharded-step run: ``arch`` (``smoke``) at
+    ``num_layers``, ``dtype`` its parameter and compute dtype, and any
+    further ``overrides``."""
+    from repro_torch.configs import get_config
+    dtype = spec.get("dtype", "float32")
+    return get_config(spec["arch"], smoke=spec.get("smoke", False)).replace(
+        num_layers=spec["num_layers"], param_dtype=dtype, compute_dtype=dtype,
+        **spec.get("overrides", {}))
+
+
+def _fan_in(name: str, shape) -> int:
+    """The whole fan-in of a (layer-stacked) weight: the dims its input
+    contracts (q/k/v: d_model; wo: heads x head_dim; the tied embedding as
+    the unembedding: d_model; every other: the dim before the last)."""
+    dims = {"wq": (-3,), "wk": (-3,), "wv": (-3,), "wo": (-3, -2),
+            "tok": (-1,)}.get(name.rsplit("/", 1)[-1], (-2,))
+    return math.prod(shape[d] for d in dims)
+
+
+def lm_setup(spec: dict, device):
+    """``(cfg, model, params, batch)`` of a sharded-step run on
+    ``device``: the config (``arch``, ``smoke``, ``num_layers`` and
+    ``dtype``, the parameter and compute dtype), the full parameters
+    (``params``, a numpy tree such as JAX's converted, else ``init_params``
+    drawn from a CPU generator seeded ``seed``) and the batch (``tokens``
+    and ``targets`` (B, S) numpy, else drawn from ``seed``: ``batch``,
+    ``seq``).  ``init: "fan_in"`` redraws the seeded weights tame: each
+    projection N(0, 1 / its whole fan-in), the (tied) embedding N(0, 1 /
+    d_model), where ``init_params``, as JAX's, reads a fan-in from the dim
+    before the last only (the attention's heads) and draws the embedding
+    N(0, 1), which makes a seeded stack chaotic."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.api import build
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.params import init_params, leaves, tree_map
+    dtype = spec.get("dtype", "float32")
+    cfg = lm_config(spec)
+    model = build(cfg)
+    if "params" in spec:
+        params = tree_map(lambda t: t.to(getattr(torch, dtype)),
+                          params_from_jax(spec["params"], device))
+    else:
+        params = init_params(model.decls,
+                             torch.Generator().manual_seed(spec["seed"]),
+                             device, dtype_override=getattr(torch, dtype))
+    if spec.get("init") == "fan_in":
+        for (name, t), d in zip(named_leaves(params).items(),
+                                leaves(model.decls)):
+            if d.init in ("scaled", "normal") and t.dim() >= 2:
+                now = d.scale / (math.sqrt(d.shape[-2])
+                                 if d.init == "scaled" else 1.0)
+                t.mul_(1.0 / (now * math.sqrt(_fan_in(name, t.shape))))
+    if "tokens" in spec:
+        tokens, targets = (torch.from_numpy(np.asarray(spec[k])).to(device)
+                           for k in ("tokens", "targets"))
+    else:
+        g = torch.Generator().manual_seed(spec["seed"] + 1)
+        tokens, targets = (torch.randint(0, cfg.vocab_size,
+                                         (spec["batch"], spec["seq"]),
+                                         generator=g, dtype=torch.int32)
+                           .to(device) for _ in range(2))
+    return cfg, model, params, {"tokens": tokens, "targets": targets}
+
+
+def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
+    """The LM train step sharded over a ``(data, model)`` mesh (``spec
+    ["mesh"]``: its sizes), for the checks that hold it to the unsharded
+    step.
+
+    Inside a group of the mesh's size: a ``DeviceMesh`` over it
+    (``launch/mesh.device_mesh``), the full weights and batch of
+    ``lm_setup`` and the optimizer's initial state placed as DTensors
+    (``models/convert.distribute_params``, by ``model.decls`` and
+    ``opt.state_decls``; the batch by its ``dp`` spec), then ``steps``
+    (default 2) steps of the config's optimizer
+    of ``train/trainer.make_train_step`` inside ``shard_ctx`` with the
+    ``DeviceMesh``.  Outside a group: the same steps unsharded on plain
+    tensors, under ``shard_ctx`` of an ``AbstractMesh`` of the same shape
+    (so the MoE groups its tokens alike): the reference.
+
+    Returns ``loss`` (the first step's, a float), ``grads`` (the first
+    step's gradients, full tensors by leaf name), ``params`` (after the
+    steps), ``traffic`` (the bytes this rank's collectives moved in the
+    first step, by op: ``CollectiveTraffic.summary()``; empty outside a
+    group), ``launches`` (the ``flash_attention`` forward and backward
+    launches of the first step), ``seconds`` (each step's wall),
+    ``peak_bytes`` (the card's peak allocation, 0 on the CPU) and
+    ``modules``; outside a group also ``moves`` (each leaf's ||params -
+    the parameters before the steps||).  With ``spec["ref"]`` (a file of a
+    reference's ``grads``, ``params`` and ``moves`` saved by
+    ``torch.save``), ``grads`` and ``params`` are replaced by each leaf's
+    relative error against it, so a full-width tree never crosses the
+    result queue: ``grad_err`` ||g - g_ref|| / ||g_ref||, ``param_err``
+    ||p - p_ref|| over the reference's move (an elementwise optimizer moves
+    every element about lr a step, so a max-abs bound on the parameters
+    would only bound a sign flip)."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import CollectiveTraffic
+    from repro_torch.distributed.sharding import (batch_spec,
+                                                  enforce_divisible,
+                                                  is_dtensor, placements,
+                                                  shard_ctx)
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
+    from repro_torch.launch.mesh import AbstractMesh, device_mesh
+    from repro_torch.models.convert import distribute_params, local_shard
+    from repro_torch.models.params import leaves, unflatten
+    from repro_torch.train.trainer import make_train_step, placed_like
+
+    device = torch.device(device)
+    mesh = AbstractMesh(tuple(spec["mesh"]), ("data", "model"))
+    cfg, model, params, batch = lm_setup(spec, device)
+    in_group = dist.is_available() and dist.is_initialized()
+    dm = device_mesh(mesh, device) if in_group else None
+    step, opt = make_train_step(model, cfg)
+    state = opt.init(params)
+    start = None if in_group else {k: t.clone() for k, t in
+                                   named_leaves(params).items()}
+    if in_group:
+        from torch.distributed.tensor import DTensor
+        params = distribute_params(params, model, cfg, dm)
+        sdecls = opt.state_decls(model.decls)
+        state = {k: v if k == "count" else
+                 distribute_params(v, model, cfg, dm, sdecls[k])
+                 for k, v in state.items()}
+        pl = placements(enforce_divisible(batch_spec(cfg, mesh),
+                                          batch["tokens"].shape, mesh), dm)
+        batch = {k: DTensor.from_local(local_shard(t, pl, dm).contiguous(),
+                                       dm, pl, run_check=False,
+                                       shape=t.shape, stride=t.stride())
+                 for k, t in batch.items()}
+    cuda = device.type == "cuda"
+
+    def full(t):
+        return (t.full_tensor() if is_dtensor(t) else t).detach()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with shard_ctx(cfg, mesh, dm):
+        p_l = [p.requires_grad_(True) for p in leaves(params)]
+        loss, _ = model.loss_fn(unflatten(params, p_l), batch)
+        grads = torch.autograd.grad(loss, p_l, allow_unused=True)
+        for p in p_l:
+            p.requires_grad_(False)
+        grads = placed_like([torch.zeros_like(p) if g is None else g
+                             for g, p in zip(grads, p_l)], p_l)
+        grads = {k: full(g) for k, g in
+                 named_leaves(unflatten(params, grads)).items()}
+        loss = float(full(loss))
+        seconds, traffic = [], {}
+        for i in range(spec.get("steps", 2)):
+            f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+            sync()
+            t0 = time.perf_counter()
+            if i == 0:
+                with CollectiveTraffic() as tr:
+                    step(params, state, batch)
+                traffic = tr.summary()
+            else:
+                step(params, state, batch)
+            sync()
+            seconds.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = {"flash_attention": flash_attention.launches - f0,
+                            "flash_attention_bwd":
+                                flash_attention_bwd.launches - b0}
+    after = {k: full(t) for k, t in named_leaves(params).items()}
+    res = {"loss": loss, "traffic": traffic, "launches": launches,
+           "seconds": seconds, "modules": imported_modules(),
+           "peak_bytes": (torch.cuda.max_memory_allocated(device) if cuda
+                          else 0)}
+    if start is not None:
+        res["moves"] = {k: float((t.float() - start[k].float()).norm())
+                        for k, t in after.items()}
+    if "ref" not in spec:
+        res["grads"] = {k: g.cpu() for k, g in grads.items()}
+        res["params"] = {k: t.cpu() for k, t in after.items()}
+        return res
+    ref = torch.load(spec["ref"], map_location=device)
+    res["grad_err"] = {k: _relative(g, ref["grads"][k],
+                                    ref["grads"][k].float().norm())
+                       for k, g in grads.items()}
+    res["param_err"] = {k: _relative(t, ref["params"][k], ref["moves"][k])
+                        for k, t in after.items()}
+    return res
+
+
+def _relative(got, want, over) -> float:
+    """||got - want|| (f32) / ``over``; 0 where they agree."""
+    diff = float((got.float() - want.float()).norm())
+    if not diff:
+        return 0.0
+    return diff / float(over) if float(over) else math.inf

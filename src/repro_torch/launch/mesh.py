@@ -126,11 +126,14 @@ class AbstractMesh:
 
 def axis_sizes(mesh) -> Dict[str, int]:
     """{axis name: size} of an ``AbstractMesh``, a ``HostSimMesh``, a
-    ``GroupMesh`` (their ``shape`` mapping) or any mesh with ``axis_names`` and a
+    ``GroupMesh`` (their ``shape`` mapping), a ``DeviceMesh`` (its
+    ``mesh_dim_names``) or any mesh with ``axis_names`` and a
     ``devices.shape``."""
     shape = getattr(mesh, "shape", None)
     if isinstance(shape, Mapping):
         return dict(shape)
+    if getattr(mesh, "mesh_dim_names", None):
+        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
@@ -145,6 +148,79 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
 def make_host_mesh() -> AbstractMesh:
     """One device, the production mesh's axis names kept."""
     return AbstractMesh((1, 1), ("data", "model"))
+
+
+def _mesh_device_type(device) -> str:
+    """The ``DeviceMesh`` device type for tensors on ``device``: a
+    ``meta`` trace's mesh is a CPU one (its collectives never run)."""
+    kind = torch.device(device).type
+    return "cpu" if kind == "meta" else kind
+
+
+def device_mesh(mesh, device="cuda"):
+    """A ``torch.distributed`` ``DeviceMesh`` with the axis names and sizes
+    of ``mesh`` (an ``AbstractMesh`` or any mesh ``axis_sizes`` reads) over
+    the default group, whose size must be the mesh's, ranks laid out
+    row-major (the last axis fastest, as ``jax.make_mesh`` lays devices
+    out); its device type is that of the tensors it will hold."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    sizes = axis_sizes(mesh)
+    n = math.prod(sizes.values())
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("device_mesh needs an initialised default "
+                           "torch.distributed group")
+    if dist.get_world_size() != n:
+        raise ValueError(f"a mesh of {sizes} needs {n} ranks, not "
+                         f"{dist.get_world_size()}")
+    return DeviceMesh(_mesh_device_type(device),
+                      torch.arange(n).view(*sizes.values()),
+                      mesh_dim_names=tuple(sizes))
+
+
+# the fake group this process made for the dry-run, {"size": ranks}
+_FAKE: Dict = {"size": None}
+
+
+def fake_production_mesh(multi_pod: bool = False):
+    """``make_production_mesh``'s (16, 16) ``("data", "model")``, or (2,
+    16, 16) ``("pod", "data", "model")``, as a ``DeviceMesh`` over a
+    ``fake`` group of 256 or 512 ranks (this process is rank 0; its
+    collectives move nothing), for the dry-run's trace on ``meta``
+    tensors.  The group is this process's own: it is made here, or remade
+    at another size, and never inside a group something else made, which
+    raises ``RuntimeError``."""
+    return fake_device_mesh(make_production_mesh(multi_pod=multi_pod))
+
+
+def fake_device_mesh(mesh):
+    """``mesh``'s axes as a ``DeviceMesh`` over a ``fake`` group of its
+    size, made by this process (see ``fake_production_mesh``)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    n = math.prod(axis_sizes(mesh).values())
+    if dist.is_initialized():
+        if _FAKE["size"] is None:
+            raise RuntimeError("a torch.distributed group made elsewhere is "
+                               "running: the dry-run's fake group needs a "
+                               "process of its own")
+        if _FAKE["size"] != n:
+            dist.destroy_process_group()
+            _FAKE["size"] = None
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+        _FAKE["size"] = n
+    return device_mesh(mesh, "meta")
+
+
+def release_fake_group():
+    """Leave the fake group ``fake_device_mesh`` made in this process, if
+    any (a group made elsewhere is left alone)."""
+    import torch.distributed as dist
+    if _FAKE["size"] is not None and dist.is_initialized():
+        dist.destroy_process_group()
+    _FAKE["size"] = None
 
 
 def device_count(device="cuda") -> int:

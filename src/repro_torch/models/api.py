@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.distributed.sharding import P
+from repro_torch.distributed.sharding import P, constrain
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
@@ -56,7 +56,8 @@ def _ssm_decls(cfg):
 
 
 def _ssm_forward(params, batch, cfg):
-    h = L.embed(params["embed"], batch["tokens"], cfg, T._cdt(cfg))
+    h = constrain(L.embed(params["embed"], batch["tokens"], cfg, T._cdt(cfg)),
+                  "dp", None, None)
     body = T._remat(lambda h, lp: SSM.mamba2_residual(lp, h, cfg), cfg)
     for lp in T._unstack(params["layers"], cfg.num_layers):
         h = body(h, lp)
@@ -85,7 +86,8 @@ def _ssm_cache_decls(cfg, batch, cache_len):
 
 def _ssm_prefill(params, batch, cfg):
     """Prompt pass producing final SSM/conv states per layer."""
-    h = L.embed(params["embed"], batch["tokens"], cfg, T._cdt(cfg))
+    h = constrain(L.embed(params["embed"], batch["tokens"], cfg, T._cdt(cfg)),
+                  "dp", None, None)
     fstates, tails = [], []
     for i in range(cfg.num_layers):
         h, fstate, tail = SSM.mamba2_residual_prefill(T._layer(params, i), h,

@@ -19,6 +19,10 @@ PPO agent's nets (``core/autotune/ppo.py``) keep JAX's lists of
 ``{"w": (in, out), "b": (out,)}`` layers as ``MLP`` modules of the same
 layout.  The JAX side is handed over as numpy arrays (``np.asarray`` of
 each leaf); this module never imports JAX.
+
+``distribute_params`` places such a tree of full tensors as DTensors for
+the sharded LM step, so that the sharded and the unsharded step start
+from the same weights.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.autotune.ppo import MLP
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import leaves, tree_map, unflatten
 
 
 def params_from_jax(tree, device="cuda"):
@@ -61,3 +65,39 @@ def ppo_params_from_jax(pi, log_std, vf, device="cuda"):
                    ).to(device)
     return (mlp(pi), nn.Parameter(torch.from_numpy(np.array(log_std))
                                   .to(device)), mlp(vf))
+
+
+def local_shard(t, placements, device_mesh):
+    """This rank's shard of the full tensor ``t`` laid out by
+    ``placements``: ``t`` cut along each sharded dim, mesh dim by mesh dim
+    in order (so ``("pod", "data")`` on one dim cuts by pod, then by data
+    within it), each rank taking its coordinate's piece."""
+    coord = device_mesh.get_coordinate()
+    for j, pl in enumerate(placements):
+        if pl.is_shard():
+            t = t.chunk(device_mesh.size(j), dim=pl.dim)[coord[j]]
+    return t
+
+
+def distribute_params(params, model, cfg, device_mesh, decls=None):
+    """A tree of full tensors (every rank holding the same values, e.g.
+    converted JAX parameters) → the same tree of DTensors over
+    ``device_mesh``, each leaf placed by ``physical_specs`` of its
+    declaration (``decls``, ``model.decls`` by default: pass
+    ``opt.state_decls(model.decls)``'s subtree for optimizer state).  Each
+    rank keeps its own shard, cut locally: nothing is sent."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import physical_specs, placements
+    specs = leaves(physical_specs(model.decls if decls is None else decls,
+                                  cfg, device_mesh))
+    flat = leaves(params)
+    if len(specs) != len(flat):
+        raise ValueError(f"{len(flat)} leaves for {len(specs)} declarations")
+    out = []
+    for t, spec in zip(flat, specs):
+        pl = placements(spec, device_mesh)
+        out.append(DTensor.from_local(
+            local_shard(t, pl, device_mesh).contiguous(), device_mesh, pl,
+            run_check=False, shape=t.shape, stride=t.stride()))
+    return unflatten(params, out)

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
+
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDecl, decl, stack_decls
 from repro_torch.models.transformer import (_cdt, _layer, _remat, _unstack,
@@ -68,12 +70,13 @@ def encode(params, audio_embeds, cfg):
     """audio_embeds (B, S_enc, D), the stubbed frontend's output; the layer
     body under ``cfg.remat`` when training."""
     h = audio_embeds.to(_cdt(cfg))
-    h = h + params["pos_enc"].to(h.dtype)[None, :h.shape[1]]
+    h = constrain(h + params["pos_enc"].to(h.dtype)[None, :h.shape[1]],
+                  "dp", None, None)
 
     def body(h, lp):
         h = h + L.attention(lp["attn"], _ln(lp["ln1"], h, cfg), cfg,
                             causal=False)
-        return _mlp_residual(lp, h, cfg)
+        return constrain(_mlp_residual(lp, h, cfg), "dp", None, None)
     body = _remat(body, cfg)
     for lp in _unstack(params["encoder"], cfg.encoder_layers):
         h = body(h, lp)
@@ -82,7 +85,8 @@ def encode(params, audio_embeds, cfg):
 
 def _embed_dec(params, tokens, cfg):
     h = L.embed(params["embed"], tokens, cfg, _cdt(cfg))
-    return h + params["pos_dec"].to(h.dtype)[None, :tokens.shape[1]]
+    return constrain(h + params["pos_dec"].to(h.dtype)[None, :tokens.shape[1]],
+                     "dp", None, None)
 
 
 def _cross_residual(lp, h, kv, cfg):
@@ -104,7 +108,7 @@ def _decoder_fwd(params, tokens, enc_out, cfg):
         h = h + L.attention(lp["attn"], _ln(lp["ln1"], h, cfg), cfg,
                             causal=True)
         h = _cross_residual(lp, h, L.cross_kv(lp["xattn"], enc_out, cfg), cfg)
-        return _mlp_residual(lp, h, cfg)
+        return constrain(_mlp_residual(lp, h, cfg), "dp", None, None)
     body = _remat(body, cfg)
     for lp in _unstack(params["decoder"], cfg.num_layers):
         h = body(h, lp)
@@ -150,7 +154,7 @@ def prefill(params, batch, cfg):
                                         cfg, causal=True)
         xk, xv = L.cross_kv(lp["xattn"], enc_out, cfg)
         h = _cross_residual(lp, h + a, (xk, xv), cfg)
-        h = _mlp_residual(lp, h, cfg)
+        h = constrain(_mlp_residual(lp, h, cfg), "dp", None, None)
         for name, t in zip(caches, (k, v, xk, xv)):
             caches[name].append(t)
     return (_logits(params, h[:, -1], cfg),

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
+
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamDecl, stack_decls
@@ -72,12 +74,15 @@ def cache_decls(cfg, batch: int, cache_len: int):
 
 
 def _shared_mlp(sp, h, cfg):
-    return h + L.mlp(sp["mlp"], L.rmsnorm(sp["ln2"], h, cfg.norm_eps), cfg)
+    return constrain(h + L.mlp(sp["mlp"], L.rmsnorm(sp["ln2"], h,
+                                                    cfg.norm_eps), cfg),
+                     "dp", None, None)
 
 
 def forward(params, batch, cfg):
     """tokens → final hidden states (B, S, D) and aux 0 (f32)."""
-    h = L.embed(params["embed"], batch["tokens"], cfg, _cdt(cfg))
+    h = constrain(L.embed(params["embed"], batch["tokens"], cfg, _cdt(cfg)),
+                  "dp", None, None)
     B, Ssz, _ = h.shape
     positions = torch.arange(Ssz, dtype=torch.int32,
                              device=h.device)[None].expand(B, Ssz)
@@ -106,7 +111,8 @@ def loss_fn(params, batch, cfg):
 def prefill(params, batch, cfg):
     """Prompt pass filling the SSM states and the shared block's KV
     caches; returns (last-token logits (B, V) f32, caches)."""
-    h = L.embed(params["embed"], batch["tokens"], cfg, _cdt(cfg))
+    h = constrain(L.embed(params["embed"], batch["tokens"], cfg, _cdt(cfg)),
+                  "dp", None, None)
     B, Ssz, _ = h.shape
     positions = torch.arange(Ssz, dtype=torch.int32,
                              device=h.device)[None].expand(B, Ssz)

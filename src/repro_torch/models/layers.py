@@ -18,8 +18,18 @@ its ``torch.autograd.Function`` when an input requires grad: the forward
 kernel, then the hand-written backward kernel), and the loss is
 ``lm_loss`` over ``softmax_xent``, chunked over the sequence with one
 ``torch.utils.checkpoint`` a chunk where ``cfg.loss_chunk`` asks (JAX's
-``jax.checkpoint``).  ``constrain`` (sharding hints) has nothing to do on
-one card.
+``jax.checkpoint``).
+
+Sharding: ``constrain`` states JAX's activation layouts at JAX's sites (q
+by batch and heads, the decode caches); it acts on DTensors inside a
+``shard_ctx`` with a ``DeviceMesh`` (the sharded step,
+``distributed/sharding.py``) and is an identity on one card.  Two ops run
+per shard under ``local_map`` when their operands are DTensors: the
+embedding lookup (a vocab-sharded table looks up its own rows and the
+lookup is a partial sum over the vocab axis, Megatron's vocab-parallel
+embedding) and the gold logit of the loss (each vocab shard reads the
+targets that fall in it); the loss's log-sum-exp over a vocab-sharded
+dim is a max and a sum that DTensor reduces over the shards.
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                              shard_axis)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.params import decl
 
@@ -36,7 +48,76 @@ NEG_INF = -1e30
 def _proj(x, w):
     """x (..., D) against w (D, *out) → (..., *out): JAX's
     ``einsum("...d,d...->...")`` as one contiguous matrix product."""
+    if is_dtensor(x) or is_dtensor(w):
+        return _proj_sharded(x, w)
     return (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:-1], *w.shape[1:])
+
+
+def _proj_sharded(x, w):
+    """``_proj`` of DTensors, each rank's product on its own shards
+    (``local_map``), mesh dim by mesh dim:
+
+      * x sharded on a leading dim (the batch on a ``dp`` axis): w gathered
+        there (FSDP; its gradient a partial sum, reduce-scattered back);
+      * x sharded on D and w on D (the row-parallel product after a
+        head- or ``tp``-sharded layer): the product a partial sum, reduced
+        at once in its own dtype (Megatron's row-parallel all-reduce; left
+        partial, DTensor's choice of where to reduce it differs between
+        PyTorch versions, and one reduced it in f32 inside the next norm
+        and once more for each product that read the norm);
+      * x replicated and w sharded on an output dim (column-parallel, the
+        q/k/v, MLP-up and vocab products): the output sharded on that dim,
+        x's gradient a partial sum; w sharded on D there: gathered.
+
+    The output comes out in w's layout (..., *out) on each rank, so a
+    head dim is never unflattened out of a sharded one."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (w if is_dtensor(w) else x).device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, rep, run_check=False)
+    if not is_dtensor(w):
+        w = DTensor.from_local(w, mesh, rep, run_check=False)
+    last = x.dim() - 1
+    x_in, w_in, out, x_grad, w_grad = [], [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if xp.is_shard() and xp.dim < last:
+            x_in.append(xp)
+            w_in.append(Replicate())
+            out.append(xp)
+            x_grad.append(xp)
+            w_grad.append(Partial())
+        elif xp.is_shard(last):
+            x_in.append(xp)
+            w_in.append(Shard(0))
+            out.append(Partial())
+            x_grad.append(xp)
+            w_grad.append(Shard(0))
+        elif wp.is_shard() and wp.dim >= 1:
+            x_in.append(Replicate())
+            w_in.append(wp)
+            out.append(Shard(last + wp.dim - 1))
+            x_grad.append(Partial())
+            w_grad.append(wp)
+        else:
+            x_in.append(Replicate())
+            w_in.append(Replicate())
+            out.append(Replicate())
+            x_grad.append(Replicate())
+            w_grad.append(Replicate())
+
+    def mm(xl, wl):
+        return (xl @ wl.reshape(wl.shape[0], -1)).view(*xl.shape[:-1],
+                                                       *wl.shape[1:])
+    y = local_map(mm, out_placements=out,
+                  in_placements=(tuple(x_in), tuple(w_in)),
+                  in_grad_placements=(tuple(x_grad), tuple(w_grad)),
+                  device_mesh=mesh, redistribute_inputs=True)(x, w)
+    if any(p.is_partial() for p in out):
+        y = y.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in out])
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +242,7 @@ def _project_qkv(p, x, cfg, positions):
     elif cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "dp", None, "qheads", None)
     return q, k, v
 
 
@@ -218,23 +300,65 @@ def attention_decode(p, x, cfg, cache_k, cache_v, pos, positions=None):
     if positions is None:
         positions = posb[:, None]
     q, k, v = _project_qkv(p, x, cfg, positions)
-    # the write needs no host sync: a dropped position rewrites its own value
-    keep = (posb < T)[:, None, None]
-    bidx = torch.arange(B, device=x.device)
-    at = posb.clamp(max=T - 1)
-    cache_k[bidx, at] = torch.where(keep, k[:, 0], cache_k[bidx, at])
-    cache_v[bidx, at] = torch.where(keep, v[:, 0], cache_v[bidx, at])
+    if is_dtensor(cache_k):
+        _write_sharded(cache_k, k[:, 0], posb)
+        _write_sharded(cache_v, v[:, 0], posb)
+    else:
+        _write_at(cache_k, k[:, 0], posb, 0, T)
+        _write_at(cache_v, v[:, 0], posb, 0, T)
+    cache_k = constrain(cache_k, "dp", "kvseq", "kvheads", None)
+    cache_v = constrain(cache_v, "dp", "kvseq", "kvheads", None)
     mask = torch.arange(T, device=x.device)[None, :] <= posb[:, None]   # (B,T)
-    out = _attend(q, _repeat_kv(cache_k, H), _repeat_kv(cache_v, H), cfg,
-                  mask[:, None, None, :])
+    kr = constrain(_repeat_kv(cache_k, H), "dp", "dkr_t", "dkr_h", None)
+    vr = constrain(_repeat_kv(cache_v, H), "dp", "dkr_t", "dkr_h", None)
+    out = _attend(q, kr, vr, cfg, mask[:, None, None, :])
     y = _proj(out.flatten(2), p["wo"].to(x.dtype).flatten(0, 1))
     return y, cache_k, cache_v
+
+
+def _write_at(cache, new, posb, t0: int, T: int):
+    """cache (B, Tl, H, Dh) holding positions t0..t0+Tl-1 of T: row b's
+    ``new`` (B, H, Dh) written in place at ``posb[b]`` where it falls in
+    them (and below T).  No host sync: a dropped row rewrites its own
+    value."""
+    Tl = cache.shape[1]
+    rel = posb - t0
+    keep = ((rel >= 0) & (rel < Tl) & (posb < T))[:, None, None]
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    at = rel.clamp(0, Tl - 1)
+    cache[bidx, at] = torch.where(keep, new, cache[bidx, at])
+
+
+def _write_sharded(cache, new, posb):
+    """``_write_at`` of a DTensor cache, per shard: each rank writes its
+    own batch rows, kv heads and, where the cache is sequence-sharded, the
+    positions it holds."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, T = cache.device_mesh, cache.shape[1]
+    new_pl, pos_pl = [], []
+    for pl in cache.placements:
+        new_pl.append(Shard(0) if pl.is_shard(0) else
+                      Shard(1) if pl.is_shard(2) else Replicate())
+        pos_pl.append(Shard(0) if pl.is_shard(0) else Replicate())
+    seq = shard_axis(cache, 1)
+    t0 = 0 if seq is None else mesh.get_local_rank(seq) * (T // mesh.size(seq))
+
+    def write(c, n, pb):
+        _write_at(c, n, pb, t0, T)
+        return c
+    cp = tuple(cache.placements)
+    local_map(write, out_placements=list(cp),
+              in_placements=(cp, tuple(new_pl), tuple(pos_pl)),
+              device_mesh=mesh, redistribute_inputs=True)(cache, new, posb)
 
 
 def _attend(q, k, v, cfg, mask=None):
     """Plain attention, q (B,Sq,H,Dh) against k/v (B,Skv,H,Dh): scores in
     q's dtype, scaled, then softmax in f32 (masked where ``mask``, which
     broadcasts to (B,H,Sq,Skv), is False)."""
+    if is_dtensor(q):
+        return _attend_sharded(q, k, v, cfg, mask)
     scores = torch.einsum("bqhe,bshe->bhqs", q, k) * (cfg.head_dim ** -0.5)
     scores = scores.float()
     if mask is not None:
@@ -242,6 +366,65 @@ def _attend(q, k, v, cfg, mask=None):
                              torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshe->bqhe", probs, v)
+
+
+def _attend_sharded(q, k, v, cfg, mask=None):
+    """``_attend`` of DTensors, per shard (``local_map``): each rank's
+    batch rows and heads; where k/v are sharded on time (the decode
+    cache's ``dkr_t``), the softmax is combined over that axis, its max
+    and sum all-reduced (the flash-decode combine), and the rank's partial
+    output summed.  ``mask`` is (B, 1, 1, Skv) or None."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    k, v, mask = (t if t is None or is_dtensor(t) else
+                  DTensor.from_local(t, mesh, rep, run_check=False)
+                  for t in (k, v, mask))
+    q_pl, kv_pl, m_pl = [], [], []
+    t_axis = None
+    for j, (qp, kp) in enumerate(zip(q.placements, k.placements)):
+        if qp.is_shard(0) and kp.is_shard(0):
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+            m_pl.append(Shard(0))
+        elif kp.is_shard(1) and t_axis is None:
+            t_axis = j
+            q_pl.append(Replicate())
+            kv_pl.append(Shard(1))
+            m_pl.append(Shard(3))
+        elif qp.is_shard(2) or kp.is_shard(2):
+            q_pl.append(Shard(2))
+            kv_pl.append(Shard(2))
+            m_pl.append(Replicate())
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            m_pl.append(Replicate())
+    scale = cfg.head_dim ** -0.5
+
+    def attend(ql, kl, vl, ml):
+        scores = (torch.einsum("bqhe,bshe->bhqs", ql, kl) * scale).float()
+        if ml is not None:
+            scores = torch.where(ml, scores,
+                                 torch.full((), NEG_INF, device=ql.device))
+        if t_axis is None:
+            probs = torch.softmax(scores, dim=-1).to(ql.dtype)
+            return torch.einsum("bhqs,bshe->bqhe", probs, vl)
+        group = (mesh, t_axis)
+        m = funcol.all_reduce(scores.detach().amax(-1, keepdim=True), "max",
+                              group)
+        e = torch.exp(scores - m)
+        s = funcol.all_reduce(e.sum(-1, keepdim=True), "sum", group)
+        o = torch.einsum("bhqs,bshe->bqhe", (e / s).to(ql.dtype), vl)
+        return funcol.all_reduce(o, "sum", group)
+    q_pl, kv_pl = tuple(q_pl), tuple(kv_pl)
+    m_in = None if mask is None else tuple(m_pl)
+    return local_map(attend, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl, m_in),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         q, k, v, mask)
 
 
 def attention_cross(p, x, enc_kv, cfg):
@@ -282,15 +465,15 @@ def decls_mlp(cfg):
 
 def mlp(p, x, cfg):
     if "w_gate" in p:
-        g = x @ p["w_gate"].to(x.dtype)
-        u = x @ p["w_up"].to(x.dtype)
+        g = _proj(x, p["w_gate"].to(x.dtype))
+        u = _proj(x, p["w_up"].to(x.dtype))
         h = F.silu(g) * u
     else:
-        h = x @ p["w_up"].to(x.dtype)
+        h = _proj(x, p["w_up"].to(x.dtype))
         # jax.nn.gelu's default is the tanh form
         h = (F.gelu(h, approximate="tanh") if cfg.mlp_type == "gelu"
              else F.relu(h).square())
-    return h @ p["w_down"].to(x.dtype)
+    return _proj(h, p["w_down"].to(x.dtype))
 
 
 def decls_embedding(cfg):
@@ -302,7 +485,53 @@ def decls_embedding(cfg):
 
 
 def embed(p, tokens, cfg, compute_dtype):
-    return p["tok"].to(compute_dtype)[tokens]
+    table = p["tok"].to(compute_dtype)
+    if is_dtensor(table):
+        return _embed_sharded(table, tokens)
+    return table[tokens]
+
+
+def _embed_sharded(table, tokens):
+    """The lookup of a DTensor ``table`` (V, D) per shard: the table
+    gathered on every mesh axis but a vocab one, each rank looking up its
+    own tokens; where the vocab is sharded, each shard's rows (the rest
+    zero), a partial sum over that axis.  The table's gradient is a
+    partial sum over the axes that shard the tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    tok_pl = (tokens.placements if is_dtensor(tokens)
+              else (Replicate(),) * mesh.ndim)
+    vocab = shard_axis(table, 0)
+    if vocab is not None and tok_pl[vocab] != Replicate():
+        vocab = None                    # the tokens hold that axis
+    t_in, out, grad = [], [], []
+    for j, tp in enumerate(tok_pl):
+        if j == vocab:
+            t_in.append(Shard(0))
+            out.append(Partial())
+            grad.append(Shard(0))
+        else:
+            t_in.append(Replicate())
+            out.append(tp)
+            grad.append(Partial() if tp.is_shard() else Replicate())
+    lo = 0 if vocab is None else (mesh.get_local_rank(vocab)
+                                  * (table.shape[0] // mesh.size(vocab)))
+
+    def lookup(tab, tok):
+        if vocab is None:
+            return tab[tok]
+        idx = tok.long() - lo
+        ok = (idx >= 0) & (idx < tab.shape[0])
+        rows = tab[idx.clamp(0, tab.shape[0] - 1)]
+        return torch.where(ok[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(lookup, out_placements=list(out),
+                     in_placements=(tuple(t_in), tuple(tok_pl)),
+                     in_grad_placements=(tuple(grad), tuple(tok_pl)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         table, tokens)
 
 
 def unembed_matrix(p, cfg, dtype):
@@ -318,8 +547,55 @@ def unembed_matrix(p, cfg, dtype):
 def _nll(logits, targets):
     """Each token's negative log-likelihood in f32: lse - gold."""
     logits = logits.float()
+    if is_dtensor(logits) and shard_axis(logits, logits.dim() - 1) is not None:
+        return _nll_vocab_sharded(logits, targets)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
+
+
+def _nll_vocab_sharded(logits, targets):
+    """``_nll`` of DTensor logits sharded on the vocab: the log-sum-exp as
+    a max and a sum of exponentials that DTensor reduces over the vocab
+    shards, the gold logit read per shard (the targets in its range, the
+    rest zero) and summed over them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    vocab = shard_axis(logits, last)
+    lo = mesh.get_local_rank(vocab) * (logits.shape[-1] // mesh.size(vocab))
+    tgt = (targets if is_dtensor(targets)
+           else DTensor.from_local(
+               targets, mesh, (Replicate(),) * mesh.ndim, run_check=False))
+    tgt_pl = tuple(p if j != vocab else Replicate()
+                   for j, p in enumerate(logits.placements))
+    gold_pl = tuple(Partial() if j == vocab else p
+                    for j, p in enumerate(logits.placements))
+
+    def gold(lg, tg):
+        idx = tg.long() - lo
+        ok = (idx >= 0) & (idx < lg.shape[-1])
+        g = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(ok, g[..., 0],
+                           torch.zeros((), dtype=lg.dtype, device=lg.device))
+    g = local_map(gold, out_placements=list(gold_pl),
+                  in_placements=(tuple(logits.placements), tgt_pl),
+                  device_mesh=mesh, redistribute_inputs=True)(logits, tgt)
+    # each reduction over the vocab shards made whole on every rank before
+    # it is used: the rows stay batch-sharded as the targets are, and no
+    # logit is ever gathered
+    m = _reduced(logits.detach().amax(dim=-1, keepdim=True), vocab)
+    s = _reduced(torch.sum(torch.exp(logits - m), dim=-1), vocab)
+    return torch.log(s) + m[..., 0] - _reduced(g, vocab)
+
+
+def _reduced(x, axis: int):
+    """A DTensor's partial result over mesh dim ``axis`` reduced there
+    (made replicated on it)."""
+    from torch.distributed.tensor import Replicate
+    want = tuple(Replicate() if j == axis else pl
+                 for j, pl in enumerate(x.placements))
+    return x if want == tuple(x.placements) else x.redistribute(
+        x.device_mesh, want)
 
 
 def softmax_xent(logits, targets, mask=None):
@@ -333,7 +609,7 @@ def softmax_xent(logits, targets, mask=None):
 
 def _chunk_nll(hc, W, tc, mc):
     """One chunk's (sum of nll, token count) in f32."""
-    nll = _nll(hc @ W, tc)
+    nll = _nll(_proj(hc, W), tc)
     if mc is None:
         return torch.sum(nll), torch.tensor(float(nll.numel()),
                                             dtype=torch.float32,
@@ -352,7 +628,7 @@ def lm_loss(p_emb, h, targets, cfg, mask=None):
     B, S, _ = h.shape
     chunk = cfg.loss_chunk
     if not chunk or S <= chunk or S % chunk != 0:
-        return softmax_xent(h @ W, targets, mask)
+        return softmax_xent(_proj(h, W), targets, mask)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(S // chunk):

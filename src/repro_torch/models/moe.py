@@ -34,7 +34,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import ctx_dp_size
+from repro_torch.distributed.sharding import (constrain, ctx_dp_size,
+                                              is_dtensor, shard_axis)
+from repro_torch.models import layers as L
 from repro_torch.models.params import decl
 
 PAD_LOGIT = -1e30
@@ -63,13 +65,14 @@ def capacity(cfg, tokens_per_shard: int) -> int:
     return min(c, tokens_per_shard)
 
 
-def combine(out, idx, valid, topi):
-    """The experts' outputs summed back per token: out (E, C, D), expert e's
-    slot c holding token idx[e, c] where valid[e, c]; topi (T, K) each
-    token's experts.  Returns (T, D) in out's dtype, each token's
-    contributions added in ascending expert order (JAX's
-    ``zeros.at[idx].add(out)`` over the expert-major slots, written as a
-    gather: no two threads add into one row)."""
+def combine(out, idx, valid, topi, e0: int = 0):
+    """The experts' outputs summed back per token: out (E, C, D), expert
+    e0 + e's slot c holding token idx[e, c] where valid[e, c]; topi (T, K)
+    each token's experts (an expert outside e0..e0+E-1 adds nothing).
+    Returns (T, D) in out's dtype, each token's contributions added in
+    ascending expert order (JAX's ``zeros.at[idx].add(out)`` over the
+    expert-major slots, written as a gather: no two threads add into one
+    row)."""
     E, C, D = out.shape
     T, K = topi.shape
     dev = out.device
@@ -78,8 +81,11 @@ def combine(out, idx, valid, topi):
     slot = torch.full((E, T), -1, dtype=torch.long, device=dev)
     cols = torch.arange(C, device=dev).expand(E, C)
     slot.scatter_(1, idx, torch.where(valid, cols, -1))
-    experts = topi.sort(dim=-1).values                               # (T, K)
+    experts = topi.sort(dim=-1).values - e0                          # (T, K)
+    here = (experts >= 0) & (experts < E)
+    experts = experts.clamp(0, E - 1)
     c = slot[experts, torch.arange(T, device=dev)[:, None]]          # (T, K)
+    c = torch.where(here, c, -1)
     part = out.reshape(E * C, D)[(experts * C + c.clamp_min(0)).view(-1)]
     part = torch.where((c >= 0).view(-1, 1), part,
                        torch.zeros((), dtype=part.dtype, device=dev))
@@ -90,20 +96,13 @@ def combine(out, idx, valid, topi):
     return y
 
 
-def moe_mlp(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) → (y (B, S, D), aux_loss f32 scalar)."""
-    B, S, D = x.shape
-    T = B * S
+def route(xt, router, cfg):
+    """Tokens xt (T, D) → (topi (T, K) each token's experts, w_te (T, E)
+    its routing weight on each expert (0 where not routed), me (E,) the
+    mean router probability, fe (E,) the mean routed count)."""
     E, K = cfg.num_experts_padded, cfg.moe_top_k
-    DS = ctx_dp_size()
-    if T % DS != 0:
-        DS = 1
-    Tl = T // DS
-    C = capacity(cfg, Tl)
-    dev = x.device
-
-    xt = x.reshape(T, D)
-    logits = xt.float() @ p["router"].float()                        # (T, E)
+    dev = xt.device
+    logits = xt.float() @ router.float()                             # (T, E)
     if cfg.num_experts_padded > cfg.num_experts:
         real = torch.arange(E, device=dev) < cfg.num_experts
         logits = torch.where(real, logits,
@@ -114,33 +113,117 @@ def moe_mlp(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
 
     onehot = F.one_hot(topi, E).float()                              # (T, K, E)
     w_te = (onehot * topw[..., None]).sum(1)                         # (T, E)
-    scores = torch.where(w_te > 0, w_te,
-                         torch.full((), -torch.inf, device=dev)).T   # (E, T)
+    return topi, w_te, probs.mean(0), onehot.sum(1).mean(0)
 
-    gathered_w, idx = torch.topk(scores.reshape(E, DS, Tl), C, dim=-1)
+
+def experts(xt, w_te, topi, w_gate, w_up, w_down, C: int, DS: int,
+            e0: int = 0):
+    """Experts e0..e0+El-1 (``w_gate`` (El, D, F) ...) over the tokens xt
+    (T, D) in DS groups: each expert's top-C tokens of each group by its
+    routing weight ``w_te`` (T, El), the batched expert products, and the
+    tokens' outputs summed back (``combine``).  Returns (T, D)."""
+    T, D = xt.shape
+    El = w_gate.shape[0]
+    Tl = T // DS
+    dev = xt.device
+    scores = torch.where(w_te > 0, w_te,
+                         torch.full((), -torch.inf, device=dev)).T   # (El, T)
+
+    gathered_w, idx = torch.topk(scores.reshape(El, DS, Tl), C, dim=-1)
     if DS > 1:                       # each group's token ids made global
         idx = idx + (torch.arange(DS, device=dev) * Tl)[None, :, None]
-    gathered_w, idx = gathered_w.reshape(E, DS * C), idx.reshape(E, DS * C)
+    gathered_w, idx = gathered_w.reshape(El, DS * C), idx.reshape(El, DS * C)
     valid = torch.isfinite(gathered_w)
     gate_w = torch.where(valid, gathered_w, torch.zeros((), device=dev))
 
-    buf = xt[idx.reshape(-1)].view(E, DS * C, D)
+    buf = xt[idx.reshape(-1)].view(El, DS * C, D)
     buf = buf * valid[..., None].to(buf.dtype)
-    g = torch.bmm(buf, p["w_gate"].to(buf.dtype))
-    u = torch.bmm(buf, p["w_up"].to(buf.dtype))
-    out = torch.bmm(F.silu(g) * u, p["w_down"].to(buf.dtype))   # (E, DS·C, D)
+    g = torch.bmm(buf, w_gate.to(buf.dtype))
+    u = torch.bmm(buf, w_up.to(buf.dtype))
+    out = torch.bmm(F.silu(g) * u, w_down.to(buf.dtype))       # (El, DS·C, D)
     out = out * gate_w[..., None].to(out.dtype)
+    return combine(out, idx, valid, topi, e0)
 
-    y = combine(out, idx, valid, topi).view(B, S, D)
+
+def moe_mlp(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) → (y (B, S, D), aux_loss f32 scalar)."""
+    B, S, D = x.shape
+    T = B * S
+    E, K = cfg.num_experts_padded, cfg.moe_top_k
+    DS = ctx_dp_size()
+    if T % DS != 0:
+        DS = 1
+    C = capacity(cfg, T // DS)
+
+    xt = x.reshape(T, D)
+    if is_dtensor(xt):
+        y, me, fe = _moe_sharded(p, xt, cfg, DS, C)
+    else:
+        topi, w_te, me, fe = route(xt, p["router"], cfg)
+        y = experts(xt, w_te, topi, p["w_gate"], p["w_up"], p["w_down"], C,
+                    DS)
+    y = constrain(y.view(B, S, D), "dp", None, None)
 
     if cfg.shared_expert_ff:
         sp = p["shared"]
-        sg = x @ sp["w_gate"].to(x.dtype)
-        su = x @ sp["w_up"].to(x.dtype)
-        y = y + (F.silu(sg) * su) @ sp["w_down"].to(x.dtype)
+        sg = L._proj(x, sp["w_gate"].to(x.dtype))
+        su = L._proj(x, sp["w_up"].to(x.dtype))
+        y = y + L._proj(F.silu(sg) * su, sp["w_down"].to(x.dtype))
 
     # load-balancing auxiliary loss (Switch): E * sum_e f_e * p_e
-    me = probs.mean(0)                                               # (E,)
-    fe = onehot.sum(1).mean(0)                                       # (E,)
     aux = cfg.num_experts * torch.sum(me * fe) / max(K, 1)
     return y, aux.float()
+
+
+def _moe_sharded(p, xt, cfg, DS: int, C: int):
+    """The routed experts of DTensor tokens xt (T, D), per shard
+    (``local_map``): each rank routes its own tokens (the batch rows of
+    its ``dp`` shards: the groups JAX's ``constrain`` puts there) and runs
+    the experts it holds (the ``expert`` dim on the ``model`` axis), so
+    its output is a partial sum over that axis, reduced by the caller's
+    ``constrain``; nothing is sent but that sum and the weights' FSDP
+    gathers.  ``me`` and ``fe`` come back as partial sums over the ``dp``
+    shards of each shard's means over DS."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xt.device_mesh
+    E = cfg.num_experts_padded
+    x_pl = tuple(pl if pl.is_shard(0) else Replicate()
+                 for pl in xt.placements)
+    shards = 1
+    for j, pl in enumerate(x_pl):
+        if pl.is_shard(0):
+            shards *= mesh.size(j)
+    ds_local = max(DS // shards, 1)
+    ex = shard_axis(p["w_gate"], 0)
+    if ex is not None and x_pl[ex] != Replicate():
+        ex = None
+    e0 = 0 if ex is None else mesh.get_local_rank(ex) * (E // mesh.size(ex))
+    rep = (Replicate(),) * mesh.ndim
+    dp_partial = tuple(Partial() if pl.is_shard(0) else Replicate()
+                       for pl in x_pl)
+
+    def route_local(xl, rl):
+        topi, w_te, me, fe = route(xl, rl, cfg)
+        return topi, w_te, me / shards, fe / shards
+    topi, w_te, me, fe = local_map(
+        route_local, out_placements=(x_pl, x_pl, dp_partial, dp_partial),
+        in_placements=(x_pl, rep), in_grad_placements=(x_pl, dp_partial),
+        device_mesh=mesh, redistribute_inputs=True)(xt, p["router"])
+
+    w_pl = tuple(Shard(0) if j == ex else Replicate()
+                 for j in range(mesh.ndim))
+    w_grad = tuple(Shard(0) if j == ex else dp_partial[j]
+                   for j in range(mesh.ndim))
+    y_pl = tuple(Partial() if j == ex else x_pl[j] for j in range(mesh.ndim))
+
+    def experts_local(xl, wl, tl, g, u, d):
+        return experts(xl, wl[:, e0:e0 + g.shape[0]], tl, g, u, d, C,
+                       ds_local, e0)
+    y = local_map(
+        experts_local, out_placements=list(y_pl),
+        in_placements=(x_pl, x_pl, x_pl, w_pl, w_pl, w_pl),
+        in_grad_placements=(y_pl, y_pl, x_pl, w_grad, w_grad, w_grad),
+        device_mesh=mesh, redistribute_inputs=True)(
+            xt, w_te, topi, p["w_gate"], p["w_up"], p["w_down"])
+    return y, me, fe

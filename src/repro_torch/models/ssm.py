@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
+
 from repro_torch.models.layers import decls_rmsnorm, rmsnorm
 from repro_torch.models.params import decl
 
@@ -141,6 +143,7 @@ def mamba2_prefill(p, h, cfg):
     conv_tail = xbc[:, -(cfg.ssm_conv_width - 1):, :]
     xbc = _causal_conv(xbc, p["conv_w"].to(h.dtype), p["conv_b"].to(h.dtype))
     xin = xbc[..., :d_inner].reshape(B, S, nheads, cfg.ssm_head_dim)
+    xin = constrain(xin, "dp", None, "tp", None)
     Bm = xbc[..., d_inner:d_inner + N]
     Cm = xbc[..., d_inner + N:]
     dt = _softplus(dt.float() + p["dt_bias"].float())
@@ -160,8 +163,9 @@ def mamba2_block(p, h, cfg):
 def mamba2_residual(lp, h, cfg):
     """One layer of a Mamba2 stack over a whole sequence (training):
     h + block(rmsnorm(h))."""
-    return h + mamba2_block(lp["block"], rmsnorm(lp["ln"], h, cfg.norm_eps),
-                            cfg)
+    return constrain(h + mamba2_block(lp["block"],
+                                      rmsnorm(lp["ln"], h, cfg.norm_eps), cfg),
+                     "dp", None, None)
 
 
 def mamba2_residual_prefill(lp, h, cfg):
@@ -170,7 +174,7 @@ def mamba2_residual_prefill(lp, h, cfg):
     tail)."""
     y, fstate, tail = mamba2_prefill(lp["block"],
                                      rmsnorm(lp["ln"], h, cfg.norm_eps), cfg)
-    return h + y, fstate, tail
+    return constrain(h + y, "dp", None, None), fstate, tail
 
 
 # ---------------------------------------------------------------------------

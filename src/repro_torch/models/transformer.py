@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain, is_dtensor
 from repro_torch.models import layers as L
 from repro_torch.models.moe import decls_moe, moe_mlp
 from repro_torch.models.params import (ParamDecl, decl, leaves, stack_decls,
@@ -75,14 +76,17 @@ def _embed_input(params, batch, cfg):
     h = L.embed(params["embed"], batch["tokens"], cfg, _cdt(cfg))
     if "vision_embeds" in batch:
         ve = batch["vision_embeds"]                           # (B, VP, D)
-        h[:, :ve.shape[1]] = ve.to(h.dtype)
+        if is_dtensor(h):     # a sharded slice write has no backward
+            h = torch.cat((ve.to(h.dtype), h[:, ve.shape[1]:]), dim=1)
+        else:
+            h[:, :ve.shape[1]] = ve.to(h.dtype)
     if "pos_emb" in params:
         pe, pos = params["pos_emb"].to(h.dtype), batch.get("positions")
         if pos is not None and pos.dim() == 2:
             h = h + table_rows(pe, pos)                       # (B, S, D)
         else:
             h = h + pe[:h.shape[1]][None]
-    return h
+    return constrain(h, "dp", None, None)
 
 
 def _positions(batch, cfg, B, S, device):
@@ -156,8 +160,8 @@ def layer_fwd(lp, h, cfg, positions):
     hn = L.rmsnorm(lp["ln2"], h, cfg.norm_eps)
     if cfg.is_moe:
         m, a = moe_mlp(lp["moe"], hn, cfg)
-        return h + m, a
-    return h + L.mlp(lp["mlp"], hn, cfg), None
+        return constrain(h + m, "dp", None, None), a
+    return constrain(h + L.mlp(lp["mlp"], hn, cfg), "dp", None, None), None
 
 
 def pipeline_stage(cfg):
@@ -220,7 +224,7 @@ def prefill(params, batch, cfg):
         lp = _layer(params, i)
         a, (k, v) = L.attention_prefill(
             lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg, positions)
-        h = _mlp_residual(lp, h + a, cfg)
+        h = constrain(_mlp_residual(lp, h + a, cfg), "dp", None, None)
         ks.append(k)
         vs.append(v)
     return _logits(params, h[:, -1], cfg), {"k": torch.stack(ks),

@@ -46,6 +46,11 @@ class Optimizer(NamedTuple):
     update_: Callable[[List[Optional[torch.Tensor]], Any, Any, Any], None]
     # the functional form (AdamW only)
     update: Optional[Callable[[Any, Any, Any, Any], Tuple[Any, Any]]] = None
+    # whether ``update_`` is elementwise, so it may run on each shard of a
+    # sharded parameter alone (train/trainer.py).  It must: on DTensors
+    # the flat slices of ``_slices`` cannot view a head-sharded leaf in
+    # PyTorch 2.11 (``scripts/sharded_update.py`` on the card raises)
+    elementwise: bool = True
 
 
 def _mirror(d: ParamDecl, dtype=torch.float32) -> ParamDecl:
@@ -208,7 +213,8 @@ def make_adafactor(b2=0.99, eps=1e-30, clip_rms=1.0) -> Optimizer:
         _each_leaf(grads, (_per_leaf(params, state["fac"]),), params, one)
         state["count"] += 1
 
-    return Optimizer("adafactor", state_decls, init, update_)
+    return Optimizer("adafactor", state_decls, init, update_,
+                     elementwise=False)
 
 
 # ---------------------------------------------------------------------------

@@ -1672,3 +1672,73 @@ def test_group_pipeline_on_the_card_bit_equal_to_host_sim(card, tmp_path):
             seen.add(k)
         assert not {"jax", "repro"} & set(got["modules"])
     assert seen == set(want["values"])
+
+
+# ---------------------------------------------------------------------------
+# flash_attention on a head shard (the sharded LM step's attention)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,Hkv,m", [(24, 8, 2), (8, 2, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_local_map_on_a_head_shard(card, H, Hkv, m, dtype):
+    """``flash_attention`` of DTensors sharded on heads over an m-wide
+    ``model`` axis (each rank of a fake group in turn, its shard on the
+    card): the forward and dq bit-equal to the kernel on the full heads,
+    sliced; dk/dv bit-equal where the kv heads are sharded alongside, and,
+    where they are replicated (Hkv < m), the ranks' partial gradients
+    summing to the full ones."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.kernels.build import build
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
+    build(["flash_attention", "flash_attention_bwd"])
+    B, S, Dh = 2, 256, 128
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(B, S, h, Dh, generator=g, device="cuda")
+                   .to(dtype) for h in (H, Hkv, Hkv, H))
+    full = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*full)
+    out.backward(do)
+    hl, kv_sharded = H // m, Hkv % m == 0
+    dk_sum = torch.zeros_like(k, dtype=torch.float32)
+    dv_sum = torch.zeros_like(v, dtype=torch.float32)
+    for r in range(m):
+        dist.init_process_group("fake", store=FakeStore(), rank=r,
+                                world_size=m)
+        try:
+            dm = DeviceMesh("cuda", torch.arange(m), mesh_dim_names=("model",))
+            hs = slice(r * hl, (r + 1) * hl)
+            ks = slice(r * Hkv // m, (r + 1) * Hkv // m) if kv_sharded \
+                else slice(0, Hkv)
+            kv_pl = [Shard(2)] if kv_sharded else [Replicate()]
+            loc = [q[:, :, hs].contiguous().requires_grad_(),
+                   k[:, :, ks].contiguous().requires_grad_(),
+                   v[:, :, ks].contiguous().requires_grad_()]
+            dq_, dk_, dv_ = (DTensor.from_local(t, dm, pl, run_check=False)
+                             for t, pl in zip(loc, ([Shard(2)], kv_pl,
+                                                    kv_pl)))
+            f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+            o = flash_attention(dq_, dk_, dv_)
+            assert tuple(o.placements) == (Shard(2),)
+            o.to_local().backward(do[:, :, hs].contiguous())
+            assert flash_attention.launches == f0 + 1
+            assert flash_attention_bwd.launches == b0 + 1
+        finally:
+            dist.destroy_process_group()
+        assert torch.equal(o.to_local(), out[:, :, hs])
+        assert torch.equal(loc[0].grad, full[0].grad[:, :, hs])
+        if kv_sharded:
+            assert torch.equal(loc[1].grad, full[1].grad[:, :, ks])
+            assert torch.equal(loc[2].grad, full[2].grad[:, :, ks])
+        else:
+            dk_sum += loc[1].grad.float()
+            dv_sum += loc[2].grad.float()
+    if not kv_sharded:
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -6
+        for got, want in ((dk_sum, full[1].grad), (dv_sum, full[2].grad)):
+            scale = float(want.float().abs().max())
+            assert float((got - want.float()).abs().max()) <= tol * scale

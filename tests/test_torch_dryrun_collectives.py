@@ -1,0 +1,164 @@
+"""The dry-run's collective bytes (``repro_torch.launch.dryrun
+.count_collectives``: the port's sharded step traced on ``meta`` DTensors
+over a fake group) against XLA's partitioned HLO of the JAX package's
+step, the witness.
+
+The JAX side runs in a subprocess with 8 forced host devices, on meshes
+made by ``jax.make_mesh`` with Auto axes (the package's own
+``make_production_mesh`` gives Explicit ones in this JAX, which its
+``constrain`` refuses): the train step is ``repro.launch.dryrun
+._lower_cell`` under ``shard_ctx`` and ``force_unroll``, compiled, and its
+HLO read here by a tuple-aware reader with the JAX package's volume model
+(result bytes of all-gather, all-to-all and collective-permute; twice
+them for all-reduce and reduce-scatter; ``*-done`` skipped), which sums
+every element of a collective's result tuple.
+
+  * Pure data parallelism (llama3.2-3b smoke, B 64, S 256, f32, mesh
+    (8, 1), ``fsdp_params=False``) is held exactly: the port's count at
+    depths 2 and 4 within 0.1% of XLA's, all of it all-reduce.
+  * JAX's own ``parse_collectives`` reads 0 bytes on that HLO: its
+    pattern stops at the ``/*index=5*/`` comments XLA prints inside a
+    tuple, so the combined gradient all-reduce is skipped (a fault of the
+    reference, pinned here).
+  * On the other meshes the two programs legitimately differ (DTensor
+    reduce-scatters FSDP gradients where XLA's CPU partitioner
+    all-reduces them, and issues no collective-permute): their per-op
+    bytes are printed side by side, with no bound.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import AbstractMesh
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+B, S = 64, 256
+# (arch, mesh, fsdp_params, depth)
+CASES = [("llama3.2-3b", (8, 1), False, 2),
+         ("llama3.2-3b", (8, 1), False, 4),
+         ("llama3.2-3b", (8, 1), True, 2),
+         ("llama3.2-3b", (1, 8), True, 2),
+         ("llama3.2-3b", (2, 4), True, 2),
+         ("qwen2-moe-a2.7b", (8, 1), False, 2)]
+PURE_DP = [c for c in CASES if c[0] == "llama3.2-3b" and c[1] == (8, 1)
+           and not c[2]]
+
+_DTYPE_BYTES = {"f64": 8, "f32": 4, "f16": 2, "bf16": 2, "s64": 8, "u64": 8,
+                "s32": 4, "u32": 4, "s16": 2, "u16": 2, "s8": 1, "u8": 1,
+                "pred": 1, "c64": 8, "c128": 16}
+_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute")
+_INSTR = re.compile(r"^\s*(?:ROOT\s+)?%?[\w.\-]+\s*=\s*(.*?)\s*\b("
+                    + "|".join(_OPS) + r")(-start|-done)?\(")
+_ARRAY = re.compile(r"\b([a-z][a-z0-9]*)\[([\d,]*)\]")
+
+
+def read_collectives(hlo: str) -> dict:
+    """{op: bytes} of one device's collectives in post-SPMD HLO text, every
+    element of a result tuple summed, by the JAX package's volume model."""
+    per_op = {}
+    for line in hlo.splitlines():
+        m = _INSTR.match(line)
+        if m is None or m.group(3) == "-done":
+            continue
+        shape, op = m.group(1), m.group(2)
+        nbytes = 0
+        for dt, dims in _ARRAY.findall(shape):
+            n = _DTYPE_BYTES.get(dt, 4)
+            for d in filter(None, dims.split(",")):
+                n *= int(d)
+            nbytes += n
+        factor = 2 if op in ("all-reduce", "reduce-scatter") else 1
+        per_op[op] = per_op.get(op, 0) + factor * nbytes
+    return per_op
+
+
+_JAX_CODE = """
+    import json
+    import jax
+    from jax.sharding import AxisType
+    from repro.configs import get_config
+    from repro.configs.base import ShapeConfig
+    from repro.distributed.sharding import shard_ctx
+    from repro.launch.dryrun import _lower_cell, parse_collectives
+    from repro.models.unroll import force_unroll
+    out = []
+    for arch, mesh, fsdp, depth in CASES:
+        m = jax.make_mesh(tuple(mesh), ("data", "model"),
+                          axis_types=(AxisType.Auto, AxisType.Auto))
+        cfg = get_config(arch, smoke=True).replace(
+            fsdp_params=fsdp, num_layers=depth, param_dtype="float32",
+            compute_dtype="float32")
+        with shard_ctx(cfg, m), force_unroll(True):
+            lowered, _ = _lower_cell(cfg, ShapeConfig("x", "train", S, B), m)
+            hlo = lowered.compile().as_text()
+        per_op, total = parse_collectives(hlo)
+        out.append({"hlo": hlo, "jax_total": total,
+                    "jax_per_op": {k: v["bytes"] for k, v in per_op.items()}})
+    print("WITNESS" + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def witness():
+    """Per case: XLA's HLO read tuple-aware, JAX's ``parse_collectives``
+    reading, and the port's ``count_collectives``."""
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    code = (f"CASES = {CASES!r}\nS, B = {S}, {B}\n"
+            + textwrap.dedent(_JAX_CODE))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=900, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = next(ln for ln in r.stdout.splitlines()
+                if ln.startswith("WITNESS"))
+    xla = json.loads(line[len("WITNESS"):])
+    out = {}
+    with dryrun.CollectiveTracer() as tracer:
+        for case, x in zip(CASES, xla):
+            arch, mesh, fsdp, depth = case
+            cfg = get_config(arch, smoke=True).replace(
+                fsdp_params=fsdp, num_layers=depth, param_dtype="float32",
+                compute_dtype="float32")
+            port = dryrun.count_collectives(
+                cfg, ShapeConfig("x", "train", S, B),
+                AbstractMesh(mesh, ("data", "model")), tracer)
+            out[case] = {"xla": read_collectives(x["hlo"]),
+                         "jax_total": x["jax_total"],
+                         "jax_per_op": x["jax_per_op"],
+                         "port": port["per_op"]}
+    return out
+
+
+@pytest.mark.parametrize("case", PURE_DP, ids=lambda c: f"depth{c[3]}")
+def test_pure_data_parallel_matches_xla(case, witness):
+    w = witness[case]
+    assert set(w["xla"]) == {"all-reduce"} == set(w["port"])
+    xla, port = w["xla"]["all-reduce"], w["port"]["all-reduce"]
+    assert abs(port - xla) <= 1e-3 * xla, (port, xla)
+
+
+def test_jax_parse_collectives_misses_the_tuple_all_reduce(witness):
+    for case in PURE_DP:
+        assert witness[case]["jax_total"] == 0
+        assert witness[case]["xla"]["all-reduce"] > 0
+
+
+def test_other_meshes_side_by_side(witness):
+    for case, w in witness.items():
+        print(f"[witness] {case}: port {w['port']}  xla {w['xla']}  "
+              f"jax parse_collectives {w['jax_per_op']}")
+        assert set(w["port"]) <= set(_OPS)
+        assert all(v >= 0 for v in w["port"].values())

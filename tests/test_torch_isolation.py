@@ -57,7 +57,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "configs.qwen2_vl_2b", "train.optimizer", "train.trainer",
                  "train.data", "launch.group", "launch.dryrun",
                  "train.compression", "distributed.pp",
-                 "distributed.sharding"):
+                 "distributed.sharding", "models.convert",
+                 "models.layers"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["leaked"] == []
 
