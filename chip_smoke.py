@@ -313,8 +313,10 @@ Phases; any failure exits non-zero:
    restart's apart), each episode's fleet throughput beside the
    reference's with each rank's own MEASURE wall; no rank may import JAX
    or the JAX package;
-18. the GPipe pipeline over a stage group — llama3.2-3b's 28 seeded bf16
-   layers (phase 15's draw) in 2 stages of 14, 8 microbatches of 1 x 128
+18. the GPipe pipeline over a stage group — llama3.2-3b at full width,
+   ``PIPE_GROUP``'s 8 seeded bf16 layers in 2 stages of 4 (cut from 28
+   to make room for phase 19's zamba2 and whisper runs within the time
+   limit), 8 microbatches of 1 x 128
    tokens, forward and the hand-written backward of ``(out.float() **
    2).mean()``: first host-simulated in this process on the card (the
    reference: a warm-up run, then a timed one; its values kept on the
@@ -324,7 +326,7 @@ Phases; any failure exits non-zero:
    stage's parameter gradients and the gradient of the microbatches
    must match the reference's digests (a mismatch prints the first
    differing leaf and its max |diff|); ``flash_attention`` and its
-   backward launched 224 times each, summed over the ranks, as in the
+   backward launched 64 times each, summed over the ranks, as in the
    reference, and no other kernel; each rank's forward + backward wall
    beside the reference's, the bytes each boundary between ticks sends
    and the phase's seconds; no rank may import JAX or the JAX package.
@@ -338,25 +340,31 @@ Phases; any failure exits non-zero:
    card on a (1, 2) ``(data, model)`` mesh (``gloo-host``: DTensor's
    collectives of card tensors run gloo's on a host copy of the buffer,
    ``launch.group.stage_collectives_through_host``; gloo faults on card
-   tensors in the card's PyTorch): llama3.2-3b at full width
-   (``SHARDED_LM``: 4 bf16 layers of tame seeded weights, each N(0, 1 /
-   its whole fan-in; a batch of 2 x 1024 tokens), 3 AdamW steps of the
-   step sharded as DTensors (12 q and 4 kv heads a rank, the vocab and
-   the MLP split in two), held to the same steps unsharded in this
-   process on the card: the first loss within ``SHARDED_LOSS_REL``,
-   every gradient leaf within ``SHARDED_GRAD_REL`` (||g - g_ref|| /
-   ||g_ref||) and every parameter leaf after the steps within
-   ``SHARDED_PARAM_REL`` of the unsharded step's own move (bf16: the
-   partial sums over the model axis are rounded and added in another
+   tensors in the card's PyTorch) for each of ``SHARDED_RUNS``:
+   llama3.2-3b at full width (``SHARDED_LM``: 4 bf16 layers of tame
+   seeded weights, each N(0, 1 / its whole fan-in; a batch of 2 x 1024
+   tokens; 12 q and 4 kv heads a rank, the vocab and the MLP split in
+   two), zamba2-7b (``SHARDED_ZAMBA``: 6 Mamba2 layers and one
+   application of the shared attention block, 16 of 32 heads of Dh 112
+   a rank, the SSD scan per head shard) and whisper-medium
+   (``SHARDED_WHISPER``: 2 encoder and 2 decoder layers over 2 x 1,500
+   frames and 2 x 448 tokens, 8 of 16 heads a rank), the step sharded as
+   DTensors for 3 or 2 AdamW steps and held to the same steps unsharded
+   in this process on the card: the first loss within
+   ``SHARDED_LOSS_REL``, every gradient leaf within ``SHARDED_GRAD_REL``
+   (||g - g_ref|| / ||g_ref||) and every parameter leaf after the steps
+   within ``SHARDED_PARAM_REL`` of the unsharded step's own move (bf16:
+   the partial sums over the model axis are rounded and added in another
    order; ``scripts/sharded_fault.py`` plants faults that these bounds
    catch), the bytes each rank's collectives moved in its first step,
-   by op, equal to (a)'s trace of the same config, shape and mesh, the
-   hand-written ``flash_attention`` forward and backward launched on each
-   rank's head shard (twice and once a layer a step: the ``dots``
-   recompute), each rank's peak allocation beside the unsharded step's
-   and its wall (this run checks the step and times no rank: its
-   collectives' buffers pass through the host); no rank may import JAX
-   or the JAX package.
+   by op, equal to the ``meta`` trace of the same config, shape and
+   mesh, the hand-written ``flash_attention`` forward and backward
+   launched on each rank's head shard (the run's ``flash``: llama3.2-3b
+   and whisper twice and once a layer a step, the ``dots`` recompute;
+   zamba2's shared block once and once), each rank's peak allocation
+   beside the unsharded step's and its wall (this run checks the step
+   and times no rank: its collectives' buffers pass through the host);
+   no rank may import JAX or the JAX package.
    ``scripts/group_nccl.py`` step 7 runs it over 4 ``nccl`` cards as
    (2, 2) and times each rank's step.
 
@@ -367,7 +375,8 @@ prefills and the forward's ``train_launches`` of phase 14; the backward's
 own entry, ``flash_attention_bwd``; the GNN training kernels'
 ``group_launches`` of phase 16 and ``live_launches`` of phase 17, summed
 over the ranks; both flash entries' ``pipeline_group_launches`` of phase
-18 and the ``sharded_launches`` of phase 19) and the last line is ``{"ok": true,
+18 and the ``sharded_launches`` of phase 19, summed over its runs and
+ranks, with ``sharded_launches_a_rank`` by arch) and the last line is ``{"ok": true,
 "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -4999,18 +5008,20 @@ def phase_live(torch, stamp: str) -> dict:
           f"to both results {t_group:.1f} s)  [{stamp}]", flush=True)
     return {"launches": launches, "seconds": secs}
 
-# phase 18: the GPipe pipeline over a stage group: llama3.2-3b's 28 seeded
-# bf16 layers (phase 15's draw: seeds 5 and 6) in 2 stages of 14
+# phase 18: the GPipe pipeline over a stage group: llama3.2-3b's seeded
+# bf16 layers (seeds 5 and 6) in 2 stages: 8 layers, cut from 28 so that
+# the script keeps to its time limit with phase 19's three runs (the
+# schedule, the send/recv between ticks and the hand-written backward are
+# the same at any depth; phase 15 still runs the 28-layer pipeline)
 PIPE_GROUP = {"stages": 2, "micro": PIPE_MICRO, "loss": "mean", "runs": 2,
-              "lm": {"arch": TRAIN_ARCH, "num_layers": 28,
+              "lm": {"arch": TRAIN_ARCH, "num_layers": 8,
                      "dtype": "bfloat16", "seed": 5, "x_seed": 6,
                      "micro": PIPE_MICRO, "mb": 1, "tokens": PIPE_TOKENS}}
 
 
 def _pipeline_launches(launches: dict, label: str) -> list:
-    """Where a pipeline run's launches are not 224 forward and 224
-    backward ``flash_attention`` (28 layers x 8 microbatches) and nothing
-    else."""
+    """Where a pipeline run's launches are not ``flash_attention`` forward
+    and backward once a layer and microbatch each and nothing else."""
     want = PIPE_GROUP["lm"]["num_layers"] * PIPE_GROUP["micro"]
     return [f"{label}: {k} launched {n}, expected "
             f"{want if k.startswith('flash_attention') else 0}"
@@ -5105,7 +5116,25 @@ def phase_pipeline(torch, stamp: str, backend: str = "gloo",
 # gradient)
 SHARDED_LM = {"arch": TRAIN_ARCH, "num_layers": 4, "dtype": "bfloat16",
               "seed": 11, "init": "fan_in", "batch": 2, "seq": 1024,
-              "mesh": (1, 2), "steps": 3}
+              "mesh": (1, 2), "steps": 3, "flash": (8, 4)}
+# the hybrid and the encoder-decoder at full width, as SHARDED_LM: zamba2-7b
+# with 6 Mamba2 layers (one application of the shared attention block,
+# Dh 112, 16 of 32 heads a rank), whisper-medium with 2 + 2 layers over
+# 1,500 frames and 2 x 448 tokens (its vocabulary of 51,865 is odd, so the
+# embedding stays whole on the model axis).  ``flash``: the forward and
+# backward flash_attention launches a rank in the first step (the "dots"
+# recompute runs a remat'd layer's forward twice; zamba2's shared block is
+# not remat'd)
+SHARDED_ZAMBA = {"arch": "zamba2-7b", "num_layers": 6, "dtype": "bfloat16",
+                 "seed": 13, "init": "fan_in", "batch": 2, "seq": 1024,
+                 "mesh": (1, 2), "steps": 2, "flash": (1, 1),
+                 "bounds": {"grad": 0.09, "param": 0.5}}
+SHARDED_WHISPER = {"arch": "whisper-medium", "num_layers": 2,
+                   "overrides": {"encoder_layers": 2}, "dtype": "bfloat16",
+                   "seed": 17, "init": "fan_in", "batch": 2,
+                   "seq": WHISPER_TOKENS, "mesh": (1, 2), "steps": 2,
+                   "flash": (8, 4)}
+SHARDED_RUNS = (SHARDED_LM, SHARDED_ZAMBA, SHARDED_WHISPER)
 # a rank against the unsharded bf16 step from the same weights: the first
 # step's loss, relative; each gradient leaf's ||g - g_ref|| / ||g_ref||;
 # each parameter leaf's ||p - p_ref|| after the steps over the unsharded
@@ -5115,6 +5144,16 @@ SHARDED_LM = {"arch": TRAIN_ARCH, "num_layers": 4, "dtype": "bfloat16",
 # (the norm scales' all-reduce left out) and 0.105 (dK 10% off).  AdamW's
 # sign-like steps hide both from the parameters (0.092, 0.101): their
 # bound catches a gross fault only (a leaf left unchanged reads 1).
+# whisper-medium reads within them (gradients 1.27e-2 sound, 0.73 and
+# 0.1025 with the faults).  zamba2-7b reads wider (seeds 13 / 29:
+# gradients 6.64e-2 / 7.19e-2 sound at ``conv_w``, 0.75 / 0.74 and
+# 0.113 / 0.115 with the faults; parameters 0.306 / 0.319 sound), so its
+# run carries its own ``bounds`` between those readings.  The width is the
+# bf16 step's own: the unsharded bf16 step is itself 0.099 / 0.102 from an
+# f32 witness at ``conv_w``, the sharded one 0.101 / 0.112, and the x
+# columns, which no rank sums with another's, read as wide as B and C
+# (scripts/sharded_grad_error.py; PERF.md).  Its parameter bound,
+# as the shared one, catches a gross fault only.
 SHARDED_LOSS_REL = 2 ** -10
 SHARDED_GRAD_REL = 2 ** -4
 SHARDED_PARAM_REL = 2 ** -2
@@ -5150,65 +5189,96 @@ def _sharded_counts(stamp: str, tracer) -> list:
 
 
 def phase_sharded(torch, stamp: str, devices=("cuda:0", "cuda:0"),
-                  backend: str = "gloo-host", spec=None,
+                  backend: str = "gloo-host", specs=None,
                   cells: bool = True, rank=None) -> dict:
     """Phase 19: (a) the dry-run's collective bytes (where ``cells``), (b)
-    the sharded step (``spec``, ``SHARDED_LM`` by default) as a rank
-    (``rank``, ``sharded_lm_rank`` by default) on each of ``devices`` over
-    ``backend``, held to the unsharded step on ``devices[0]``.  Over
-    ``gloo-host`` every collective's buffer passes through the host, so
-    that run checks the step and times no rank (``scripts/group_nccl.py``
-    step 7 times them over ``nccl``)."""
+    the sharded step of each of ``specs`` (``SHARDED_RUNS`` by default) as
+    a rank (``rank``, ``sharded_lm_rank`` by default) on each of
+    ``devices`` over ``backend``, held to the unsharded step on
+    ``devices[0]``: the references first, in this process (each kept in a
+    temp file), then one spawn whose ranks run every spec in turn
+    (``launch.group.sharded_runs_rank``).  Over ``gloo-host`` every
+    collective's buffer passes through the host, so that run checks the
+    step and times no rank (``scripts/group_nccl.py`` step 7 times them
+    over ``nccl``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
-    from repro_torch.launch.group import (HOST_STAGED, lm_config,
-                                          sharded_lm_rank, spawn_partitions)
+    from repro_torch.launch.group import (lm_config, sharded_lm_rank,
+                                          sharded_runs_rank,
+                                          spawn_partitions)
     from repro_torch.launch.mesh import AbstractMesh
     t_phase = time.perf_counter()
-    spec = spec or SHARDED_LM
-    n = len(devices)
-    mesh = AbstractMesh(spec["mesh"], ("data", "model"))
+    specs = specs or SHARDED_RUNS
     with dryrun.CollectiveTracer() as tracer:
         cells = _sharded_counts(stamp, tracer) if cells else []
-        want = dryrun.count_collectives(
+        wants = [dryrun.count_collectives(
             lm_config(spec),
             ShapeConfig("sharded", "train", spec["seq"], spec["batch"]),
-            mesh, tracer)
-    torch.cuda.empty_cache()
-    ref = sharded_lm_rank(0, devices[0], spec)
+            AbstractMesh(spec["mesh"], ("data", "model")), tracer)
+            for spec in specs]
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
     try:
-        torch.save({"grads": ref.pop("grads"), "params": ref.pop("params"),
-                    "moves": ref["moves"]}, tmp / "ref.pt")
+        refs = []
+        for i, spec in enumerate(specs):
+            torch.cuda.empty_cache()
+            ref = sharded_lm_rank(0, devices[0], spec)
+            torch.save({"grads": ref.pop("grads"),
+                        "params": ref.pop("params"), "moves": ref["moves"]},
+                       tmp / f"ref{i}.pt")
+            refs.append(ref)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ranks = spawn_partitions(rank or sharded_lm_rank, n, backend,
-                                 list(devices),
-                                 args=({**spec, "ref": str(tmp / "ref.pt")},),
-                                 timeout=GROUP_JOIN_S)
+        ranks = spawn_partitions(
+            sharded_runs_rank, len(devices), backend, list(devices),
+            args=([{**spec, "ref": str(tmp / f"ref{i}.pt")}
+                   for i, spec in enumerate(specs)], rank),
+            timeout=GROUP_JOIN_S)
         t_group = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    L = spec["num_layers"]
-    flash = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    print(f"[sharded] {len(devices)} {backend} ranks: spawn to every "
+          f"result of {len(specs)} runs {t_group:.1f} s  [{stamp}]",
+          flush=True)
+    runs = [_hold_sharded(stamp, devices, backend, spec, want, ref,
+                          [r[i] for r in ranks])
+            for i, (spec, want, ref) in enumerate(zip(specs, wants, refs))]
+    secs = time.perf_counter() - t_phase
+    print(f"[sharded] phase 19 in {secs:.1f} s  [{stamp}]", flush=True)
+    return {"cells": cells, "runs": runs,
+            "flash_attention": sum(r["flash_attention"] for r in runs),
+            "flash_attention_bwd": sum(r["flash_attention_bwd"]
+                                       for r in runs),
+            "seconds": secs}
+
+
+def _hold_sharded(stamp: str, devices, backend: str, spec: dict,
+                  want: dict, ref: dict, ranks: list) -> dict:
+    """Phase 19 (b) of one ``spec``: each rank's result held to the
+    unsharded step ``ref`` and to the traced bytes ``want``."""
+    from repro_torch.launch.group import HOST_STAGED
+    n = len(devices)
+    arch, L = spec["arch"], spec["num_layers"]
+    fwd, bwd = spec["flash"]
+    bounds = {"grad_err": SHARDED_GRAD_REL, "param_err": SHARDED_PARAM_REL}
+    bounds.update({f"{k}_err": v for k, v in spec.get("bounds", {}).items()})
+    flash = {"flash_attention": fwd, "flash_attention_bwd": bwd}
     bad = []
     for r, got in enumerate(ranks):
         loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
         worst = {key: sorted(got[key].items(), key=lambda kv: -kv[1])[:3]
                  for key in ("grad_err", "param_err")}
-        print(f"[sharded] rank {r}: loss {got['loss']:.6f} against the "
-              f"unsharded step's {ref['loss']:.6f} (relative {loss_rel:.3e}, "
-              f"bound {SHARDED_LOSS_REL:.3e}); worst gradient leaves "
-              f"||g - g_ref|| / ||g_ref|| "
+        print(f"[sharded] {arch} rank {r}: loss {got['loss']:.6f} against "
+              f"the unsharded step's {ref['loss']:.6f} (relative "
+              f"{loss_rel:.3e}, bound {SHARDED_LOSS_REL:.3e}); worst "
+              f"gradient leaves ||g - g_ref|| / ||g_ref|| "
               f"{[(k, f'{v:.3e}') for k, v in worst['grad_err']]} (bound "
-              f"{SHARDED_GRAD_REL:.3e}); worst parameter leaves after "
+              f"{bounds['grad_err']:.3e}); worst parameter leaves after "
               f"{spec['steps']} steps, ||p - p_ref|| over the unsharded "
               f"step's move {[(k, f'{v:.3e}') for k, v in worst['param_err']]}"
-              f" (bound {SHARDED_PARAM_REL:.3e})", flush=True)
+              f" (bound {bounds['param_err']:.3e})", flush=True)
         if not loss_rel <= SHARDED_LOSS_REL:
             bad.append(f"rank {r}: loss {got['loss']} against {ref['loss']}")
-        for key, bound in (("grad_err", SHARDED_GRAD_REL),
-                           ("param_err", SHARDED_PARAM_REL)):
+        for key, bound in bounds.items():
             k, v = worst[key][0]
             if not v <= bound:
                 bad.append(f"rank {r}: {key} of {k} {v:.3e} past {bound:.3e}")
@@ -5217,7 +5287,7 @@ def phase_sharded(torch, stamp: str, devices=("cuda:0", "cuda:0"),
                        f"trace counts {want['per_op']}")
         if got["launches"] != flash:
             bad.append(f"rank {r}: launches {got['launches']}, expected "
-                       f"{2 * L} forward and {L} backward")
+                       f"{fwd} forward and {bwd} backward")
         if {"jax", "repro"} & set(got["modules"]):
             bad.append(f"rank {r} imported jax or repro")
     if ref["launches"] != flash:
@@ -5227,30 +5297,29 @@ def phase_sharded(torch, stamp: str, devices=("cuda:0", "cuda:0"),
     walls = ("no rank timed: each collective's buffer passes through the "
              "host" if backend == HOST_STAGED else
              f"step walls (ms; {spec['steps']} steps) by rank {ms}")
-    print(f"[sharded] {spec['arch']} full width, {L} bf16 layers "
-          f"({spec.get('init', 'seeded')} weights), batch {spec['batch']} "
+    print(f"[sharded] {arch} full width, {L} bf16 layers"
+          f"{'' if not spec.get('overrides') else ' ' + str(spec['overrides'])}"
+          f" ({spec.get('init', 'seeded')} weights), batch {spec['batch']} "
           f"x {spec['seq']}, mesh (data, model) = {spec['mesh']} as {n} "
           f"{backend} ranks on {', '.join(devices)}: {walls}; unsharded "
           f"{[round(w * 1e3, 1) for w in ref['seconds']]}; peak allocation "
           f"by rank {peaks} GiB, unsharded "
-          f"{ref['peak_bytes'] / 2**30:.2f} GiB; spawn to every result "
-          f"{t_group:.1f} s  [{stamp}]", flush=True)
+          f"{ref['peak_bytes'] / 2**30:.2f} GiB  [{stamp}]", flush=True)
     moved = [r["traffic"]["per_op"] for r in ranks]
     calls = [r["traffic"]["counts"] for r in ranks]
-    print(f"[sharded] bytes a rank's collectives moved in its first step: "
-          f"{moved} ({calls} calls); the dry-run's trace of the same step on "
-          f"meta: {want['per_op']}; launches by rank "
+    print(f"[sharded] {arch}: bytes a rank's collectives moved in its first "
+          f"step: {moved} ({calls} calls); the dry-run's trace of the same "
+          f"step on meta: {want['per_op']}; launches by rank "
           f"{[r['launches'] for r in ranks]}  [{stamp}]", flush=True)
     if bad:
-        fail(f"phase 19: {bad[0]}")
-    secs = time.perf_counter() - t_phase
-    print(f"[sharded] phase 19 in {secs:.1f} s  [{stamp}]", flush=True)
-    return {"cells": cells,
+        fail(f"phase 19 ({arch}): {bad[0]}")
+    return {"arch": arch,
+            "launches": [r["launches"] for r in ranks],
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
             "flash_attention": sum(r["launches"]["flash_attention"]
                                    for r in ranks),
             "flash_attention_bwd": sum(r["launches"]["flash_attention_bwd"]
-                                       for r in ranks),
-            "seconds": secs}
+                                       for r in ranks)}
 
 
 def main() -> int:
@@ -5337,6 +5406,11 @@ def main() -> int:
     sharded = phase_sharded(torch, stamp)
     flash["sharded_launches"] = sharded["flash_attention"]
     train_lm["entry"]["sharded_launches"] = sharded["flash_attention_bwd"]
+    for key, entry in (("flash_attention", flash),
+                       ("flash_attention_bwd", train_lm["entry"])):
+        entry["sharded_launches_a_rank"] = {
+            run["arch"]: [r[key] for r in run["launches"]]
+            for run in sharded["runs"]}
     entry["live_launches"] = live["cache_gather"]
     entries[1]["live_launches"] = live["gather_aggregate"]
     entries[2]["live_launches"] = live["neighbor_agg"]

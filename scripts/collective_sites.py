@@ -11,7 +11,17 @@ each and comparing the two tallies names the redistributions that differ.
 
 The default step is that of ``chip_smoke.py``'s phase 19: llama3.2-3b at
 full width, 4 bf16 layers, a batch of 2 x 1024 tokens on a (1, 2)
-(data, model) mesh.  Needs no card.
+(data, model) mesh.  ``--cell ARCH SHAPE single|multi`` traces a dry-run
+cell instead (its config on the (16, 16) or (2, 16, 16) production mesh):
+the sites of its first depth probe, and both probes' bytes extrapolated
+to full depth as ``launch.dryrun`` does.  ``--src DIR`` imports the port
+from another checkout's ``src`` (say the parent commit unpacked by ``git
+archive``), so one script traces both versions:
+
+    PYTHONPATH=src python scripts/collective_sites.py \
+        --cell mamba2-1.3b train_4k single --src _archive/parent/src
+
+Needs no card.
 """
 from __future__ import annotations
 
@@ -21,7 +31,7 @@ import sys
 from collections import defaultdict
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def tally(sites: list) -> dict:
@@ -57,6 +67,31 @@ def trace(args) -> dict:
             "tally": tally(got["sites"])}
 
 
+def trace_cell(args) -> dict:
+    import torch
+
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    arch, shape, kind = args.cell
+    mesh = make_production_mesh(multi_pod=kind == "multi")
+    (c1, u1), (c2, u2), uf = dryrun.depth_probe_cfgs(get_config(arch))
+    with dryrun.CollectiveTracer() as tracer:
+        tracer.timeout = args.timeout
+        p1 = tracer.count(c1, SHAPES_BY_NAME[shape], mesh, True)
+        p2 = tracer.count(c2, SHAPES_BY_NAME[shape], mesh)
+    ops = sorted(set(p1["per_op"]) | set(p2["per_op"]))
+    full = {op: dryrun._extrapolate(p1["per_op"].get(op, 0),
+                                    p2["per_op"].get(op, 0), u1, u2, uf)
+            for op in ops}
+    return {"torch": torch.__version__, "cell": args.cell,
+            "mesh": list(mesh.sizes), "per_op": p1["per_op"],
+            "counts": p1["counts"], "total": p1["total"],
+            "seconds": p1["seconds"], "probe2_per_op": p2["per_op"],
+            "probe2_seconds": p2["seconds"], "full_per_op": full,
+            "full_total": sum(full.values()), "tally": tally(p1["sites"])}
+
+
 def compare(a: dict, b: dict) -> None:
     print(f"A torch {a['torch']}: {a['total']} B {a['counts']}")
     print(f"B torch {b['torch']}: {b['total']} B {b['counts']}")
@@ -79,14 +114,28 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="write the trace as JSON")
     ap.add_argument("--compare", nargs=2, default=None, metavar="JSON",
                     help="print the sites where two written traces differ")
+    ap.add_argument("--cell", nargs=3, default=None,
+                    metavar=("ARCH", "SHAPE", "MESH"),
+                    help="a dry-run cell on the single or multi production "
+                         "mesh: its first depth probe's sites and both "
+                         "probes extrapolated to full depth")
+    ap.add_argument("--src", default=str(SRC),
+                    help="the checkout's src to import the port from")
+    ap.add_argument("--timeout", type=float, default=900.0,
+                    help="seconds a trace may take")
     args = ap.parse_args()
     if args.compare:
         a, b = (json.loads(Path(p).read_text()) for p in args.compare)
         compare(a, b)
         return 0
-    res = trace(args)
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    res = trace_cell(args) if args.cell else trace(args)
     print(f"torch {res['torch']}: {res['total']} B a device, "
           f"{res['per_op']}, {res['counts']} calls, {res['seconds']:.1f} s")
+    if args.cell:
+        print(f"second probe {res['probe2_per_op']} in "
+              f"{res['probe2_seconds']:.1f} s; full depth "
+              f"{res['full_total']:.0f} B a device, {res['full_per_op']}")
     for key, (n, nbytes) in sorted(res["tally"].items()):
         print(f"  {key}: {n} calls, {nbytes} B")
     if args.out:

@@ -2,7 +2,7 @@
 """The multi-partition run over ``nccl``, a card a rank, held to the same
 run on the host-simulated mesh; needs two CUDA cards (step 7 four).
 
-  python3 scripts/group_nccl.py [--steps 1 2 3 4 5 6 7]
+  python3 scripts/group_nccl.py [--steps 1 2 3 4 5 6 7] [--arch ARCH ...]
 
 1. The launcher as a user runs it: ``python -m repro_torch.launch.train``
    with ``chip_smoke.py``'s phase-9 arguments (graphsage-products at full
@@ -32,16 +32,18 @@ run on the host-simulated mesh; needs two CUDA cards (step 7 four).
    host-simulated in a child that sees one card, each episode's fleet
    throughput beside the reference's.
 6. ``chip_smoke.py``'s phase 18 over 2 ``nccl`` ranks, a card each: the
-   GPipe pipeline of llama3.2-3b's 28 seeded bf16 layers in 2 stages of 14
+   GPipe pipeline of llama3.2-3b's 8 seeded bf16 layers in 2 stages of 4
    (``launch.group.pipeline_rank``, stage r on ``cuda:r``), forward and
    backward, held by SHA-256 digests to the host-simulated pipeline run
    first in this process on ``cuda:0``, the launches summed over the
-   ranks (224 forward and 224 backward ``flash_attention``), each rank's
+   ranks (64 forward and 64 backward ``flash_attention``), each rank's
    wall beside the reference's.
 
 7. ``chip_smoke.py``'s phase 19 (b) over 4 ``nccl`` ranks, a card each,
-   as a (2, 2) ``(data, model)`` mesh: llama3.2-3b at full width, 4
-   seeded bf16 layers, the train step sharded as DTensors
+   as a (2, 2) ``(data, model)`` mesh, for each ``--arch`` of its
+   ``SHARDED_RUNS`` (llama3.2-3b by default; zamba2-7b and
+   whisper-medium): the arch at full width and the run's depth (llama3.2-3b
+   4 seeded bf16 layers), the train step sharded as DTensors
    (``launch.group.sharded_lm_rank``: batch rows and, on the model axis,
    heads, vocab and MLP split in two; FSDP gathers and reduce-scatters
    over the data axis), held as phase 19 holds its gloo ranks to the
@@ -127,7 +129,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, nargs="+",
                     default=[1, 2, 3, 4, 5, 6, 7], choices=range(1, 8))
-    steps = set(ap.parse_args().steps)
+    ap.add_argument("--arch", nargs="+", default=["llama3.2-3b"],
+                    help="step 7's runs, by arch (chip_smoke.SHARDED_RUNS)")
+    args = ap.parse_args()
+    steps = set(args.steps)
     if 3 in steps:
         steps.add(2)
     import torch
@@ -155,12 +160,12 @@ def main() -> int:
     for step, run in ((1, _launcher), (2, _group_run), (4, _collectives),
                       (5, _live), (6, _pipeline), (7, _sharded)):
         if step in steps:
-            run(torch, cs, stamp, env, steps)
+            run(torch, cs, stamp, env, steps, args)
     print(f"[card] {stamp}")
     return 0
 
 
-def _launcher(torch, cs, stamp, env, steps):
+def _launcher(torch, cs, stamp, env, steps, args):
     """1. the launcher."""
     ckpt = tempfile.mkdtemp(prefix="group_nccl_cli_")
     t0 = time.perf_counter()
@@ -181,7 +186,7 @@ def _launcher(torch, cs, stamp, env, steps):
         cs.fail("the launcher over nccl failed")
 
 
-def _group_run(torch, cs, stamp, env, steps):
+def _group_run(torch, cs, stamp, env, steps, args):
     """2. the reference on one card and, when asked, 3. the group run held
     to it."""
     from repro_torch.launch.group import spawn_partitions
@@ -244,7 +249,7 @@ def _group_run(torch, cs, stamp, env, steps):
         cs.fail(f"the nccl group run differs: {bad[0]}")
 
 
-def _collectives(torch, cs, stamp, env, steps):
+def _collectives(torch, cs, stamp, env, steps, args):
     """4. the collectives over 2 nccl ranks."""
     from repro_torch.launch.group import collectives_rank, spawn_partitions
     inputs = cs._group_shim_inputs(torch, 2, 18)
@@ -259,7 +264,7 @@ def _collectives(torch, cs, stamp, env, steps):
         cs.fail(f"nccl collectives: {bad[0]}")
 
 
-def _live(torch, cs, stamp, env, steps):
+def _live(torch, cs, stamp, env, steps, args):
     """5. phase 17 (a) and (b) over 2 nccl ranks."""
     from repro_torch.launch.group import spawn_partitions
     from repro_torch.launch.train import autotune_rank, build_parser
@@ -289,15 +294,21 @@ def _live(torch, cs, stamp, env, steps):
         cs.fail(f"the nccl live run differs: {bad[0]}")
 
 
-def _pipeline(torch, cs, stamp, env, steps):
+def _pipeline(torch, cs, stamp, env, steps, args):
     """6. phase 18 over 2 nccl ranks, a card each."""
     cs.phase_pipeline(torch, stamp, "nccl", ("cuda:0", "cuda:1"))
 
 
-def _sharded(torch, cs, stamp, env, steps):
-    """7. phase 19 (b) over 4 nccl ranks as a (2, 2) mesh."""
+def _sharded(torch, cs, stamp, env, steps, args):
+    """7. phase 19 (b) over 4 nccl ranks as a (2, 2) mesh, each --arch."""
+    runs = {spec["arch"]: spec for spec in cs.SHARDED_RUNS}
+    unknown = set(args.arch) - set(runs)
+    if unknown:
+        raise SystemExit(f"no phase-19 run of {sorted(unknown)}: "
+                         f"{sorted(runs)}")
     cs.phase_sharded(torch, stamp, tuple(f"cuda:{r}" for r in range(4)),
-                     "nccl", {**cs.SHARDED_LM, "mesh": (2, 2)}, cells=False)
+                     "nccl", [{**runs[a], "mesh": (2, 2)} for a in args.arch],
+                     cells=False)
 
 
 if __name__ == "__main__":

@@ -2,19 +2,24 @@
 """Plants faults in the sharded LM step and checks that ``chip_smoke.py``'s
 phase 19 (b) fails on each; needs one CUDA card.
 
-    python3 scripts/sharded_fault.py
+    python3 scripts/sharded_fault.py [--arch llama3.2-3b zamba2-7b ...] \
+        [--seed N]
 
-Each fault runs phase 19 (b) as the script runs it (llama3.2-3b at full
-width, 4 bf16 layers, 2 ``gloo-host`` ranks on a (1, 2) mesh, held to the
-unsharded step), with each rank's code changed in its own process:
+Each fault runs phase 19 (b) of each run in ``SHARDED_RUNS`` (or those of
+``--arch``) as the script runs it (llama3.2-3b, zamba2-7b and
+whisper-medium at full width, 2 ``gloo-host`` ranks on a (1, 2) mesh,
+held to the unsharded step), with each rank's code changed in its own
+process:
 
 * ``allreduce_left_out``: every gradient that is a partial sum over the
   mesh (the norm scales') taken as the rank's own part, not reduced;
 * ``dk_off_10pct``: the ``flash_attention`` backward's dK on each rank's
   head shard 10% too small.
 
+``--seed`` draws each run's weights and batch from seed N in place of
+the run's own; the sound run (no fault) then runs first and must pass.
 Prints the readings of each, and exits non-zero if phase 19 passes with a
-fault planted.  Imports nothing of JAX.
+fault planted or fails without one.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -65,6 +70,7 @@ FAULTS = {"allreduce_left_out": allreduce_left_out,
 
 
 def main() -> int:
+    import argparse
     import torch
     if not torch.cuda.is_available():
         print("[fail] no CUDA device", file=sys.stderr)
@@ -76,20 +82,35 @@ def main() -> int:
     t0 = time.perf_counter()
     build(["flash_attention", "flash_attention_bwd"])
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
-    passed = []
-    for name, fn in FAULTS.items():
-        print(f"[fault] {name}: planted", flush=True)
-        try:
-            cs.phase_sharded(torch, stamp, cells=False, rank=fn)
-        except SystemExit:
-            print(f"[fault] {name}: phase 19 failed, as it must  [{stamp}]",
-                  flush=True)
-            continue
-        passed.append(name)
-        print(f"[fault] {name}: phase 19 PASSED with the fault planted",
-              flush=True)
-    if passed:
-        print(f"[fail] phase 19 missed {passed}", file=sys.stderr)
+    runs = {spec["arch"]: spec for spec in cs.SHARDED_RUNS}
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", nargs="+", default=list(runs), choices=runs)
+    ap.add_argument("--seed", type=int, default=None)
+    args = ap.parse_args()
+    wrong = []
+    for arch in args.arch:
+        if args.seed is not None:
+            runs[arch] = {**runs[arch], "seed": args.seed}
+            print(f"[fault] {arch} seed {args.seed}: sound", flush=True)
+            try:
+                cs.phase_sharded(torch, stamp, specs=[runs[arch]],
+                                 cells=False)
+            except SystemExit:
+                wrong.append(f"{arch} sound run failed")
+        for name, fn in FAULTS.items():
+            print(f"[fault] {arch} {name}: planted", flush=True)
+            try:
+                cs.phase_sharded(torch, stamp, specs=[runs[arch]],
+                                 cells=False, rank=fn)
+            except SystemExit:
+                print(f"[fault] {arch} {name}: phase 19 failed, as it must"
+                      f"  [{stamp}]", flush=True)
+                continue
+            wrong.append(f"{arch} {name}")
+            print(f"[fault] {arch} {name}: phase 19 PASSED with the fault "
+                  f"planted", flush=True)
+    if wrong:
+        print(f"[fail] phase 19 misread {wrong}", file=sys.stderr)
         return 1
     print(f"[card] {stamp}")
     return 0

@@ -50,8 +50,10 @@ tensor or touching a device:
    nothing over a one-wide axis.  The two depth probes are extrapolated
    as the FLOPs are.  ``per_op`` has the JAX package's op names; DTensor
    issues no ``collective-permute``.  Under ``remat`` the recompute
-   re-issues the forward's gathers, and they are counted.  The families
-   in ``COLLECTIVE_FAMILIES`` are counted; any other keeps ``null``.
+   re-issues the forward's gathers, and they are counted.  Every family
+   is counted: the SSM blocks' conv and chunk scan and the encoder-decoder's
+   cross attention run per shard under ``local_map``, as the attention
+   does.
 
 The JSON has the keys of the JAX package's ``run_cell``.  The fields that
 only XLA's compile gives are ``null``: ``t_compile_s``,
@@ -100,8 +102,6 @@ from repro_torch.train.optimizer import get_optimizer
 
 ART_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 METRICS = 3                 # loss, grad_norm, aux: f32 scalars
-# the families whose sharded step the collective trace counts
-COLLECTIVE_FAMILIES = ("dense", "moe", "vlm")
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter",
                   "all-to-all", "collective-permute")
 
@@ -495,8 +495,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
              overrides: dict | None = None, tag: str = "", tracer=None,
              collectives_too: bool = True):
     """The cell's JSON; its collective traffic is traced by ``tracer``
-    (a ``CollectiveTracer``; a new one for this cell if None) where the
-    family is in ``COLLECTIVE_FAMILIES`` and ``collectives_too``."""
+    (a ``CollectiveTracer``; a new one for this cell if None) where
+    ``collectives_too``."""
     cfg = get_config(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
@@ -512,9 +512,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     acc = account(cfg, shape, mesh)
     mem = acc["mem"]
     kind = model.input_specs(shape)["kind"]
-    coll = (collectives(cfg, shape, mesh, tracer)
-            if collectives_too and cfg.family in COLLECTIVE_FAMILIES
-            else None)
+    coll = collectives(cfg, shape, mesh, tracer) if collectives_too else None
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "tag": tag,
         "kind": kind, "skipped": False,

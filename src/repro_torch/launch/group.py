@@ -24,9 +24,11 @@ A rank that raises exits non-zero with its traceback on stderr; the
 parent then stops every other rank and raises, so the run fails.
 
 Rank code: ``collectives_rank`` (every group collective),
-``pipeline_rank`` (the GPipe pipeline) and ``sharded_lm_rank`` (the LM
-train step sharded as DTensors on a (data, model) mesh of the group);
-each is, outside a group, the reference it is held to.
+``pipeline_rank`` (the GPipe pipeline), ``sharded_lm_rank`` (the LM
+train step sharded as DTensors on a (data, model) mesh of the group;
+``sharded_runs_rank`` several in turn) and ``sharded_serve_rank`` (its
+block prefill and decode step); each is, outside a group, the reference
+it is held to.
 """
 from __future__ import annotations
 
@@ -440,14 +442,13 @@ def lm_setup(spec: dict, device):
     ``device``: the config (``arch``, ``smoke``, ``num_layers`` and
     ``dtype``, the parameter and compute dtype), the full parameters
     (``params``, a numpy tree such as JAX's converted, else ``init_params``
-    drawn from a CPU generator seeded ``seed``) and the batch (``tokens``
-    and ``targets`` (B, S) numpy, else drawn from ``seed``: ``batch``,
-    ``seq``).  ``init: "fan_in"`` redraws the seeded weights tame: each
-    projection N(0, 1 / its whole fan-in), the (tied) embedding N(0, 1 /
-    d_model), where ``init_params``, as JAX's, reads a fan-in from the dim
-    before the last only (the attention's heads) and draws the embedding
+    drawn from a CPU generator seeded ``seed``) and the train step's batch
+    (``lm_batch``: ``tokens``, ``targets`` and the family's frontends).
+    ``init: "fan_in"`` redraws the weights tame: each projection N(0, 1 /
+    its whole fan-in), the (tied) embedding N(0, 1 / d_model), where
+    ``init_params``, as JAX's, reads a fan-in from the dim before the
+    last only (the attention's heads) and draws the embedding
     N(0, 1), which makes a seeded stack chaotic."""
-    import numpy as np
     import torch
 
     from repro_torch.models.api import build
@@ -470,16 +471,70 @@ def lm_setup(spec: dict, device):
                 now = d.scale / (math.sqrt(d.shape[-2])
                                  if d.init == "scaled" else 1.0)
                 t.mul_(1.0 / (now * math.sqrt(_fan_in(name, t.shape))))
+    return cfg, model, params, lm_batch(spec, model, "train", device)
+
+
+def lm_batch(spec: dict, model, kind: str, device):
+    """The inputs of a ``kind`` step, by ``model.input_specs``: each key
+    ``spec`` holds (numpy, e.g. from the JAX side) as it is, the rest
+    drawn from a CPU generator seeded ``seed`` + 1: ``tokens``,
+    ``targets`` and a decode ``token`` uniform over the vocabulary, the
+    frontends' embeddings (whisper's ``audio_embeds``, the VLM's
+    ``vision_embeds``) N(0, 1) in the compute dtype, M-RoPE ``positions``
+    the text positions on all three streams, a decode ``pos`` at S/2 +
+    b mod S.  Train and prefill take ``batch`` x ``seq`` tokens (or the
+    shape of ``spec["tokens"]``); decode a cache of ``seq``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
     if "tokens" in spec:
-        tokens, targets = (torch.from_numpy(np.asarray(spec[k])).to(device)
-                           for k in ("tokens", "targets"))
+        B, S = np.shape(spec["tokens"])
     else:
-        g = torch.Generator().manual_seed(spec["seed"] + 1)
-        tokens, targets = (torch.randint(0, cfg.vocab_size,
-                                         (spec["batch"], spec["seq"]),
-                                         generator=g, dtype=torch.int32)
-                           .to(device) for _ in range(2))
-    return cfg, model, params, {"tokens": tokens, "targets": targets}
+        B, S = spec["batch"], spec["seq"]
+    specs = model.input_specs(ShapeConfig("run", kind, S, B))["batch"]
+    g = torch.Generator().manual_seed(spec.get("seed", 0) + 1)
+    V = model.cfg.vocab_size
+    batch = {}
+    for k, t in specs.items():
+        if k in spec and not (kind == "decode" and k == "positions"):
+            v = torch.from_numpy(np.asarray(spec[k]))
+        elif k in ("tokens", "targets", "token"):
+            v = torch.randint(0, V, t.shape, generator=g, dtype=torch.int32)
+        elif k == "pos":
+            v = ((S // 2 + torch.arange(B)) % S).to(torch.int32)
+        elif k == "positions":
+            n = t.shape[-1]
+            v = (torch.arange(n, dtype=torch.int32) if kind != "decode"
+                 else batch["pos"][:, None]).expand(t.shape).contiguous()
+        else:
+            v = torch.randn(t.shape, generator=g).to(t.dtype)
+        batch[k] = v.to(device)
+    return batch
+
+
+def _place_batch(batch: dict, model, kind: str, mesh, device_mesh) -> dict:
+    """Each key of a ``kind`` step's batch as a DTensor laid out by its
+    own spec of ``model.input_specs`` (resolved, and made divisible)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import (enforce_divisible,
+                                                  make_rules, placements,
+                                                  resolve_spec)
+    from repro_torch.models.convert import local_shard
+    # the specs do not depend on the shape
+    specs = model.input_specs(ShapeConfig("run", kind, 4, 1))["batch_specs"]
+    rules = make_rules(model.cfg, mesh)
+    out = {}
+    for k, t in batch.items():
+        pl = placements(enforce_divisible(resolve_spec(specs[k], rules),
+                                          t.shape, mesh), device_mesh)
+        out[k] = DTensor.from_local(local_shard(t, pl, device_mesh)
+                                    .contiguous(), device_mesh, pl,
+                                    run_check=False, shape=t.shape,
+                                    stride=t.stride())
+    return out
 
 
 def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
@@ -491,9 +546,10 @@ def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
     (``launch/mesh.device_mesh``), the full weights and batch of
     ``lm_setup`` and the optimizer's initial state placed as DTensors
     (``models/convert.distribute_params``, by ``model.decls`` and
-    ``opt.state_decls``; the batch by its ``dp`` spec), then ``steps``
-    (default 2) steps of the config's optimizer
-    of ``train/trainer.make_train_step`` inside ``shard_ctx`` with the
+    ``opt.state_decls``; each batch key by its own spec of
+    ``model.input_specs``), then ``steps`` (default 2) steps of the
+    config's optimizer of ``train/trainer.make_train_step`` inside
+    ``shard_ctx`` with the
     ``DeviceMesh``.  Outside a group: the same steps unsharded on plain
     tensors, under ``shard_ctx`` of an ``AbstractMesh`` of the same shape
     (so the MoE groups its tokens alike): the reference.
@@ -520,14 +576,11 @@ def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
     import torch.distributed as dist
 
     from repro_torch.distributed.collectives import CollectiveTraffic
-    from repro_torch.distributed.sharding import (batch_spec,
-                                                  enforce_divisible,
-                                                  is_dtensor, placements,
-                                                  shard_ctx)
+    from repro_torch.distributed.sharding import is_dtensor, shard_ctx
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_attention_bwd)
     from repro_torch.launch.mesh import AbstractMesh, device_mesh
-    from repro_torch.models.convert import distribute_params, local_shard
+    from repro_torch.models.convert import distribute_params
     from repro_torch.models.params import leaves, unflatten
     from repro_torch.train.trainer import make_train_step, placed_like
 
@@ -541,18 +594,12 @@ def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
     start = None if in_group else {k: t.clone() for k, t in
                                    named_leaves(params).items()}
     if in_group:
-        from torch.distributed.tensor import DTensor
         params = distribute_params(params, model, cfg, dm)
         sdecls = opt.state_decls(model.decls)
         state = {k: v if k == "count" else
                  distribute_params(v, model, cfg, dm, sdecls[k])
                  for k, v in state.items()}
-        pl = placements(enforce_divisible(batch_spec(cfg, mesh),
-                                          batch["tokens"].shape, mesh), dm)
-        batch = {k: DTensor.from_local(local_shard(t, pl, dm).contiguous(),
-                                       dm, pl, run_check=False,
-                                       shape=t.shape, stride=t.stride())
-                 for k, t in batch.items()}
+        batch = _place_batch(batch, model, "train", mesh, dm)
     cuda = device.type == "cuda"
 
     def full(t):
@@ -609,6 +656,71 @@ def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
                        for k, g in grads.items()}
     res["param_err"] = {k: _relative(t, ref["params"][k], ref["moves"][k])
                         for k, t in after.items()}
+    return res
+
+
+def sharded_runs_rank(rank: int, device, specs: list, fn=None) -> list:
+    """``sharded_lm_rank`` (or ``fn``, the same signature) of each spec in
+    turn, in one process: one spawn for several runs."""
+    import torch
+    out = []
+    for spec in specs:
+        out.append((fn or sharded_lm_rank)(rank, device, spec))
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def sharded_serve_rank(rank: int, device, spec: dict) -> dict:
+    """One block prefill and one decode step sharded over a ``(data,
+    model)`` mesh (``spec["mesh"]``), as ``sharded_lm_rank`` shards the
+    train step; outside a group the same two steps on plain tensors, the
+    reference.  The prefill reads the prompt of ``lm_batch`` (its
+    ``targets`` unused); the decode step a cache of ``seq`` positions
+    drawn N(0, 1/4) from a generator seeded ``seed`` + 2 (placed by
+    ``model.cache_decls``' specs in the group), the tokens and positions
+    of ``lm_batch``'s decode batch.  Returns ``prefill_logits``,
+    ``prefill_caches``, ``decode_logits`` and ``decode_caches`` (full
+    tensors on the CPU, by name) and ``modules``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import is_dtensor, shard_ctx
+    from repro_torch.launch.mesh import AbstractMesh, device_mesh
+    from repro_torch.models.convert import distribute_params
+    from repro_torch.models.params import leaves, unflatten
+
+    device = torch.device(device)
+    mesh = AbstractMesh(tuple(spec["mesh"]), ("data", "model"))
+    cfg, model, params, batch = lm_setup(spec, device)
+    prompt = {k: v for k, v in batch.items() if k != "targets"}
+    step = lm_batch({k: v for k, v in spec.items() if k != "tokens"}
+                    | {"batch": batch["tokens"].shape[0],
+                       "seq": batch["tokens"].shape[1]},
+                    model, "decode", device)
+    cdecls = model.cache_decls(*batch["tokens"].shape)
+    g = torch.Generator().manual_seed(spec.get("seed", 0) + 2)
+    caches = unflatten(cdecls, [(0.5 * torch.randn(d.shape, generator=g))
+                                .to(device, d.dtype)
+                                for d in leaves(cdecls)])
+    in_group = dist.is_available() and dist.is_initialized()
+    dm = device_mesh(mesh, device) if in_group else None
+    if in_group:
+        params = distribute_params(params, model, cfg, dm)
+        caches = distribute_params(caches, model, cfg, dm, cdecls)
+        prompt = _place_batch(prompt, model, "prefill", mesh, dm)
+        step = _place_batch(step, model, "decode", mesh, dm)
+
+    def full(tree):
+        return {k: (t.full_tensor() if is_dtensor(t) else t).cpu()
+                for k, t in tree.items()}
+    with shard_ctx(cfg, mesh, dm), torch.no_grad():
+        logits, pcaches = model.prefill(params, prompt)
+        res = {"prefill_logits": full({"": logits})[""],
+               "prefill_caches": full(pcaches)}
+        logits, dcaches = model.decode(params, caches, step)
+        res.update(decode_logits=full({"": logits})[""],
+                   decode_caches=full(dcaches), modules=imported_modules())
     return res
 
 

@@ -70,8 +70,8 @@ def encode(params, audio_embeds, cfg):
     """audio_embeds (B, S_enc, D), the stubbed frontend's output; the layer
     body under ``cfg.remat`` when training."""
     h = audio_embeds.to(_cdt(cfg))
-    h = constrain(h + params["pos_enc"].to(h.dtype)[None, :h.shape[1]],
-                  "dp", None, None)
+    h = constrain(h + L.table_prefix(params["pos_enc"].to(h.dtype),
+                                     h.shape[1])[None], "dp", None, None)
 
     def body(h, lp):
         h = h + L.attention(lp["attn"], _ln(lp["ln1"], h, cfg), cfg,
@@ -85,7 +85,8 @@ def encode(params, audio_embeds, cfg):
 
 def _embed_dec(params, tokens, cfg):
     h = L.embed(params["embed"], tokens, cfg, _cdt(cfg))
-    return constrain(h + params["pos_dec"].to(h.dtype)[None, :tokens.shape[1]],
+    return constrain(h + L.table_prefix(params["pos_dec"].to(h.dtype),
+                                        tokens.shape[1])[None],
                      "dp", None, None)
 
 

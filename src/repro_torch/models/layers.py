@@ -129,11 +129,47 @@ def decls_rmsnorm(d):
 
 
 def rmsnorm(p, x, eps=1e-6):
+    if is_dtensor(x) and shard_axis(x, x.dim() - 1) is not None:
+        return _rmsnorm_sharded(p, x, eps)
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * p["scale"].float()).to(dt)
+
+
+def _rmsnorm_sharded(p, x, eps):
+    """``rmsnorm`` of a DTensor sharded on its last dim (the SSM block's
+    gated norm over its heads), per shard: each rank's sum of squares over
+    its own columns, those sums (B, S, 1) f32 all-reduced, and its own
+    columns scaled; the columns are never gathered (left to DTensor, the
+    backward gathered them in f32)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, n = x.device_mesh, x.shape[-1]
+    ax = shard_axis(x, x.dim() - 1)
+    xp = tuple(x.placements)
+    ss_part = tuple(Partial() if j == ax else pl for j, pl in enumerate(xp))
+    ss_whole = tuple(Replicate() if j == ax else pl
+                     for j, pl in enumerate(xp))
+    s_in = tuple(Shard(0) if j == ax else Replicate()
+                 for j in range(mesh.ndim))
+    s_grad = tuple(Shard(0) if j == ax else
+                   Partial() if pl.is_shard() else Replicate()
+                   for j, pl in enumerate(xp))
+    ss = local_map(lambda xl: xl.float().square().sum(-1, keepdim=True),
+                   out_placements=list(ss_part), in_placements=(xp,),
+                   device_mesh=mesh, redistribute_inputs=True)(x)
+    ss = _reduced(ss, ax)
+
+    def scaled(xl, ssl, sl):
+        y = xl.float() * torch.rsqrt(ssl / n + eps)
+        return (y * sl.float()).to(xl.dtype)
+    return local_map(scaled, out_placements=list(xp),
+                     in_placements=(xp, ss_whole, s_in),
+                     in_grad_placements=(xp, ss_part, s_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         x, ss, p["scale"])
 
 
 def decls_layernorm(d):
@@ -532,6 +568,25 @@ def _embed_sharded(table, tokens):
                      in_grad_placements=(tuple(grad), tuple(tok_pl)),
                      device_mesh=mesh, redistribute_inputs=True)(
                          table, tokens)
+
+
+def table_prefix(table, n: int):
+    """``table[:n]``: a learned position table's first n rows.  Of a
+    DTensor (its rows never sharded), the rows pass a ``local_map`` that
+    keeps their placements, so their gradient is made to those
+    placements on the (n, D) rows where it is made (over a data axis
+    that shards D, reduce-scattered as FSDP does), and never reduced on
+    the whole table (left to DTensor, torch 2.13 all-reduced whisper's
+    (32768, 1024) ``pos_dec`` gradient a step, 2.11 only its rows)."""
+    rows = table[:n]
+    if not is_dtensor(rows):
+        return rows
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(rows.placements)
+    return local_map(lambda t: t, out_placements=list(pl),
+                     in_placements=(pl,), in_grad_placements=(pl,),
+                     device_mesh=rows.device_mesh,
+                     redistribute_inputs=True)(rows)
 
 
 def unembed_matrix(p, cfg, dtype):

@@ -96,6 +96,14 @@ def combine(out, idx, valid, topi, e0: int = 0):
     return y
 
 
+def top_k(x, k: int):
+    """``jax.lax.top_k`` over the last dim: the k largest values, and
+    among equal values the lower index first (a stable descending sort;
+    ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def route(xt, router, cfg):
     """Tokens xt (T, D) → (topi (T, K) each token's experts, w_te (T, E)
     its routing weight on each expert (0 where not routed), me (E,) the
@@ -108,7 +116,7 @@ def route(xt, router, cfg):
         logits = torch.where(real, logits,
                              torch.full((), PAD_LOGIT, device=dev))
     probs = torch.softmax(logits, dim=-1)
-    topw, topi = torch.topk(probs, K, dim=-1)                        # (T, K)
+    topw, topi = top_k(probs, K)                                    # (T, K)
     topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
 
     onehot = F.one_hot(topi, E).float()                              # (T, K, E)
@@ -129,7 +137,7 @@ def experts(xt, w_te, topi, w_gate, w_up, w_down, C: int, DS: int,
     scores = torch.where(w_te > 0, w_te,
                          torch.full((), -torch.inf, device=dev)).T   # (El, T)
 
-    gathered_w, idx = torch.topk(scores.reshape(El, DS, Tl), C, dim=-1)
+    gathered_w, idx = top_k(scores.reshape(El, DS, Tl), C)
     if DS > 1:                       # each group's token ids made global
         idx = idx + (torch.arange(DS, device=dev) * Tl)[None, :, None]
     gathered_w, idx = gathered_w.reshape(El, DS * C), idx.reshape(El, DS * C)

@@ -85,7 +85,7 @@ def _embed_input(params, batch, cfg):
         if pos is not None and pos.dim() == 2:
             h = h + table_rows(pe, pos)                       # (B, S, D)
         else:
-            h = h + pe[:h.shape[1]][None]
+            h = h + L.table_prefix(pe, h.shape[1])[None]
     return constrain(h, "dp", None, None)
 
 

@@ -832,6 +832,34 @@ def test_moe_prefill_on_card_is_deterministic(card):
     assert all(torch.equal(c1[n], c2[n]) for n in ("k", "v"))
 
 
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_tie_order_on_card_matches_cpu(card, cf):
+    # rows drawn from 4 distinct vectors tie exactly: each expert keeps the
+    # lower token index among them on the card as on the CPU (JAX's top_k)
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models.api import build
+    from repro_torch.models.params import init_params, tree_map
+    cfg = get_config("qwen2-moe-a2.7b", smoke=True).replace(
+        compute_dtype="float32", capacity_factor=cf)
+    params = init_params(build(cfg).decls, torch.Generator().manual_seed(0),
+                         "cpu")
+    lp = tree_map(lambda a: a[0], params["layers"]["moe"])
+    rng = np.random.default_rng(3)
+    rows = rng.normal(0, 1, (4, cfg.d_model)).astype(np.float32)
+    x = torch.from_numpy(rows[rng.integers(0, 4, 128)].reshape(2, 64, -1))
+    scores = torch.from_numpy(
+        rng.integers(0, 5, (8, 3, 64)).astype(np.float32))
+    with torch.no_grad():
+        want, _ = M.moe_mlp(lp, x, cfg)
+        got, _ = M.moe_mlp(tree_map(lambda a: a.to(card), lp), x.to(card),
+                           cfg)
+        wv, wi = M.top_k(scores, 40)
+        gv, gi = M.top_k(scores.to(card), 40)
+    assert torch.equal(gi.cpu(), wi) and torch.equal(gv.cpu(), wv)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
 # ---------------------------------------------------------------------------
 # reservoir_topm
 # ---------------------------------------------------------------------------

@@ -233,9 +233,12 @@ def test_json_has_jaxs_keys_and_nulls_what_only_xla_gives(tmp_path,
     for k in ("temp_bytes", "peak_device_bytes"):
         assert res["memory"][k] is None
     for k in ("bytes_per_device", "transcendentals",
-              "collective_bytes_per_device", "per_op",
               "raw_full_flops_scanned"):
         assert res["cost"][k] is None
+    # every family's collective bytes are counted (the encoder-decoder's
+    # since slice 14)
+    assert res["cost"]["collective_bytes_per_device"] >= 0
+    assert all(v >= 0 for v in res["cost"]["per_op"].values())
     skipped = json.loads((tmp_path / "single" /
                           "whisper-medium__long_500k.json").read_text())
     assert skipped["skipped"] and skipped["reason"] == \

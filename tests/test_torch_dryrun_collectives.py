@@ -20,6 +20,10 @@ every element of a collective's result tuple.
     pattern stops at the ``/*index=5*/`` comments XLA prints inside a
     tuple, so the combined gradient all-reduce is skipped (a fault of the
     reference, pinned here).
+  * The same for mamba2-1.3b, zamba2-7b (3 layers: one shared-attention
+    application) and whisper-medium (S 128: its smoke decoder position
+    table has 128 rows): all all-reduce, within 64 B of twice the f32
+    parameter bytes and of XLA's reading.
   * On the other meshes the two programs legitimately differ (DTensor
     reduce-scatters FSDP gradients where XLA's CPU partitioner
     all-reduces them, and issues no collective-permute): their per-op
@@ -41,6 +45,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import AbstractMesh
+from repro_torch.models.params import leaves
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 B, S = 64, 256
@@ -50,9 +55,18 @@ CASES = [("llama3.2-3b", (8, 1), False, 2),
          ("llama3.2-3b", (8, 1), True, 2),
          ("llama3.2-3b", (1, 8), True, 2),
          ("llama3.2-3b", (2, 4), True, 2),
-         ("qwen2-moe-a2.7b", (8, 1), False, 2)]
+         ("qwen2-moe-a2.7b", (8, 1), False, 2),
+         ("mamba2-1.3b", (8, 1), False, 2),
+         ("zamba2-7b", (8, 1), False, 3),
+         ("whisper-medium", (8, 1), False, 2),
+         ("mamba2-1.3b", (2, 4), True, 2)]
+# whisper's smoke decoder position table has 128 rows
+SEQ = {"whisper-medium": 128}
 PURE_DP = [c for c in CASES if c[0] == "llama3.2-3b" and c[1] == (8, 1)
            and not c[2]]
+FAMILY_DP = [c for c in CASES if c[0] in ("mamba2-1.3b", "zamba2-7b",
+                                           "whisper-medium")
+             and c[1] == (8, 1) and not c[2]]
 
 _DTYPE_BYTES = {"f64": 8, "f32": 4, "f16": 2, "bf16": 2, "s64": 8, "u64": 8,
                 "s32": 4, "u32": 4, "s16": 2, "u16": 2, "s8": 1, "u8": 1,
@@ -101,7 +115,8 @@ _JAX_CODE = """
             fsdp_params=fsdp, num_layers=depth, param_dtype="float32",
             compute_dtype="float32")
         with shard_ctx(cfg, m), force_unroll(True):
-            lowered, _ = _lower_cell(cfg, ShapeConfig("x", "train", S, B), m)
+            lowered, _ = _lower_cell(
+                cfg, ShapeConfig("x", "train", SEQ.get(arch, S), B), m)
             hlo = lowered.compile().as_text()
         per_op, total = parse_collectives(hlo)
         out.append({"hlo": hlo, "jax_total": total,
@@ -117,7 +132,7 @@ def witness():
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    code = (f"CASES = {CASES!r}\nS, B = {S}, {B}\n"
+    code = (f"CASES = {CASES!r}\nS, B = {S}, {B}\nSEQ = {SEQ!r}\n"
             + textwrap.dedent(_JAX_CODE))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=900, env=env)
@@ -133,12 +148,12 @@ def witness():
                 fsdp_params=fsdp, num_layers=depth, param_dtype="float32",
                 compute_dtype="float32")
             port = dryrun.count_collectives(
-                cfg, ShapeConfig("x", "train", S, B),
+                cfg, ShapeConfig("x", "train", SEQ.get(arch, S), B),
                 AbstractMesh(mesh, ("data", "model")), tracer)
-            out[case] = {"xla": read_collectives(x["hlo"]),
+            out[case] = {"port": port["per_op"], "cfg": cfg,
+                         "xla": read_collectives(x["hlo"]),
                          "jax_total": x["jax_total"],
-                         "jax_per_op": x["jax_per_op"],
-                         "port": port["per_op"]}
+                         "jax_per_op": x["jax_per_op"]}
     return out
 
 
@@ -154,6 +169,21 @@ def test_jax_parse_collectives_misses_the_tuple_all_reduce(witness):
     for case in PURE_DP:
         assert witness[case]["jax_total"] == 0
         assert witness[case]["xla"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("case", FAMILY_DP, ids=lambda c: c[0])
+def test_pure_data_parallel_every_family(case, witness):
+    """The SSM, hybrid and encoder-decoder steps at (8, 1) without FSDP:
+    all-reduce only, within 64 B of twice the f32 parameter bytes, and
+    within 64 B of XLA's reading."""
+    w = witness[case]
+    assert set(w["port"]) == {"all-reduce"}, w["port"]
+    port = w["port"]["all-reduce"]
+    pbytes = sum(t.numel() * 4 for t in leaves(dryrun.abstract_params(
+        dryrun.build(w["cfg"]).decls)))
+    assert 0 <= port - 2 * pbytes < 64, (port, 2 * pbytes)
+    assert set(w["xla"]) == {"all-reduce"}, w["xla"]
+    assert abs(port - w["xla"]["all-reduce"]) < 64, (port, w["xla"])
 
 
 def test_other_meshes_side_by_side(witness):
