@@ -73,8 +73,9 @@ Phases; any failure exits non-zero:
    share of the bound (Dh 112 also against the 128-wide template's work);
 7. the LM serving slice at full width — qwen3-4b with seeded weights on the
    card: ``Model.prefill`` of ``tokens (2, 4096)`` (36 flash_attention
-   launches, counted), then ``run_lm_serve``'s engine on 16 requests at
-   batch 8, greedy (no flash_attention launch: decode is plain torch),
+   launches, counted), then ``run_lm_serve``'s engine on 8 requests at
+   batch 8 (prompts <= 8 tokens, 32 new), greedy (no flash_attention
+   launch: decode is plain torch),
    each with the counts zeroed just before and read just after; the device
    time of a prefill and a decode step by kernel; then at f32 on a
    64-token prompt, the prefill through the kernel against the prefill
@@ -178,7 +179,7 @@ Phases; any failure exits non-zero:
    flash_attention call is held against the plain version on its own
    inputs by the bf16 bound, and the counted run compared bit for bit,
    which must hold for the MoE; one profiled); 4 requests served at
-   batch 4 (prompts <= 32, 8 new tokens, no kernel launched, every token
+   batch 4 (prompts <= 8, 8 new tokens, no kernel launched, every token
    in range) and the decode step's time (median of 30) and profile; for
    zamba2 and mamba2 at f32 on a 64-token prompt, at full depth every
    flash_attention call against the plain version on its own inputs, the
@@ -225,23 +226,30 @@ Phases; any failure exits non-zero:
    SDPA's backward (forward + backward less the forward) and the bound
    (2.5 x the forward's FLOP), each with its TFLOP/s and share of the
    bound; (b) ``repro_torch.launch.train --arch
-   llama3.2-3b --steps 6 --batch 8 --seq 128 --workers 2`` through
-   ``run_lm`` (seeded f32 masters on the card, AdamW updated in place,
+   llama3.2-3b --steps 6 --batch 8 --seq 128 --workers 2 --layers 4``
+   through ``run_lm``, full width cut to 4 of 28 layers (each checkpoint
+   and the read-back move 12 bytes a parameter through the disk: 9.6 GB
+   at 4 layers, 38.5 GB at 28) (seeded f32 masters on the card, AdamW
+   updated in place,
    remat "dots", checkpoints at steps 2, 4 and 6, keep 2, asynchronous),
    its ``--ckpt-dir`` on the filesystem (``build/`` or TMPDIR) with the
    most room, the free bytes and the host memory for two snapshots
    printed first (fails without room for one checkpoint; with room for
    fewer than three, steps 2 and 4 are removed once verified, so keep 2
-   prunes nothing); launches zeroed just before and read just after (56
-   ``flash_attention`` and 28 backward a step, nothing else), finite
+   prunes nothing); launches zeroed just before and read just after (8
+   ``flash_attention`` and 4 backward a step, nothing else), finite
    losses and gradient norms, steps/s and tokens/s over steps 2-6, each
    step's seconds, peak memory, the checkpoint snapshot, write and wait
    seconds (``CheckpointManager`` wrapped by this script), the committed
    steps, and step 6 read back and compared leaf by leaf with the run's
-   final state; (c) the first step's 28 calls held in situ as in (a);
-   (d) two more steps, one with a ``grad_transform`` that fails on a
-   non-finite gradient, one profiled (device busy, idle share, the
-   backward kernels' device time in the step); (e) a
+   final state; (c) the first step's 4 calls held in situ as in (a);
+   (d) the full 28-layer step on seeded f32 masters and AdamW state built
+   on the card as ``run_lm`` builds them: one step with a
+   ``grad_transform`` that fails on a non-finite gradient, 3 timed (their
+   median is the step time of the idle share and of phase 15's FLOP
+   rate), one profiled (its own peak read in a window of its own, held in
+   phase 15 (a); device busy, idle share, the backward kernels' device
+   time in the step); (e) a
    full-width llama3.2-3b cut to 2 layers in f32: loss and every gradient
    through the kernels against the same through the plain attention on
    the card, within 1e-4 with the attention weights at their whole
@@ -253,9 +261,13 @@ Phases; any failure exits non-zero:
    ``launch/dryrun.py``'s ``argument_bytes`` for the host mesh at phase
    14's 8 x 128 train shape, less the batch, within 512 B a tensor (the
    allocator's rounding); the dry-run's FLOPs of that step over phase
-   14's median step, as TFLOP/s and a share of 989 TFLOP/s; the peak
-   memory of 2- and 4-layer steps at that shape, extrapolated to 28
-   layers, beside phase 14's measured peak (printed, not failed); (b) the
+   14's median step, as TFLOP/s and a share of 989 TFLOP/s; the peak of
+   a 2- and a 4-layer step at that shape, each in a window of its own
+   (``footprint.step_peak``), and of phase 14 (d)'s 28-layer step, each
+   held to the dry-run's memory trace of the same step on ``meta``
+   (``dryrun.trace_unsharded``) within ``footprint.peak_tolerance`` (3%
+   or 64 MiB), the line through the 2- and 4-layer traces printed beside
+   the direct 28-layer trace (the dry-run traces at full depth); (b) the
    shims on the card, each held to the CPU: int8 quantization, top-k
    sparsification, both error-feedback schemes and ``compressed_psum_int8``
    over 8 host-simulated members bit-equal, ``flash_decode_attention``
@@ -267,8 +279,9 @@ Phases; any failure exits non-zero:
    gap to the sequence on the whole batch printed, 28 x 8
    ``flash_attention`` launches counted; (c) the dry-run of every LM arch
    x applicable shape x ``single`` and ``multi`` (params, argument GiB a
-   device, FLOPs a device, host seconds; fails on any cell that errors);
-   then the phase's seconds;
+   device, FLOPs a device, host seconds; fails on any cell that errors),
+   run in a child process started before phase 14 and read here; then
+   the phase's seconds;
 16. the partition mesh as a ``torch.distributed`` group — (a) phase 9's
    arguments as 2 ``gloo`` ranks sharing the card, spawned by
    ``launch/group.spawn_partitions`` with the launcher's rank code
@@ -283,7 +296,7 @@ Phases; any failure exits non-zero:
    ``compressed_psum_int8``, the cross-pod transform,
    ``flash_decode_attention`` at qwen3-4b's decode shape,
    ``all_gather_objects``) over a one-rank ``nccl`` group on the card and
-   (c) over the 2 ``gloo`` ranks, bit-equal to their host-simulated forms
+   (c) over 2 ``gloo`` ranks (both in a thread, beside (a)), bit-equal to their host-simulated forms
    on the card; a line saying that the two-rank ``nccl`` run needs a
    second card (``scripts/group_nccl.py`` runs it where there are two);
    no rank may import JAX or the JAX package.  The script drives one
@@ -293,7 +306,8 @@ Phases; any failure exits non-zero:
    with the launcher's rank code (``launch.train.autotune_rank``) at
    phase 9's full width (``--partitions 2 --halo-budget 4096
    --halo-refresh-interval 2``, the static cache), against the same
-   sequence host-simulated in this process on the card (run first): (a)
+   sequence host-simulated in this process on the card (in a thread,
+   while the ranks run): (a)
    one 2-partition trainer, 2 global steps after each of the halo budget
    swapped 4096 -> 0 -> 4096, 50,000 seeded edges added on every rank and
    ``rebalance_partitions``, a streamed ``update_rows`` of 64 halo rows of
@@ -361,8 +375,10 @@ Phases; any failure exits non-zero:
    mesh, the hand-written ``flash_attention`` forward and backward
    launched on each rank's head shard (the run's ``flash``: llama3.2-3b
    and whisper twice and once a layer a step, the ``dots`` recompute;
-   zamba2's shared block once and once), each rank's peak allocation
-   beside the unsharded step's and its wall (this run checks the step
+   zamba2's shared block once and once), each rank's last step's own
+   peak held to the same ``meta`` trace's peak within
+   ``footprint.peak_tolerance``, each rank's peak allocation over the
+   run beside the unsharded step's and its wall (this run checks the step
    and times no rank: its collectives' buffers pass through the host);
    no rank may import JAX or the JAX package.
    ``scripts/group_nccl.py`` step 7 runs it over 4 ``nccl`` cards as
@@ -424,8 +440,10 @@ HBM_BYTES_PER_S = [("H200", 4.8e12), ("H100 NVL", 3.9e12),
 F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 dense tensor cores
 LM_ARCH = "qwen3-4b"
-LM_SERVE_ARGS = ["--arch", LM_ARCH, "--requests", "16", "--batch", "8",
-                 "--max-len", "512", "--prompt-len", "128", "--max-new", "32"]
+# the engine prefills a prompt a token at a time through full-batch decode
+# steps (as the JAX engine): the prompts' length sets the phase's seconds
+LM_SERVE_ARGS = ["--arch", LM_ARCH, "--requests", "8", "--batch", "8",
+                 "--max-len", "512", "--prompt-len", "8", "--max-new", "32"]
 PREFILL_SHAPE = (2, 4096)
 # flash_attention against its plain version: f32 to |diff| <= 2e-5; bf16 by
 # ``bf16_excess`` (kernels/flash_attention/ref.py): per element rtol 1e-2
@@ -3055,7 +3073,7 @@ def phase_fabric(torch, stamp: str) -> dict:
 FAMILIES = (("moe", "qwen2-moe-a2.7b", 24), ("hybrid", "zamba2-7b", 13),
             ("ssm", "mamba2-1.3b", 0))
 FAMILY_SERVE_ARGS = ["--requests", "4", "--batch", "4", "--max-len", "64",
-                     "--prompt-len", "32", "--max-new", "8"]
+                     "--prompt-len", "8", "--max-new", "8"]
 DECODE_STEPS = 30      # the decode step's time is the median of these
 
 
@@ -3523,8 +3541,13 @@ def phase_encdec_vlm(torch, stamp: str) -> dict:
 
 # phase 14: LM training at full width and full depth
 TRAIN_ARCH = "llama3.2-3b"
+# (b)'s CLI run is cut in depth: its three checkpoints and the read-back
+# move 12 bytes a parameter through the disk each, 38.5 GB at 28 layers
+TRAIN_CLI_LAYERS = 4
 LM_TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "6", "--batch", "8",
-                 "--seq", "128", "--workers", "2"]
+                 "--seq", "128", "--workers", "2", "--layers",
+                 str(TRAIN_CLI_LAYERS)]
+TRAIN_TIMED_STEPS = 3      # (d)'s un-profiled 28-layer steps, timed
 # flash_attention_bwd timed at llama3.2-3b's prefill (B, S, H, Hkv, Dh),
 # causal bf16, and at the train step's own shape
 BWD_TIMED = (("llama3_prefill", (2, 4096, 24, 8, 128)),
@@ -4046,12 +4069,14 @@ def _f32_step_vs_plain(torch, stamp: str):
 
 def phase_lm_train(torch, stamp: str, parent) -> dict:
     """LM training at full width and full depth (phase 14); returns the
-    flash_attention_bwd JSON entry and the launches of the forward."""
+    flash_attention_bwd JSON entry, the launches of the forward and the
+    peak of (d)'s profiled step in a window of its own."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.footprint import step_peak, window_start
     from repro_torch.launch.train import build_parser, run_lm
     from repro_torch.models.api import build
-    from repro_torch.models.params import leaves
+    from repro_torch.models.params import init_params, leaves
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.data import SyntheticTokens, to_device
     from repro_torch.train.trainer import make_train_step
@@ -4088,9 +4113,10 @@ def phase_lm_train(torch, stamp: str, parent) -> dict:
     del flush
     torch.cuda.empty_cache()
 
-    # (b) the CLI path at full width: the seeded f32 masters, AdamW, 6
-    # steps through the supervisor, checkpoints at 2, 4 and 6
-    cfg = get_config(TRAIN_ARCH)
+    # (b) the CLI path at full width, cut in depth: the seeded f32 masters,
+    # AdamW, 6 steps through the supervisor, checkpoints at 2, 4 and 6
+    full = get_config(TRAIN_ARCH)
+    cfg = full.replace(num_layers=TRAIN_CLI_LAYERS)
     n_params = cfg.param_count()
     ckpt_bytes = 3 * 4 * n_params
     ckpt_dir, keep = _ckpt_room(torch, ckpt_bytes, stamp)
@@ -4126,8 +4152,8 @@ def phase_lm_train(torch, stamp: str, parent) -> dict:
     steps = len(hist)
     want = {"flash_attention": 2 * cfg.num_layers * steps,
             "flash_attention_bwd": cfg.num_layers * steps}
-    print(f"[train] {TRAIN_ARCH} full width, {cfg.num_layers} layers, "
-          f"{n_params} parameters: launches {launches} over {steps} steps "
+    print(f"[train] {TRAIN_ARCH} full width, {cfg.num_layers} of "
+          f"{full.num_layers} layers, {n_params} parameters: launches {launches} over {steps} steps "
           f"(predicted {want}: remat 'dots' recomputes each layer's forward "
           f"once in the backward)  [{stamp}]", flush=True)
     if any(launches[k] != n for k, n in want.items()) or any(
@@ -4173,11 +4199,20 @@ def phase_lm_train(torch, stamp: str, parent) -> dict:
         fail(f"recorded {len(recorded)} backward calls, not {cfg.num_layers}")
     del recorded
 
-    # (d) two more steps from the run's state: every gradient finite (the
-    # grad_transform hook), then one profiled: device busy and idle share
-    state = out["state"]
+    # (d) the full-depth step on seeded f32 masters and AdamW state built
+    # on the card as run_lm builds them: one step with every gradient
+    # finite (the grad_transform hook), TRAIN_TIMED_STEPS timed, then one
+    # profiled: device busy and idle share, and its own peak
+    del out
+    torch.cuda.empty_cache()
+    cfg = full
+    model = build(cfg)
+    params = init_params(model.decls,
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda", dtype_override=getattr(torch,
+                                                        cfg.param_dtype))
     data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq, seed=7,
-                           n_batches=2)
+                           n_batches=TRAIN_TIMED_STEPS + 2)
 
     def finite(tree):
         bad = [i for i, g in enumerate(leaves(tree))
@@ -4185,27 +4220,45 @@ def phase_lm_train(torch, stamp: str, parent) -> dict:
         if bad:
             fail(f"non-finite gradients in leaves {bad}")
         return tree
-    step, _ = make_train_step(out["model"], cfg, grad_transform=finite)
-    step(state["params"], state["opt_state"], to_device(data.make(0), "cuda"))
-    print(f"[check] every one of the {len(leaves(state['params']))} leaves' "
-          f"gradients finite", flush=True)
-    step, _ = make_train_step(out["model"], cfg)
-    batch = to_device(data.make(1), "cuda")
+    step, opt = make_train_step(model, cfg, grad_transform=finite)
+    opt_state = opt.init(params)
+    step(params, opt_state, to_device(data.make(0), "cuda"))
+    print(f"[check] {cfg.num_layers} layers: every one of the "
+          f"{len(leaves(params))} leaves' gradients finite", flush=True)
+    step, _ = make_train_step(model, cfg)
+    full_s = []
+    for i in range(TRAIN_TIMED_STEPS):
+        batch = to_device(data.make(1 + i), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        full_s.append(time.perf_counter() - t0)
+    step_ms = sorted(full_s)[TRAIN_TIMED_STEPS // 2] * 1e3
     rows = []
-    busy = _profile(torch, lambda: step(state["params"], state["opt_state"],
-                                        batch), stamp, "one train step",
-                    rows_out=rows)
-    step_ms = sorted(step_s[1:])[(steps - 1) // 2] * 1e3
+    # the profiled step's own peak, as the dry-run's memory trace counts it
+    # (not the first step's: its check's torch.isfinite holds an f32 |g|
+    # and bool copies of a stacked leaf beside every gradient, 2.11 GB)
+    base = window_start()
+    busy = _profile(torch, lambda: step(params, opt_state, batch), stamp,
+                    "one train step", rows_out=rows)
+    clean_peak = step_peak(base, params, opt_state, batch)
+    print(f"[train] {cfg.num_layers} layers: the profiled step's own peak "
+          f"{clean_peak} B ({clean_peak / 2**30:.3f} GiB: "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B over "
+          f"it, {base} B at its start)  [{stamp}]", flush=True)
     idle = 1 - busy / step_ms
     bwd_rows = [r for r in rows if "flash_bwd" in r[0]]
     bwd_ms = sum(r[1] for r in bwd_rows) / 1e3
-    print(f"[train] one profiled step: device busy {busy:.3f} ms against "
-          f"the median un-profiled step of {step_ms:.3f} ms (steps "
-          f"2-{steps}, data and copies included): idle {idle:.1%}; the "
-          f"flash_attention backward's kernels in it {bwd_ms:.4f} ms "
+    print(f"[train] {cfg.num_layers} layers, one profiled step: device busy "
+          f"{busy:.3f} ms against the median of {TRAIN_TIMED_STEPS} "
+          f"un-profiled steps ({[round(x * 1e3, 3) for x in full_s]} ms, "
+          f"the batch already on the card) {step_ms:.3f} ms: idle "
+          f"{idle:.1%}; the flash_attention backward's kernels in it "
+          f"{bwd_ms:.4f} ms "
           f"({', '.join(f'{n[:40]} {t / 1e3:.4f} ms x {c}' for n, t, c in bwd_rows)})"
           f"  [{stamp}]", flush=True)
-    del out, state, step, batch
+    del model, params, opt_state, step, batch
     torch.cuda.empty_cache()
 
     # (e) the f32 step through the kernels against the plain attention
@@ -4223,7 +4276,8 @@ def phase_lm_train(torch, stamp: str, parent) -> dict:
              "launches": launches["flash_attention_bwd"],
              "max_abs_err": max(errs), **prefill,
              "llama3_2_3b_train_step": timed["llama3_train_step"],
-             "train": {"steps_per_s": (steps - 1) / window,
+             "train": {"cli_layers": TRAIN_CLI_LAYERS,
+                       "steps_per_s": (steps - 1) / window,
                        "tokens_per_s": (steps - 1) * tokens / window,
                        "step_ms": step_ms, "device_busy_ms": busy,
                        "bwd_in_situ_ms": bwd_ms,
@@ -4231,41 +4285,26 @@ def phase_lm_train(torch, stamp: str, parent) -> dict:
                        "ckpt_save_s": saves,
                        "ckpt_write_s": [w[1] for w in writes],
                        "ckpt_wait_s": waits}}
-    return {"entry": entry, "flash_attention": launches["flash_attention"]}
+    return {"entry": entry, "flash_attention": launches["flash_attention"],
+            "step_peak": clean_peak}
 
 
 PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS = 4, 8, 128
 DECODE_ARCH, DECODE_BATCH, DECODE_CACHE = LM_ARCH, 8, 4096
 PEAK_LAYERS = (2, 4)
-MiB = 2**20
 
 
-def allocator_block(nbytes: int) -> int:
-    """The bytes PyTorch's caching allocator counts for a new ``nbytes``
-    tensor in a fresh segment: the request rounded to 512 B; a request
-    over 1 MiB takes a segment of 20 MiB (under 10 MiB) or rounded to 2 MiB,
-    and keeps the segment's remainder when it is 1 MiB or less (the
-    allocator splits off only a larger one)."""
-    size = -(-nbytes // 512) * 512
-    if size <= MiB:
-        return size
-    seg = 20 * MiB if size < 10 * MiB else -(-size // (2 * MiB)) * 2 * MiB
-    return seg if seg - size <= MiB else size
-
-
-def allocator_slack(nbytes: int) -> int:
-    """The most the caching allocator can count beyond a tensor's bytes, in
-    any segment: the 512-B rounding, and up to 1 MiB of unsplit remainder
-    for a block over 1 MiB."""
-    size = -(-nbytes // 512) * 512
-    return size - nbytes + (MiB if size > MiB else 0)
-
-
-def _account_vs_card(torch, stamp: str, train_entry: dict):
-    """(a): the dry-run's argument bytes, FLOPs and extrapolated peak
-    against phase 14's llama3.2-3b on the card."""
+def _account_vs_card(torch, stamp: str, train_entry: dict,
+                     step_peak_28: int):
+    """(a): the dry-run's argument bytes, FLOPs and traced peak memory
+    against llama3.2-3b on the card: 2- and 4-layer steps here, and
+    ``step_peak_28``, the 28-layer step's own peak in phase 14 (d)."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch import dryrun
+    from repro_torch.launch.footprint import (allocator_block,
+                                              allocator_slack,
+                                              peak_tolerance, step_peak,
+                                              window_start)
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.api import build
     from repro_torch.models.params import init_params, leaves
@@ -4325,35 +4364,54 @@ def _account_vs_card(torch, stamp: str, train_entry: dict):
           f"{rate / BF16_FLOP_PER_S:.2%} of 989 TFLOP/s  [{stamp}]",
           flush=True)
 
-    peaks = []
+    # each step's own peak on the card against the dry-run's memory trace
+    # of the same step on meta: 2 and 4 layers here, 28 in phase 14 (d)
+    peaks, traced = [], []
     data = SyntheticTokens(cfg.vocab_size, batch, seq, seed=7, n_batches=2)
     for n in PEAK_LAYERS:
         c = cfg.replace(num_layers=n)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
         m = build(c)
         p = init_params(m.decls, torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
         step, opt = make_train_step(m, c)
         st = opt.init(p)
-        for i in range(2):
-            step(p, st, to_device(data.make(i), "cuda"))
+        step(p, st, to_device(data.make(0), "cuda"))
+        b = to_device(data.make(1), "cuda")
+        base = window_start()
+        step(p, st, b)
         torch.cuda.synchronize()
-        peaks.append(torch.cuda.max_memory_allocated() - base)
-        del m, p, st, step
+        peaks.append(step_peak(base, p, st, b))
+        del m, p, st, step, b
         torch.cuda.empty_cache()
-    est = dryrun._extrapolate(peaks[0], peaks[1], *PEAK_LAYERS,
-                              cfg.num_layers)
-    measured = train_entry["train"]["peak_bytes"]
-    print(f"[account] peak memory of {PEAK_LAYERS[0]}- and "
-          f"{PEAK_LAYERS[1]}-layer steps at {batch} x {seq}: {peaks} B; "
-          f"extrapolated to {cfg.num_layers} layers {est:.0f} B "
-          f"({est / 2**30:.2f} GiB) beside phase 14's measured peak "
-          f"{measured} B ({measured / 2**30:.2f} GiB)  [{stamp}]", flush=True)
+        traced.append(dryrun.trace_unsharded(c, shape)["peak_bytes"])
+    t0 = time.perf_counter()
+    direct = dryrun.trace_unsharded(cfg, shape)["peak_bytes"]
+    t_direct = time.perf_counter() - t0
+    # the dry-run traces a cell's peak at full depth: two probes' line
+    # misses it where the program point holding the peak moves with depth
+    line = dryrun._extrapolate(*traced, *PEAK_LAYERS, cfg.num_layers)
+    rows = list(zip([f"{n} layers" for n in PEAK_LAYERS], peaks, traced))
+    rows.append((f"{cfg.num_layers} layers (phase 14 (d))", step_peak_28,
+                 direct))
+    for label, got, want in rows:
+        tol = peak_tolerance(got)
+        print(f"[account] {TRAIN_ARCH} {label} at {batch} x {seq}: the "
+              f"step's own peak on the card {got} B ({got / 2**30:.3f} GiB), "
+              f"the dry-run's trace on meta {want} B: {want - got:+d} B "
+              f"({(want - got) / got:+.3%}; bound {tol:.0f} B)  [{stamp}]",
+              flush=True)
+        if abs(want - got) > tol:
+            fail(f"the traced peak of {TRAIN_ARCH} at {label}, {want} B, "
+                 f"misses the card's {got} B by more than {tol:.0f} B")
+    print(f"[account] {TRAIN_ARCH} {cfg.num_layers} layers: the direct "
+          f"trace {direct} B ({t_direct:.2f} s of host); the line through "
+          f"the {PEAK_LAYERS[0]}- and {PEAK_LAYERS[1]}-layer traces {line:.0f}"
+          f" B ({(line - direct) / direct:+.3%}, not used)  [{stamp}]",
+          flush=True)
     return {"argument_bytes": want, "allocated_bytes": grown,
             "step_flops": acc["flops"], "tflops_per_s": rate / 1e12,
-            "peak_extrapolated": est, "peak_measured": measured}
+            "peaks": peaks, "traced": traced, "peak_28": step_peak_28,
+            "traced_28": direct}
 
 
 def _shims_vs_cpu(torch, stamp: str):
@@ -4497,60 +4555,102 @@ def _pipeline(torch, stamp: str):
             "whole_batch_gap": gap}
 
 
-def _dryrun_cells(stamp: str):
-    """(c): the dry-run of every LM arch x applicable shape x mesh."""
+def _dryrun_rows() -> tuple:
+    """(c) in a child process: the dry-run of every LM arch x applicable
+    shape x mesh, as (its lines, the cells that failed, its seconds)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
     from repro_torch.configs import SHAPES_BY_NAME
     from repro_torch.launch import dryrun
 
-    cells, errors = [], []
+    lines, errors = [], []
     t0 = time.perf_counter()
     for mesh in ("single", "multi"):
         for arch in dryrun.lm_archs():
             for shape in SHAPES_BY_NAME:
                 t = time.perf_counter()
                 try:
-                    res = dryrun.run_cell(arch, shape, mesh,
-                                          collectives_too=False)
+                    res = dryrun.run_cell(arch, shape, mesh, traced=False)
                 except Exception as e:  # noqa: BLE001 — every cell is tried
                     errors.append(f"{mesh}/{arch}/{shape}: "
                                   f"{type(e).__name__}: {e}")
                     continue
                 if res["skipped"]:
                     continue
-                cells.append(res)
-                print(f"[dryrun] {mesh}/{arch}/{shape}: params "
-                      f"{res['params_total']}, argument "
-                      f"{res['memory']['argument_bytes'] / 2**30:.3f} GiB a "
-                      f"device, {res['cost']['flops_per_device']:.4e} FLOP a "
-                      f"device, {time.perf_counter() - t:.2f} s of host",
-                      flush=True)
+                lines.append(
+                    f"[dryrun] {mesh}/{arch}/{shape}: params "
+                    f"{res['params_total']}, argument "
+                    f"{res['memory']['argument_bytes'] / 2**30:.3f} GiB a "
+                    f"device, {res['cost']['flops_per_device']:.4e} FLOP a "
+                    f"device, {time.perf_counter() - t:.2f} s of host")
+    return lines, errors, time.perf_counter() - t0
+
+
+def _dryrun_child(conn):
+    try:
+        conn.send(("ok", _dryrun_rows()))
+    except BaseException as e:                  # reported by the parent
+        conn.send(("error", f"{type(e).__name__}: {e}"))
+    conn.close()
+
+
+def start_dryrun_cells():
+    """Starts (c) in a child process (spawned, daemonic), so that its host
+    work runs beside phase 14 and 15 (a)-(b); ``_dryrun_cells`` reads it."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    conn, child = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_dryrun_child, args=(child,),
+                       name="dry-run cells", daemon=True)
+    proc.start()
+    child.close()
+    return proc, conn, time.perf_counter()
+
+
+def _dryrun_cells(stamp: str, job) -> int:
+    """(c): the child's lines printed; fails on any cell that failed."""
+    proc, conn, t_start = job
+    t0 = time.perf_counter()
+    if not conn.poll(DRYRUN_CELLS_S):
+        proc.kill()
+        fail(f"the dry-run's cells gave no result in {DRYRUN_CELLS_S} s")
+    status, got = conn.recv()
+    proc.join(30)
+    if status != "ok":
+        fail(f"the dry-run's cells: {got}")
+    lines, errors, secs = got
+    for line in lines:
+        print(line, flush=True)
     if errors:
         fail(f"dry-run cells failed: {errors}")
-    print(f"[dryrun] {len(cells)} cells in {time.perf_counter() - t0:.1f} s "
-          f"of host", flush=True)
-    return cells
+    print(f"[dryrun] {len(lines)} cells in {secs:.1f} s of host, in a child "
+          f"process started {t0 - t_start:.1f} s before this phase read it "
+          f"(waited {time.perf_counter() - t0:.1f} s)", flush=True)
+    return len(lines)
 
 
-def phase_accounting(torch, stamp: str, train_entry: dict) -> dict:
+def phase_accounting(torch, stamp: str, train_entry: dict,
+                     step_peak_28: int, cells_job) -> dict:
     """Phase 15: the dry-run's accounting held against the card, the
     distributed shims held to the CPU, the pipeline, every dry-run cell."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    card = _account_vs_card(torch, stamp, train_entry)
+    card = _account_vs_card(torch, stamp, train_entry, step_peak_28)
     torch.cuda.empty_cache()
     shims = _shims_vs_cpu(torch, stamp)
     torch.cuda.empty_cache()
     pipe = _pipeline(torch, stamp)
     torch.cuda.empty_cache()
-    cells = _dryrun_cells(stamp)
+    cells = _dryrun_cells(stamp, cells_job)
     print(f"[account] phase 15 in {time.perf_counter() - t_phase:.1f} s  "
           f"[{stamp}]", flush=True)
     return {"card": card, "shims": shims, "pipeline": pipe,
-            "cells": len(cells)}
+            "cells": cells}
 
 
 GROUP_TIMED_STEPS = 3       # each rank's warm global steps, as phase 9's
 GROUP_JOIN_S = 600          # a spawn's join timeout
+DRYRUN_CELLS_S = 600        # phase 15 (c)'s child, once phase 15 reads it
 
 
 def _same(a, b) -> bool:
@@ -4760,8 +4860,11 @@ def phase_group(torch, stamp: str, multipart: dict) -> dict:
     card."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    train = _group_train(torch, stamp, multipart)
-    nccl = _group_shims(torch, stamp, 1, "nccl")
+    # (b) and (c), one spawn after the other, beside (a)'s ranks
+    with _beside(lambda: (_group_shims(torch, stamp, 1, "nccl"),
+                          _group_shims(torch, stamp, 2, "gloo"))) as shims:
+        train = _group_train(torch, stamp, multipart)
+    nccl, shims = shims["result"]
     print("[group] halo_all_to_all over one member moves no row (a "
           "one-partition plan has no halo); over nccl it runs in the "
           "two-rank run", flush=True)
@@ -4770,7 +4873,6 @@ def phase_group(torch, stamp: str, multipart: dict) -> dict:
               f"machine has {torch.cuda.device_count()} "
               f"(scripts/group_nccl.py runs (a) and the collectives over "
               f"nccl, a card a rank, where there are two)", flush=True)
-    shims = _group_shims(torch, stamp, 2, "gloo")
     print(f"[group] phase 16 in {time.perf_counter() - t_phase:.1f} s  "
           f"[{stamp}]", flush=True)
     return {"train": train, "nccl": nccl, "shims": shims}
@@ -4807,6 +4909,31 @@ LIVE_UNSCRIPTED = dict(LIVE_TUNER, episodes=3, warmup_steps=0,
 LIVE_SEQUENCE = LIVE_OPS + [("autotune", LIVE_SCRIPTED), ("snapshot", None),
                             ("autotune", LIVE_UNSCRIPTED)]
 EPISODE_KEYS = ("index", "config", "reward", "cache_hit_rate", "steps")
+
+
+@contextlib.contextmanager
+def _beside(fn):
+    """Runs ``fn()`` in a thread while the ``with`` body runs; on exit,
+    joins it and fills the yielded dict's ``result`` and ``seconds`` (or
+    raises what ``fn`` raised)."""
+    import threading
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["result"] = fn()
+        except BaseException as e:              # re-raised in the caller
+            box["error"] = e
+        box["seconds"] = time.perf_counter() - t0
+    th = threading.Thread(target=run, name="beside", daemon=True)
+    th.start()
+    try:
+        yield box
+    finally:
+        th.join()
+    if "error" in box:
+        raise box["error"]
 
 
 def _hold_summary(r: int, got: dict, want: dict, label: str) -> list:
@@ -4992,14 +5119,17 @@ def phase_live(torch, stamp: str) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     args = build_parser().parse_args(LIVE_ARGS)
-    t0 = time.perf_counter()
-    ref = autotune_rank(0, "cuda:0", args, ops=LIVE_SEQUENCE)
-    t_ref = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ranks = spawn_partitions(autotune_rank, 2, "gloo", ["cuda:0", "cuda:0"],
-                             args=(args, None, None, LIVE_SEQUENCE),
-                             timeout=GROUP_JOIN_S)
-    t_group = time.perf_counter() - t0
+    # the reference runs in a thread of this process while the ranks run
+    # (the holds compare states and counts, never a clock across the two)
+    with _beside(lambda: autotune_rank(0, "cuda:0", args,
+                                       ops=LIVE_SEQUENCE)) as reference:
+        t0 = time.perf_counter()
+        ranks = spawn_partitions(autotune_rank, 2, "gloo",
+                                 ["cuda:0", "cuda:0"],
+                                 args=(args, None, None, LIVE_SEQUENCE),
+                                 timeout=GROUP_JOIN_S)
+        t_group = time.perf_counter() - t0
+    ref, t_ref = reference["result"], reference["seconds"]
     launches, bad = hold_live(ranks, ref, stamp, "2 gloo ranks on cuda:0")
     if bad:
         fail(f"phase 17: {bad[0]}")
@@ -5195,47 +5325,76 @@ def phase_sharded(torch, stamp: str, devices=("cuda:0", "cuda:0"),
     the sharded step of each of ``specs`` (``SHARDED_RUNS`` by default) as
     a rank (``rank``, ``sharded_lm_rank`` by default) on each of
     ``devices`` over ``backend``, held to the unsharded step on
-    ``devices[0]``: the references first, in this process (each kept in a
-    temp file), then one spawn whose ranks run every spec in turn
-    (``launch.group.sharded_runs_rank``).  Over ``gloo-host`` every
-    collective's buffer passes through the host, so that run checks the
-    step and times no rank (``scripts/group_nccl.py`` step 7 times them
-    over ``nccl``)."""
+    ``devices[0]``: the references in this process (each kept in a temp
+    file), and one spawn whose ranks run every spec in turn
+    (``launch.group.sharded_runs_rank``); the dry-run's traces in the
+    tracer's children meanwhile.  Over ``gloo-host`` every collective's
+    buffer passes through the host, so that run checks the step and
+    times no rank, and its references run in a thread beside the ranks;
+    elsewhere they run first (``scripts/group_nccl.py`` step 7 times the
+    ranks over ``nccl``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
-    from repro_torch.launch.group import (lm_config, sharded_lm_rank,
+    from repro_torch.launch.group import (HOST_STAGED, lm_config,
+                                          sharded_lm_rank,
                                           sharded_runs_rank,
                                           spawn_partitions)
     from repro_torch.launch.mesh import AbstractMesh
     t_phase = time.perf_counter()
     specs = specs or SHARDED_RUNS
-    with dryrun.CollectiveTracer() as tracer:
-        cells = _sharded_counts(stamp, tracer) if cells else []
-        wants = [dryrun.count_collectives(
-            lm_config(spec),
-            ShapeConfig("sharded", "train", spec["seq"], spec["batch"]),
-            AbstractMesh(spec["mesh"], ("data", "model")), tracer)
-            for spec in specs]
+
+    def traces():
+        # host work in the tracer's child processes, beside the card's
+        with dryrun.CollectiveTracer() as tracer:
+            rows = _sharded_counts(stamp, tracer) if cells else []
+            return rows, [dryrun.count_collectives(
+                lm_config(spec),
+                ShapeConfig("sharded", "train", spec["seq"], spec["batch"]),
+                AbstractMesh(spec["mesh"], ("data", "model")), tracer)
+                for spec in specs]
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
-    try:
+    paths = [tmp / f"ref{i}.pt" for i in range(len(specs))]
+
+    def references():
+        # each file renamed into place whole: a rank reads a spec's once
+        # its own run of that spec is done (launch.group.when_written)
         refs = []
-        for i, spec in enumerate(specs):
-            torch.cuda.empty_cache()
-            ref = sharded_lm_rank(0, devices[0], spec)
-            torch.save({"grads": ref.pop("grads"),
-                        "params": ref.pop("params"), "moves": ref["moves"]},
-                       tmp / f"ref{i}.pt")
-            refs.append(ref)
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ranks = spawn_partitions(
-            sharded_runs_rank, len(devices), backend, list(devices),
-            args=([{**spec, "ref": str(tmp / f"ref{i}.pt")}
-                   for i, spec in enumerate(specs)], rank),
-            timeout=GROUP_JOIN_S)
-        t_group = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        try:
+            for spec, path in zip(specs, paths):
+                torch.cuda.empty_cache()
+                ref = sharded_lm_rank(0, devices[0], spec)
+                part = path.with_name(path.name + ".part")
+                torch.save({"grads": ref.pop("grads"),
+                            "params": ref.pop("params"),
+                            "moves": ref["moves"]}, part)
+                part.replace(path)
+                refs.append(ref)
+        except BaseException as e:
+            for path in paths[len(refs):]:
+                path.with_name(path.name + ".failed").write_text(
+                    f"{type(e).__name__}: {e}")
+            raise
+        return refs
+    with _beside(traces) as traced:
+        try:
+            # where no rank is timed, the references run beside the ranks
+            refd = (_beside(references) if backend == HOST_STAGED else
+                    contextlib.nullcontext({"result": references()}))
+            with refd as referenced:
+                t0 = time.perf_counter()
+                ranks = spawn_partitions(
+                    sharded_runs_rank, len(devices), backend, list(devices),
+                    args=([{**spec, "ref": str(path)}
+                           for spec, path in zip(specs, paths)], rank),
+                    timeout=GROUP_JOIN_S)
+                t_group = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    refs = referenced["result"]
+    cells, wants = traced["result"]
+    print(f"[sharded] the dry-run's traces, in the tracer's children "
+          f"beside the card's runs: {traced['seconds']:.1f} s  [{stamp}]",
+          flush=True)
     print(f"[sharded] {len(devices)} {backend} ranks: spawn to every "
           f"result of {len(specs)} runs {t_group:.1f} s  [{stamp}]",
           flush=True)
@@ -5254,7 +5413,9 @@ def phase_sharded(torch, stamp: str, devices=("cuda:0", "cuda:0"),
 def _hold_sharded(stamp: str, devices, backend: str, spec: dict,
                   want: dict, ref: dict, ranks: list) -> dict:
     """Phase 19 (b) of one ``spec``: each rank's result held to the
-    unsharded step ``ref`` and to the traced bytes ``want``."""
+    unsharded step ``ref`` and to the trace ``want`` (its collective bytes
+    and its peak memory)."""
+    from repro_torch.launch.footprint import peak_tolerance
     from repro_torch.launch.group import HOST_STAGED
     n = len(devices)
     arch, L = spec["arch"], spec["num_layers"]
@@ -5292,6 +5453,19 @@ def _hold_sharded(stamp: str, devices, backend: str, spec: dict,
             bad.append(f"rank {r} imported jax or repro")
     if ref["launches"] != flash:
         bad.append(f"the unsharded step launched {ref['launches']}")
+    # the step windows are read on the card (a CPU rehearsal has none)
+    for r, got in enumerate(ranks if devices[0].startswith("cuda") else []):
+        step = got["step_peak_bytes"]
+        tol = peak_tolerance(step)
+        print(f"[sharded] {arch} rank {r}: its last step's own peak {step} B "
+              f"({step / 2**30:.3f} GiB), the dry-run's trace of the same "
+              f"step on meta {want['peak_bytes']} B: "
+              f"{want['peak_bytes'] - step:+d} B "
+              f"({(want['peak_bytes'] - step) / step:+.3%}; bound "
+              f"{tol:.0f} B)  [{stamp}]", flush=True)
+        if abs(want["peak_bytes"] - step) > tol:
+            bad.append(f"rank {r}: the step's peak {step} B, the trace's "
+                       f"{want['peak_bytes']} B")
     peaks = [f"{got['peak_bytes'] / 2**30:.2f}" for got in ranks]
     ms = [[round(w * 1e3, 1) for w in got["seconds"]] for got in ranks]
     walls = ("no rank timed: each collective's buffer passes through the "
@@ -5316,6 +5490,8 @@ def _hold_sharded(stamp: str, devices, backend: str, spec: dict,
     return {"arch": arch,
             "launches": [r["launches"] for r in ranks],
             "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
+            "traced_peak_bytes": want["peak_bytes"],
             "flash_attention": sum(r["launches"]["flash_attention"]
                                    for r in ranks),
             "flash_attention_bwd": sum(r["launches"]["flash_attention_bwd"]
@@ -5324,6 +5500,7 @@ def _hold_sharded(stamp: str, devices, backend: str, spec: dict,
 
 def main() -> int:
     import argparse
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-source", default=None, nargs="+",
                     metavar="PATH",
@@ -5352,17 +5529,29 @@ def main() -> int:
     stamp = card_stamp()
     print(f"[card] {stamp}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+
+    def lap(done: str):
+        print(f"[elapsed] {time.perf_counter() - t_start:.1f} s since the "
+              f"start, after {done}  [{stamp}]", flush=True)
     phase_build(stamp)
+    lap("phase 1")
     entry = phase_kernels(torch, stamp)
+    lap("phase 2")
     launches = phase_slice(torch, stamp)
+    lap("phase 3")
     entry["launches"] = launches["cache_gather"]
     train = phase_train(torch, stamp)
+    lap("phase 4")
     parent = parent_kernels(torch, args.parent_source)
     entries = [entry] + phase_agg(torch, stamp, train["batch"],
                                   train["launches"], parent)
+    lap("phase 5")
     flash = phase_flash(torch, stamp)
+    lap("phase 6")
     lm = phase_lm(torch, stamp)
+    lap("phase 7")
     reservoir = phase_reservoir(torch, stamp, train, parent)
+    lap("phase 8")
     flash["launches"] = lm["prefill"]["flash_attention"]
     flash["decode_launches"] = lm["serve"]["flash_attention"]
     reservoir["path_launches"] = {
@@ -5371,6 +5560,7 @@ def main() -> int:
         "lm_prefill": lm["prefill"]["reservoir_topm"],
         "lm_serve": lm["serve"]["reservoir_topm"]}
     multipart = phase_multipart(torch, stamp)
+    lap("phase 9")
     entry["multipart_unfused_launches"] = multipart["unfused"]["cache_gather"]
     entries[1]["multipart_launches"] = multipart["fused"]["gather_aggregate"]
     entries[2]["multipart_launches"] = multipart["fused"]["neighbor_agg"]
@@ -5379,6 +5569,7 @@ def main() -> int:
     reservoir["path_launches"]["multipart"] = \
         multipart["fused"]["reservoir_topm"]
     autotune = phase_autotune(torch, stamp)
+    lap("phase 10")
     entry["autotune_launches"] = autotune["cache_gather"]
     entries[1]["autotune_launches"] = autotune["gather_aggregate"]
     entries[2]["autotune_launches"] = autotune["neighbor_agg"]
@@ -5386,29 +5577,40 @@ def main() -> int:
         autotune["neighbor_agg_backward"]
     reservoir["path_launches"]["autotune"] = autotune["reservoir_topm"]
     fabric = phase_fabric(torch, stamp)
+    lap("phase 11")
     families = phase_families(torch, stamp)
+    lap("phase 12")
     families.update(phase_encdec_vlm(torch, stamp))
+    lap("phase 13")
+    cells_job = start_dryrun_cells()
     train_lm = phase_lm_train(torch, stamp, parent)
+    lap("phase 14")
     flash["train_launches"] = train_lm["flash_attention"]
-    accounting = phase_accounting(torch, stamp, train_lm["entry"])
+    accounting = phase_accounting(torch, stamp, train_lm["entry"],
+                                  train_lm["step_peak"], cells_job)
     flash["pipeline_launches"] = accounting["pipeline"]["flash_attention"]
+    lap("phase 15")
     group = phase_group(torch, stamp, multipart)
+    lap("phase 16")
     group_launches = group["train"]["launches"]
     entries[1]["group_launches"] = group_launches["gather_aggregate"]
     entries[2]["group_launches"] = group_launches["neighbor_agg"]
     entries[2]["group_backward_launches"] = \
         group_launches["neighbor_agg_backward"]
     live = phase_live(torch, stamp)["launches"]
+    lap("phase 17")
     pipeline = phase_pipeline(torch, stamp)
+    lap("phase 18")
     flash["pipeline_group_launches"] = pipeline["flash_attention"]
     train_lm["entry"]["pipeline_group_launches"] = \
         pipeline["flash_attention_bwd"]
     sharded = phase_sharded(torch, stamp)
+    lap("phase 19")
     flash["sharded_launches"] = sharded["flash_attention"]
     train_lm["entry"]["sharded_launches"] = sharded["flash_attention_bwd"]
-    for key, entry in (("flash_attention", flash),
-                       ("flash_attention_bwd", train_lm["entry"])):
-        entry["sharded_launches_a_rank"] = {
+    for key, e in (("flash_attention", flash),
+                   ("flash_attention_bwd", train_lm["entry"])):
+        e["sharded_launches_a_rank"] = {
             run["arch"]: [r[key] for r in run["launches"]]
             for run in sharded["runs"]}
     entry["live_launches"] = live["cache_gather"]

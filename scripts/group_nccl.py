@@ -49,8 +49,9 @@ run on the host-simulated mesh; needs two CUDA cards (step 7 four).
    over the data axis), held as phase 19 holds its gloo ranks to the
    unsharded step on ``cuda:0`` (loss, every gradient against an f32
    witness, the bytes each rank's collectives moved equal to the
-   dry-run's trace of the same step, the flash launches) with each
-   rank's step wall and peak allocation.  Needs four cards.
+   dry-run's trace of the same step, its last step's own peak within
+   ``footprint.peak_tolerance`` of the trace's, the flash launches) with
+   each rank's step wall and peak allocation.  Needs four cards.
 
 ``--steps`` runs the steps named (all by default; step 3 runs step 2, its
 reference).  Prints the cards' name and power limit; exits non-zero on a mismatch or

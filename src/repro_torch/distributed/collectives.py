@@ -404,10 +404,12 @@ class CollectiveTraffic:
         self.counts[op] += 1
         if self.sites is not None:
             import traceback
+            # the port's frames, less its dispatch modes' own
             at = [f"{f.filename.split('repro_torch/')[-1]}:{f.lineno} "
                   f"{f.name}" for f in traceback.extract_stack()
                   if "repro_torch/" in f.filename
-                  and not f.filename.endswith("distributed/collectives.py")]
+                  and not f.filename.endswith(("distributed/collectives.py",
+                                               "launch/footprint.py"))]
             self.sites.append({"op": op, "bytes": nbytes,
                                "shape": list(outs[0].shape),
                                "dtype": str(outs[0].dtype).split(".")[-1],

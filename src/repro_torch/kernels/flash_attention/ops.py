@@ -41,6 +41,15 @@ returns the plain version's forward under ordinary autograd there, so a
 traced step counts the work of the JAX model's jnp attention and its
 autodiff, which is what XLA counts; ``_forward`` and
 ``flash_attention_bwd`` refuse it, as every other device.
+
+The memory trace (``launch/dryrun.py``, ``launch/footprint.LiveBytes``)
+needs the kernels' footprint instead: within ``footprint()``,
+``flash_attention`` on any device computes nothing and allocates what the
+card does, ``FlashAttentionFootprint`` (the forward's ``o`` and ``lse``,
+saved with ``q, k, v``; the backward's ``do.contiguous()``, ``dq, dk,
+dv`` and the ``(B, H, S)`` f32 ``d_rows``), or the forward's ``o`` alone
+without a gradient.  The plain version would keep the (B, H, S, S)
+probabilities for its backward, which the card never allocates.
 ``flash_attention.launches`` counts forward kernel launches,
 ``flash_attention_bwd.launches`` backward ones (one a call: the C entry
 launches its two kernels), and nothing else.
@@ -60,6 +69,7 @@ kv heads of llama3.2-3b's 24 and 8 on a 2-wide axis).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -77,6 +87,7 @@ TEMPLATE_WIDTH = {8: 16, 16: 16, 32: 32, 64: 64, 112: 128, 128: 128}
 HEAD_DIMS = tuple(TEMPLATE_WIDTH)
 ENCODE_ERROR = 100000      # the C function's code: this + a CUresult
 _fns = {}
+_FOOTPRINT = {"on": False}
 
 
 def _kernel(name: str = "flash_attention"):
@@ -231,6 +242,41 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+class FlashAttentionFootprint(torch.autograd.Function):
+    """``FlashAttention``'s allocations with no arithmetic: the forward's
+    ``o`` and ``lse`` (saved with ``q, k, v``), the backward's contiguous
+    ``do``, ``dq, dk, dv`` and ``d_rows`` (freed on return), each empty."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        B, S, H, _ = q.shape
+        out = torch.empty_like(q)
+        lse = q.new_empty((B, H, S), dtype=torch.float32)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, _, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        d_rows = torch.empty_like(lse)
+        del do, d_rows
+        return dq, dk, dv
+
+
+@contextlib.contextmanager
+def footprint():
+    """Within: ``flash_attention`` allocates what the kernels allocate and
+    computes nothing (``FlashAttentionFootprint``), on every device."""
+    was = _FOOTPRINT["on"]
+    _FOOTPRINT["on"] = True
+    try:
+        yield
+    finally:
+        _FOOTPRINT["on"] = was
+
+
 def _kv_for_heads(k, v, h0: int, Hl: int, group: int):
     """The kv heads local q heads h0..h0+Hl-1 read (head h reads kv head
     h // group), laid out so that local head i reads local kv head
@@ -293,9 +339,16 @@ def flash_attention(q, k, v, causal: bool = True):
     Differentiable through ``FlashAttention`` when grad is enabled and an
     input requires it; otherwise the forward alone, with no log-sum-exp.
     On ``meta``, the plain version under ordinary autograd; DTensors run
-    per shard (``_sharded``)."""
+    per shard (``_sharded``); within ``footprint()`` the kernels'
+    allocations alone."""
     if is_dtensor(q):
         return _sharded(q, k, v, causal)
+    if _FOOTPRINT["on"]:
+        _check(q, k, v)
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return FlashAttentionFootprint.apply(q, k, v)
+        return torch.empty_like(q)
     if q.device.type == "meta":
         _check(q, k, v)
         return flash_attention_ref(q, k, v, causal)

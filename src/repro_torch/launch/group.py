@@ -530,8 +530,8 @@ def _place_batch(batch: dict, model, kind: str, mesh, device_mesh) -> dict:
     for k, t in batch.items():
         pl = placements(enforce_divisible(resolve_spec(specs[k], rules),
                                           t.shape, mesh), device_mesh)
-        out[k] = DTensor.from_local(local_shard(t, pl, device_mesh)
-                                    .contiguous(), device_mesh, pl,
+        out[k] = DTensor.from_local(local_shard(t, pl, device_mesh),
+                                    device_mesh, pl,
                                     run_check=False, shape=t.shape,
                                     stride=t.stride())
     return out
@@ -560,13 +560,17 @@ def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
     first step, by op: ``CollectiveTraffic.summary()``; empty outside a
     group), ``launches`` (the ``flash_attention`` forward and backward
     launches of the first step), ``seconds`` (each step's wall),
-    ``peak_bytes`` (the card's peak allocation, 0 on the CPU) and
-    ``modules``; outside a group also ``moves`` (each leaf's ||params -
+    ``peak_bytes`` (the card's peak allocation over the run, 0 on the
+    CPU), ``step_peak_bytes`` (the last step's own peak on the card as
+    the dry-run's memory trace counts it, ``launch/footprint.step_peak``:
+    what else the run holds through that step drops out; 0 on the CPU)
+    and ``modules``; outside a group also ``moves`` (each leaf's ||params -
     the parameters before the steps||).  With ``spec["ref"]`` (a file of a
     reference's ``grads``, ``params`` and ``moves`` saved by
     ``torch.save``), ``grads`` and ``params`` are replaced by each leaf's
-    relative error against it, so a full-width tree never crosses the
-    result queue: ``grad_err`` ||g - g_ref|| / ||g_ref||, ``param_err``
+    relative error against it (``when_written``: the caller may write it
+    while the ranks run), so a full-width tree never crosses the result
+    queue: ``grad_err`` ||g - g_ref|| / ||g_ref||, ``param_err``
     ||p - p_ref|| over the reference's move (an elementwise optimizer moves
     every element about lr a step, so a max-abs bound on the parameters
     would only bound a sign flip)."""
@@ -579,6 +583,7 @@ def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
     from repro_torch.distributed.sharding import is_dtensor, shard_ctx
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_attention_bwd)
+    from repro_torch.launch.footprint import step_peak, window_start
     from repro_torch.launch.mesh import AbstractMesh, device_mesh
     from repro_torch.models.convert import distribute_params
     from repro_torch.models.params import leaves, unflatten
@@ -622,9 +627,14 @@ def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
                  named_leaves(unflatten(params, grads)).items()}
         loss = float(full(loss))
         seconds, traffic = [], {}
-        for i in range(spec.get("steps", 2)):
+        steps, step_peak_bytes, run_peak = spec.get("steps", 2), 0, 0
+        for i in range(steps):
             f0, b0 = flash_attention.launches, flash_attention_bwd.launches
             sync()
+            if cuda and i == steps - 1:
+                # the last step's own window (the run's peak kept apart)
+                run_peak = torch.cuda.max_memory_allocated(device)
+                base = window_start(device)
             t0 = time.perf_counter()
             if i == 0:
                 with CollectiveTraffic() as tr:
@@ -634,6 +644,9 @@ def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
                 step(params, state, batch)
             sync()
             seconds.append(time.perf_counter() - t0)
+            if cuda and i == steps - 1:
+                step_peak_bytes = step_peak(base, params, state, batch,
+                                            device=device)
             if i == 0:
                 launches = {"flash_attention": flash_attention.launches - f0,
                             "flash_attention_bwd":
@@ -641,8 +654,9 @@ def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
     after = {k: full(t) for k, t in named_leaves(params).items()}
     res = {"loss": loss, "traffic": traffic, "launches": launches,
            "seconds": seconds, "modules": imported_modules(),
-           "peak_bytes": (torch.cuda.max_memory_allocated(device) if cuda
-                          else 0)}
+           "peak_bytes": (max(run_peak, torch.cuda.max_memory_allocated(
+               device)) if cuda else 0),
+           "step_peak_bytes": step_peak_bytes}
     if start is not None:
         res["moves"] = {k: float((t.float() - start[k].float()).norm())
                         for k, t in after.items()}
@@ -650,13 +664,32 @@ def sharded_lm_rank(rank: int, device, spec: dict) -> dict:
         res["grads"] = {k: g.cpu() for k, g in grads.items()}
         res["params"] = {k: t.cpu() for k, t in after.items()}
         return res
-    ref = torch.load(spec["ref"], map_location=device)
+    ref = torch.load(when_written(spec["ref"]), map_location=device)
     res["grad_err"] = {k: _relative(g, ref["grads"][k],
                                     ref["grads"][k].float().norm())
                        for k, g in grads.items()}
     res["param_err"] = {k: _relative(t, ref["params"][k], ref["moves"][k])
                         for k, t in after.items()}
     return res
+
+
+def when_written(path, timeout: float = 600.0):
+    """``path`` once it exists, for a file a caller writes beside the
+    ranks (renamed into place whole).  Raises ``RuntimeError`` where the
+    caller left ``<path>.failed`` instead, ``TimeoutError`` after
+    ``timeout`` seconds."""
+    from pathlib import Path
+    path = Path(path)
+    failed = path.with_name(path.name + ".failed")
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        if failed.exists():
+            raise RuntimeError(f"{path} was not written: "
+                               f"{failed.read_text()}")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} not written after {timeout} s")
+        time.sleep(0.1)
+    return path
 
 
 def sharded_runs_rank(rank: int, device, specs: list, fn=None) -> list:

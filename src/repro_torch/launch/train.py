@@ -548,6 +548,8 @@ def run_lm(args) -> Dict:
     from repro_torch.train.trainer import make_train_step
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     model = build(cfg)
     opt = get_optimizer(cfg)
     step_fn, _ = make_train_step(model, cfg, opt)
@@ -641,6 +643,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--workers", type=int, default=2)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the LM's stack to N layers, at full width "
+                         "(default: the configuration's depth)")
     return ap
 
 

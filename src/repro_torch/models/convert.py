@@ -71,12 +71,16 @@ def local_shard(t, placements, device_mesh):
     """This rank's shard of the full tensor ``t`` laid out by
     ``placements``: ``t`` cut along each sharded dim, mesh dim by mesh dim
     in order (so ``("pod", "data")`` on one dim cuts by pod, then by data
-    within it), each rank taking its coordinate's piece."""
+    within it), each rank taking its coordinate's piece, contiguous and in
+    a storage of its own (a piece that viewed ``t`` would keep the whole
+    of ``t`` allocated)."""
     coord = device_mesh.get_coordinate()
     for j, pl in enumerate(placements):
         if pl.is_shard():
             t = t.chunk(device_mesh.size(j), dim=pl.dim)[coord[j]]
-    return t
+    if t.untyped_storage().nbytes() != t.numel() * t.element_size():
+        return t.clone(memory_format=torch.contiguous_format)
+    return t.contiguous()
 
 
 def distribute_params(params, model, cfg, device_mesh, decls=None):
@@ -98,6 +102,6 @@ def distribute_params(params, model, cfg, device_mesh, decls=None):
     for t, spec in zip(flat, specs):
         pl = placements(spec, device_mesh)
         out.append(DTensor.from_local(
-            local_shard(t, pl, device_mesh).contiguous(), device_mesh, pl,
+            local_shard(t, pl, device_mesh), device_mesh, pl,
             run_check=False, shape=t.shape, stride=t.stride()))
     return unflatten(params, out)

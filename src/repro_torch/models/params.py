@@ -95,16 +95,19 @@ def logical_specs(decls):
 
 
 def unflatten(tree, flat) -> Any:
-    """Rebuild ``tree``'s structure from ``flat`` (the order of ``leaves``)."""
-    it = iter(flat)
+    """Rebuild ``tree``'s structure from ``flat`` (the order of ``leaves``).
+    A module-level recursion, not a nested function that calls itself: that
+    closure is a reference cycle, which kept ``flat`` (a step's gradients)
+    allocated until the garbage collector ran."""
+    return _rebuild(tree, iter(flat))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return [build(v) for v in t]
-        return next(it)
-    return build(tree)
+
+def _rebuild(t, it) -> Any:
+    if isinstance(t, dict):
+        return {k: _rebuild(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return [_rebuild(v, it) for v in t]
+    return next(it)
 
 
 def init_params(decls, generator: torch.Generator, device="cuda",

@@ -1770,3 +1770,39 @@ def test_flash_attention_local_map_on_a_head_shard(card, H, Hkv, m, dtype):
         for got, want in ((dk_sum, full[1].grad), (dv_sum, full[2].grad)):
             scale = float(want.float().abs().max())
             assert float((got - want.float()).abs().max()) <= tol * scale
+
+
+def test_traced_step_peak_matches_the_card(card):
+    """The dry-run's memory trace of an f32 llama3.2-3b train step on
+    ``meta`` (``dryrun.trace_unsharded``) against the card's own window of
+    the same step (``footprint.step_peak``), within
+    ``footprint.peak_tolerance``: full width, cut to 1 layer and an
+    8,192-token vocabulary (the full one's f32 embedding alone is 1.5
+    GiB), ~1.5 GiB of parameters and AdamW state."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.footprint import (peak_tolerance, step_peak,
+                                              window_start)
+    from repro_torch.models.api import build
+    from repro_torch.models.params import init_params
+    from repro_torch.train.data import SyntheticTokens, to_device
+    from repro_torch.train.trainer import make_train_step
+    cfg = get_config("llama3.2-3b").replace(
+        num_layers=1, vocab_size=8192, param_dtype="float32",
+        compute_dtype="float32")
+    B, S = 2, 256
+    model = build(cfg)
+    params = init_params(model.decls,
+                         torch.Generator(device="cuda").manual_seed(0), card)
+    step, opt = make_train_step(model, cfg)
+    state = opt.init(params)
+    data = SyntheticTokens(cfg.vocab_size, B, S, seed=7, n_batches=2)
+    step(params, state, to_device(data.make(0), card))
+    batch = to_device(data.make(1), card)
+    base = window_start()
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    got = step_peak(base, params, state, batch)
+    want = dryrun.trace_unsharded(cfg, ShapeConfig("t", "train", S, B))
+    assert abs(want["peak_bytes"] - got) <= peak_tolerance(got), \
+        (want, got)

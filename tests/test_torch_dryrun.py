@@ -22,7 +22,9 @@ held piece by piece.
     from depths 2 and 4 (the hybrid: 1 and 2 groups) equals its direct
     count;
   * argument bytes equal to the sum from JAX's ``physical_specs``;
-  * the JSON has the keys of JAX's ``run_cell``;
+  * the JSON has the keys of JAX's ``run_cell``, numeric peak and temp
+    bytes and transcendentals, and ``null`` where only XLA's compile
+    gives a number;
   * ``flash_attention`` on ``meta``: the plain version, shape and backward;
   * the new modules of the port are walked and import no JAX.
 """
@@ -230,10 +232,14 @@ def test_json_has_jaxs_keys_and_nulls_what_only_xla_gives(tmp_path,
     assert res["memory"]["argument_bytes"] > 0
     for k in ("t_compile_s",):
         assert res[k] is None
-    for k in ("temp_bytes", "peak_device_bytes"):
-        assert res["memory"][k] is None
-    for k in ("bytes_per_device", "transcendentals",
-              "raw_full_flops_scanned"):
+    # peak and temp bytes come from the traced step (JAX's identity peak =
+    # argument + temp kept), transcendentals from the FLOP trace
+    mem = res["memory"]
+    assert mem["peak_device_bytes"] > mem["argument_bytes"] > 0
+    assert mem["peak_device_bytes"] - mem["temp_bytes"] == \
+        mem["argument_bytes"]
+    assert res["cost"]["transcendentals"] > 0
+    for k in ("bytes_per_device", "raw_full_flops_scanned"):
         assert res["cost"][k] is None
     # every family's collective bytes are counted (the encoder-decoder's
     # since slice 14)

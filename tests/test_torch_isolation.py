@@ -56,6 +56,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "models.encdec", "configs.whisper_medium",
                  "configs.qwen2_vl_2b", "train.optimizer", "train.trainer",
                  "train.data", "launch.group", "launch.dryrun",
+                 "launch.footprint",
                  "train.compression", "distributed.pp",
                  "distributed.sharding", "models.convert",
                  "models.layers"):

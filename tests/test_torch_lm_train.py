@@ -427,6 +427,24 @@ def test_launcher_lm_path_matches_jax_checkpoints(tmp_path, capsys):
         assert got[name]["shape"] == want[name]["shape"], name
 
 
+def test_launcher_layers_cuts_the_stack(tmp_path, capsys):
+    """``--layers 1``: the run trains and checkpoints a one-layer stack at
+    the configuration's width; every other leaf keeps its shape."""
+    from repro_torch.launch.train import build_parser, run_lm
+    argv = ["--arch", "llama3.2-3b", "--smoke", "--steps", "2", "--device",
+            "cpu", "--ckpt-dir", str(tmp_path)]
+    full = run_lm(build_parser().parse_args(argv))
+    cut = run_lm(build_parser().parse_args(argv + ["--layers", "1"]))
+    capsys.readouterr()
+    assert len(cut["history"]) == 2
+    assert all(np.isfinite(h[1]) for h in cut["history"])
+    for a, b in zip(leaves(cut["state"]["params"]["layers"]),
+                    leaves(full["state"]["params"]["layers"])):
+        assert a.shape == (1, *b.shape[1:])
+    assert cut["state"]["params"]["embed"]["tok"].shape == \
+        full["state"]["params"]["embed"]["tok"].shape
+
+
 def test_lm_training_on_cuda_raises_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

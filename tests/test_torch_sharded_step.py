@@ -191,3 +191,26 @@ def test_partial_sums_are_reduced_where_they_are_made(tracer):
              and any("global_norm" in a for a in s["at"])]
     assert len(norms) == 1
     assert sum(s["bytes"] for s in got["sites"]) == got["total"]
+
+
+@pytest.mark.parametrize("case", ["late", "failed", "never"])
+def test_when_written_waits_for_the_callers_file(tmp_path, case):
+    """A rank reads a reference the caller writes beside it: the file once
+    it is there, the caller's ``.failed`` note as an error, and a timeout
+    where neither comes."""
+    import threading
+
+    from repro_torch.launch.group import when_written
+    path = tmp_path / "ref0.pt"
+    if case == "late":
+        threading.Timer(0.3, path.write_bytes, args=(b"x",)).start()
+        assert when_written(path, timeout=30) == path
+        assert path.read_bytes() == b"x"
+    elif case == "failed":
+        note = path.with_name(path.name + ".failed")
+        threading.Timer(0.3, note.write_text, args=("ValueError: x",)).start()
+        with pytest.raises(RuntimeError, match="ValueError: x"):
+            when_written(path, timeout=30)
+    else:
+        with pytest.raises(TimeoutError):
+            when_written(path, timeout=0.3)
