@@ -602,10 +602,41 @@ def unembed_matrix(p, cfg, dtype):
 def _nll(logits, targets):
     """Each token's negative log-likelihood in f32: lse - gold."""
     logits = logits.float()
-    if is_dtensor(logits) and shard_axis(logits, logits.dim() - 1) is not None:
+    if not is_dtensor(logits):
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    elif shard_axis(logits, logits.dim() - 1) is not None:
         return _nll_vocab_sharded(logits, targets)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    else:
+        gold = _gold_per_rank(logits, targets)
     return torch.logsumexp(logits, dim=-1) - gold
+
+
+def _as_dtensor(targets, mesh):
+    """Targets as a DTensor over ``mesh`` (a plain tensor is each rank's
+    whole, replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return (targets if is_dtensor(targets)
+            else DTensor.from_local(
+                targets, mesh, (Replicate(),) * mesh.ndim, run_check=False))
+
+
+def _gold_per_rank(logits, targets):
+    """The gold logit of DTensor logits whole on the vocab, read by each
+    rank from its own block under ``local_map``, the targets placed as the
+    logits' rows: the backward scatters into zeros of the rank's block.
+    (Left to DTensor, ``GatherBackward0`` made zeros of the global logits'
+    sizes on every rank: (B, S, V) f32 of the whole batch.)"""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    tgt_pl = tuple(Replicate() if p.is_partial() else p for p in pl)
+
+    def gold(lg, tg):
+        return torch.gather(lg, -1, tg[..., None].long())[..., 0]
+    return local_map(gold, out_placements=list(pl),
+                     in_placements=(pl, tgt_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(
+                         logits, _as_dtensor(targets, mesh))
 
 
 def _nll_vocab_sharded(logits, targets):
@@ -613,14 +644,12 @@ def _nll_vocab_sharded(logits, targets):
     a max and a sum of exponentials that DTensor reduces over the vocab
     shards, the gold logit read per shard (the targets in its range, the
     rest zero) and summed over them."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     mesh, last = logits.device_mesh, logits.dim() - 1
     vocab = shard_axis(logits, last)
     lo = mesh.get_local_rank(vocab) * (logits.shape[-1] // mesh.size(vocab))
-    tgt = (targets if is_dtensor(targets)
-           else DTensor.from_local(
-               targets, mesh, (Replicate(),) * mesh.ndim, run_check=False))
+    tgt = _as_dtensor(targets, mesh)
     tgt_pl = tuple(p if j != vocab else Replicate()
                    for j, p in enumerate(logits.placements))
     gold_pl = tuple(Partial() if j == vocab else p

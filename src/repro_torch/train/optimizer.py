@@ -33,6 +33,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.params import (ParamDecl, leaves, tree_map_decls,
                                        unflatten)
 
@@ -160,7 +161,72 @@ def _per_leaf(params, tree):
     return [tree]
 
 
+def _mean(x, dim=None, keepdim=False):
+    return torch.mean(x) if dim is None else x.mean(dim, keepdim=keepdim)
+
+
+def _less(placements, dim: int) -> tuple:
+    """A parameter's DTensor placements less its dim ``dim``: that dim's
+    shards replicated, the later dims' indices one lower."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Replicate() if q.is_shard(dim) else
+                 Shard(q.dim - 1) if q.is_shard() and q.dim > dim else q
+                 for q in placements)
+
+
+def _check_placed(s, p):
+    """Adafactor's state of a DTensor leaf must lie as its parameter does
+    (``v``), less the last dim (``vr``) or the second-to-last (``vc``), so
+    that each rank's shards line up with its gradient's."""
+    n, pl = p.dim(), tuple(p.placements)
+    want = {"v": pl, "vr": _less(pl, n - 1), "vc": _less(pl, n - 2)}
+    for k, t in s.items():
+        if tuple(t.placements) != want[k]:
+            raise ValueError(f"Adafactor's {k} lies as {t.placements}, its "
+                             f"parameter as {pl}: want {want[k]}")
+
+
+def _shard_mean(p):
+    """``_mean`` over one rank's shards of the DTensor leaf ``p`` and of
+    tensors that lie as it does or as ``vr`` does (``p`` less its last
+    dim, whose dims are ``p``'s first ones): the local sum, all-reduced
+    over each mesh dim that shards the reduced dim of ``p`` (every dim
+    where ``dim`` is None), divided by the dim's global extent
+    (``p.shape``: shards may be uneven)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, pl = p.device_mesh, tuple(p.placements)
+
+    def summed(x, dims):
+        if not dims:
+            return x
+        part = DTensor.from_local(x, mesh, [Partial() if j in dims else
+                                            Replicate()
+                                            for j in range(mesh.ndim)],
+                                  run_check=False)
+        return part.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+    def mean(x, dim=None, keepdim=False):
+        if dim is None:
+            return summed(torch.sum(x), [j for j, q in enumerate(pl)
+                                         if q.is_shard()]) / p.numel()
+        d = dim % x.dim()
+        return summed(torch.sum(x, d, keepdim=keepdim),
+                      [j for j, q in enumerate(pl) if q.is_shard(d)]) \
+            / p.shape[d]
+    return mean
+
+
 def make_adafactor(b2=0.99, eps=1e-30, clip_rms=1.0) -> Optimizer:
+    """Adafactor.  On DTensor parameters (the sharded step) each leaf's
+    update runs on the rank's own shards of the gradient, the parameter
+    and the state: each mean over a dim that the parameter shards is the
+    shards' sums all-reduced over that mesh dim and divided by the global
+    extent (``_shard_mean``), so no placement inside the update is left
+    to DTensor (which gathered the stacked expert weights once the layers
+    no longer divided the data ranks).  The state must lie as the
+    parameter less the reduced dim (``_check_placed``), as
+    ``state_decls``' physical specs place it (the same logical axes, each
+    dim kept divisible by itself), so it is never redistributed."""
     def state_decls(decls):
         def one(d: ParamDecl):
             if len(d.shape) >= 2 and d.shape[-1] > 1 and d.shape[-2] > 1:
@@ -184,14 +250,16 @@ def make_adafactor(b2=0.99, eps=1e-30, clip_rms=1.0) -> Optimizer:
         return {"fac": unflatten(params, [one(p) for p in leaves(params)]),
                 "count": 0}
 
-    def step(s, g, p, lr):
-        """One leaf: (update, new state)."""
+    def step(s, g, p, lr, mean=_mean):
+        """One leaf: (update, new state); ``mean(x, dim, keepdim)`` (every
+        element where ``dim`` is None) is the plain one, or a shard's
+        (``_shard_mean``)."""
         g32 = g.float()
         g2 = torch.square(g32) + eps
         if "vr" in s:
-            vr = b2 * s["vr"] + (1 - b2) * g2.mean(-1)
-            vc = b2 * s["vc"] + (1 - b2) * g2.mean(-2)
-            rfac = vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+            vr = b2 * s["vr"] + (1 - b2) * mean(g2, -1)
+            vc = b2 * s["vc"] + (1 - b2) * mean(g2, -2)
+            rfac = vr / torch.clamp(mean(vr, -1, keepdim=True), min=eps)
             denom = torch.sqrt(rfac[..., None] * vc[..., None, :])
             u = g32 / torch.clamp(denom, min=eps)
             new_s = {"vr": vr, "vc": vc}
@@ -200,13 +268,20 @@ def make_adafactor(b2=0.99, eps=1e-30, clip_rms=1.0) -> Optimizer:
             u = g32 / (torch.sqrt(v) + 1e-8)
             new_s = {"v": v}
         # update-RMS clipping (Adafactor's d = 1.0 rule)
-        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+        rms = torch.sqrt(mean(torch.square(u)) + 1e-12)
         u = u / torch.clamp(rms / clip_rms, min=1.0)
         return (-lr * u).to(p.dtype), new_s
 
     def update_(grads, state, params, lr):
         def one(g, s, p):
-            u, new_s = step(s, g, p, lr)
+            if is_dtensor(p):
+                _check_placed(s, p)
+                mean = _shard_mean(p)
+                s, g, p = ({k: t.to_local() for k, t in s.items()},
+                           g.to_local(), p.to_local())
+            else:
+                mean = _mean
+            u, new_s = step(s, g, p, lr, mean)
             for k, t in new_s.items():
                 s[k].copy_(t)
             p.add_(u)

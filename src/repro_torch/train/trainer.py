@@ -21,7 +21,9 @@ all-reduces and reduce-scatters happen.  The loss and the metrics are
 made replicated.  ``global_norm`` sums each leaf's shards (DTensor
 reduces the partial sums); an elementwise optimizer (``opt.elementwise``:
 AdamW, SGD, Lion) updates each rank's local shards in place, Adafactor
-(whose factored moments are means over whole dims) the DTensors.
+(whose factored moments are means over whole dims) takes the DTensors and
+updates each leaf's local shards itself, its means reduced explicitly
+over the mesh dims that shard them (``optimizer.make_adafactor``).
 """
 from __future__ import annotations
 
@@ -96,7 +98,8 @@ def _local(t):
 
 def _update(opt, grads, opt_state, params, lr):
     """``opt.update_``, on each rank's local shards where the parameters
-    are DTensors and the update is elementwise."""
+    are DTensors and the update is elementwise; a non-elementwise one
+    (Adafactor) gets the DTensors, whose placements its reductions need."""
     if not (opt.elementwise and any(is_dtensor(p) for p in leaves(params))):
         opt.update_(grads, opt_state, params, lr)
         return
