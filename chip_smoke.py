@@ -73,9 +73,11 @@ Phases; any failure exits non-zero:
    share of the bound (Dh 112 also against the 128-wide template's work);
 7. the LM serving slice at full width — qwen3-4b with seeded weights on the
    card: ``Model.prefill`` of ``tokens (2, 4096)`` (36 flash_attention
-   launches, counted), then ``run_lm_serve``'s engine on 8 requests at
-   batch 8 (prompts <= 8 tokens, 32 new), greedy (no flash_attention
-   launch: decode is plain torch),
+   launches, counted; its allocator peak held to its memory trace on
+   ``meta`` within ``footprint.peak_tolerance`` and below the arguments
+   plus two sets of K and V caches), then ``run_lm_serve``'s engine on 8
+   requests at batch 8 (prompts <= 8 tokens, 32 new), greedy (no
+   flash_attention launch: decode is plain torch),
    each with the counts zeroed just before and read just after; the device
    time of a prefill and a decode step by kernel; then at f32 on a
    64-token prompt, the prefill through the kernel against the prefill
@@ -2059,6 +2061,37 @@ def _profile(torch, fn, stamp: str, label: str, calls: int = 1,
     return busy
 
 
+def _hold_prefill_peak(torch, cfg, cparams, batch, peak: int, stamp: str):
+    """The bf16 prefill's allocator peak (``footprint.step_peak`` over the
+    counted call) against its memory trace on ``meta``
+    (``dryrun.trace_unsharded``, the weights in the compute dtype) within
+    ``footprint.peak_tolerance``, and below the arguments plus two sets of
+    K and V caches, which a prefill that held its caches twice (a list of
+    layers, then their stack) reached at its end."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.footprint import held_bytes, peak_tolerance
+    B, S = batch["tokens"].shape
+    t0 = time.perf_counter()
+    want = dryrun.trace_unsharded(cfg.replace(param_dtype=cfg.compute_dtype),
+                                  ShapeConfig("phase7", "prefill", S, B))
+    traced_s = time.perf_counter() - t0
+    cache = 2 * cfg.num_layers * B * S * cfg.num_kv_heads * cfg.head_dim * 2
+    two = held_bytes(cparams, batch) + 2 * cache
+    diff, tol = want["peak_bytes"] - peak, peak_tolerance(peak)
+    print(f"[memory] prefill ({B}, {S}) bf16: step peak {peak} B on the card "
+          f"against its trace {want['peak_bytes']} B ({diff:+d} B, "
+          f"{diff / peak:+.4%}; bound {tol:.0f} B; traced on meta in "
+          f"{traced_s:.1f} s of host); the arguments and two sets of K and V "
+          f"caches ({cache} B a set) {two} B, {two - peak} B above the "
+          f"peak  [{stamp}]", flush=True)
+    if abs(diff) > tol:
+        fail(f"prefill peak {peak} B, its trace {want['peak_bytes']} B")
+    if not peak < two:
+        fail(f"the prefill peaks {peak} B, at or above the arguments and two "
+             f"sets of caches, {two} B: it holds its caches twice")
+
+
 def phase_lm(torch, stamp: str) -> dict:
     """The LM serving slice at full width; returns the launch counts of the
     prefill and of the serving run."""
@@ -2066,6 +2099,7 @@ def phase_lm(torch, stamp: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.footprint import step_peak, window_start
     from repro_torch.launch.serve import build_parser, run_lm_serve
     from repro_torch.models import layers
     from repro_torch.models.api import build, compute_params
@@ -2092,12 +2126,14 @@ def phase_lm(torch, stamp: str) -> dict:
     with torch.no_grad():
         model.prefill(cparams, batch)                 # warm-up, not counted
         torch.cuda.synchronize()
+        base = window_start()
         counts = _zero_counts()
         t0 = time.perf_counter()
         logits, caches = model.prefill(cparams, batch)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         prefill_launches = counts()
+        peak = step_peak(base, cparams, batch)
     want = {"cache_gather": 0, "gather_aggregate": 0, "neighbor_agg": 0,
             "neighbor_agg_backward": 0, "flash_attention": cfg.num_layers,
             "reservoir_topm": 0}
@@ -2114,6 +2150,7 @@ def phase_lm(torch, stamp: str) -> dict:
              f"{bool(torch.isfinite(logits).all())}), caches "
              f"{tuple(caches['k'].shape)}")
     del caches, logits
+    _hold_prefill_peak(torch, cfg, cparams, batch, peak, stamp)
     with torch.no_grad():
         _profile(torch, lambda: model.prefill(cparams, batch), stamp,
                  f"one prefill of ({B}, {S})")

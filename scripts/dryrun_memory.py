@@ -3,9 +3,12 @@
 cell, run for real.
 
   python3 scripts/dryrun_memory.py [--arch ARCH ...] [--shape train_4k]
+  python3 scripts/dryrun_memory.py --shape prefill_32k
 
 For each cell (``--arch`` at ``--shape`` on the single-pod (16, 16) mesh;
-by default llama3.2-3b and one train_4k cell of every other family):
+by default llama3.2-3b and one cell of every other family at the shape:
+a train step, or a prefill, whose caches it writes into one buffer
+allocated before its layer loop):
 
 1. the prediction: the cell's ``peak_device_bytes`` as the dry-run writes
    it (``launch/dryrun.py``: the sharded step traced on ``meta`` at full
@@ -19,7 +22,8 @@ by default llama3.2-3b and one train_4k cell of every other family):
    leaves out (cuBLAS's and the kernels' workspaces, the blocks the
    allocator reserves but does not hand out);
 2. rank 0 of a ``fake`` group of 256 ranks on ``cuda:0``: its own shards
-   of the parameters, the AdamW state and the batch, zeros, placed by
+   of the parameters, the batch and the AdamW state (train) or the caches
+   (decode), zeros, placed by
    ``dryrun.sharded_args`` (the dry-run's own placement); the other 255
    ranks do not exist, and the fake group moves nothing, so every
    collective's output is zero-filled in place (no index read from it can
@@ -47,7 +51,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-# the dense cell first, then one train_4k cell of each other family
+# the dense cell first, then one cell of each other family
 CELLS = ("llama3.2-3b", "qwen2-moe-a2.7b", "mamba2-1.3b", "zamba2-7b",
          "whisper-medium", "qwen2-vl-2b")
 # what a cell's free bytes must hold beyond its predicted peak

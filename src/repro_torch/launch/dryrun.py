@@ -399,6 +399,21 @@ def run_step(model, cfg, spec, args, place=None):
         return place(*out, cdecls) if place is not None else out
 
 
+def out_placer(cfg, mesh, device_mesh):
+    """``place(logits, caches, cache_decls)`` for ``run_step``: a prefill's
+    or decode's logits and caches redistributed where JAX's
+    ``out_shardings`` put them (the caches by their declarations)."""
+    rules = make_rules(cfg, mesh)
+
+    def place(logits, caches, cdecls):
+        logits = _place(logits, resolve_spec(P("dp", None), rules), mesh,
+                        device_mesh)
+        return logits, unflatten(caches, [
+            _place(c, s, mesh, device_mesh) for c, s in zip(
+                leaves(caches), leaves(physical_specs(cdecls, cfg, mesh)))])
+    return place
+
+
 def sharded_args(cfg, shape, mesh, device_mesh, device="meta"):
     """One rank's arguments of the cell's sharded step and how to run it:
     ``(model, spec, args, place)`` for ``run_step``.  ``args`` holds the
@@ -412,13 +427,7 @@ def sharded_args(cfg, shape, mesh, device_mesh, device="meta"):
     rules = make_rules(cfg, mesh)
     spec = model.input_specs(shape)
     pdt = getattr(torch, cfg.param_dtype)
-
-    def place(logits, caches, cdecls):
-        logits = _place(logits, resolve_spec(P("dp", None), rules), mesh,
-                        device_mesh)
-        return logits, unflatten(caches, [
-            _place(c, s, mesh, device_mesh) for c, s in zip(
-                leaves(caches), leaves(physical_specs(cdecls, cfg, mesh)))])
+    place = out_placer(cfg, mesh, device_mesh)
     args = {"params": _meta_tree(model.decls, cfg, mesh, device_mesh, pdt,
                                  device),
             "batch": {k: meta_dtensor(t.shape, t.dtype, enforce_divisible(

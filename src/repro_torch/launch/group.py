@@ -712,13 +712,21 @@ def sharded_serve_rank(rank: int, device, spec: dict) -> dict:
     ``targets`` unused); the decode step a cache of ``seq`` positions
     drawn N(0, 1/4) from a generator seeded ``seed`` + 2 (placed by
     ``model.cache_decls``' specs in the group), the tokens and positions
-    of ``lm_batch``'s decode batch.  Returns ``prefill_logits``,
-    ``prefill_caches``, ``decode_logits`` and ``decode_caches`` (full
-    tensors on the CPU, by name) and ``modules``."""
+    of ``lm_batch``'s decode batch.  The prefill runs as the dry-run
+    traces it (``launch.dryrun.run_step``: its logits and caches then
+    placed where JAX's ``out_shardings`` put them).  Returns
+    ``prefill_logits``, ``prefill_caches``, ``decode_logits`` and
+    ``decode_caches`` (full tensors on the CPU, by name),
+    ``prefill_placements`` (each prefill cache's DTensor placements as
+    strings; empty outside a group), ``prefill_traffic`` (the prefill's
+    collectives on this rank, ``CollectiveTraffic.summary()``) and
+    ``modules``."""
     import torch
     import torch.distributed as dist
 
+    from repro_torch.distributed.collectives import CollectiveTraffic
     from repro_torch.distributed.sharding import is_dtensor, shard_ctx
+    from repro_torch.launch.dryrun import out_placer, run_step
     from repro_torch.launch.mesh import AbstractMesh, device_mesh
     from repro_torch.models.convert import distribute_params
     from repro_torch.models.params import leaves, unflatten
@@ -738,19 +746,28 @@ def sharded_serve_rank(rank: int, device, spec: dict) -> dict:
                                 for d in leaves(cdecls)])
     in_group = dist.is_available() and dist.is_initialized()
     dm = device_mesh(mesh, device) if in_group else None
+    place = None
     if in_group:
         params = distribute_params(params, model, cfg, dm)
         caches = distribute_params(caches, model, cfg, dm, cdecls)
         prompt = _place_batch(prompt, model, "prefill", mesh, dm)
         step = _place_batch(step, model, "decode", mesh, dm)
+        place = out_placer(cfg, mesh, dm)
 
     def full(tree):
         return {k: (t.full_tensor() if is_dtensor(t) else t).cpu()
                 for k, t in tree.items()}
     with shard_ctx(cfg, mesh, dm), torch.no_grad():
-        logits, pcaches = model.prefill(params, prompt)
+        with CollectiveTraffic() as traffic:
+            logits, pcaches = run_step(model, cfg, {"kind": "prefill"},
+                                       {"params": params, "batch": prompt},
+                                       place)
         res = {"prefill_logits": full({"": logits})[""],
-               "prefill_caches": full(pcaches)}
+               "prefill_caches": full(pcaches),
+               "prefill_placements": {
+                   k: [str(p) for p in c.placements]
+                   for k, c in pcaches.items() if is_dtensor(c)},
+               "prefill_traffic": traffic.summary()}
         logits, dcaches = model.decode(params, caches, step)
         res.update(decode_logits=full({"": logits})[""],
                    decode_caches=full(dcaches), modules=imported_modules())

@@ -133,7 +133,9 @@ def axis_sizes(mesh) -> Dict[str, int]:
     if isinstance(shape, Mapping):
         return dict(shape)
     if getattr(mesh, "mesh_dim_names", None):
-        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        # ``size(i)``, not ``mesh.shape``: a DeviceMesh's ``mesh`` makes a
+        # tensor of its ranks at each read, which a memory trace counts
+        return {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 

@@ -534,7 +534,20 @@ def run_lm(args) -> Dict:
     ``[result] N steps in …s (… tok/s), checkpoints=…``.  Returns the
     model, the final state, the supervisor's report, the history (step,
     loss, gradient norm, host clock at the step's start and end) and the
-    seconds of the run."""
+    seconds of the run.  Without ``--ckpt-dir`` the checkpoints go to a
+    temporary directory, printed when the run starts and removed when it
+    ends, on success or error; a directory the caller names is kept."""
+    if args.ckpt_dir:
+        return _run_lm(args, args.ckpt_dir)
+    with tempfile.TemporaryDirectory(prefix=f"ckpt_{args.arch}_",
+                                     ignore_cleanup_errors=True) as ckpt_dir:
+        print(f"[ckpt] {ckpt_dir} (temporary: removed at the end of the "
+              f"run)", flush=True)
+        return _run_lm(args, ckpt_dir)
+
+
+def _run_lm(args, ckpt_dir) -> Dict:
+    """``run_lm`` with its checkpoints in ``ckpt_dir``."""
     import torch
 
     from repro_torch.configs import get_config
@@ -561,7 +574,6 @@ def run_lm(args) -> Dict:
     data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq,
                            seed=args.seed, n_batches=args.steps)
     loader = PrefetchLoader(data, workers=args.workers)
-    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix=f"ckpt_{args.arch}_")
     ckpt = CheckpointManager(ckpt_dir, keep=2, async_save=True)
 
     state = {"params": params, "opt_state": opt_state}
@@ -581,7 +593,16 @@ def run_lm(args) -> Dict:
 
     sup = TrainSupervisor(ckpt, ckpt_every=max(args.steps // 3, 1))
     t0 = time.perf_counter()
-    state, rep = sup.run(state, one_step, args.steps)
+    try:
+        state, rep = sup.run(state, one_step, args.steps)
+    except BaseException:
+        try:
+            ckpt.wait()         # no writer left in the directory
+        except Exception as e:  # noqa: BLE001 — the step's error is raised
+            print(f"[ckpt] the checkpoint writer failed too: {e!r}",
+                  file=sys.stderr, flush=True)
+        raise
+    ckpt.wait()
     dt = time.perf_counter() - t0
     toks = args.steps * args.batch * args.seq
     print(f"[result] {args.steps} steps in {dt:.1f}s "

@@ -85,17 +85,18 @@ def _ssm_cache_decls(cfg, batch, cache_len):
 
 
 def _ssm_prefill(params, batch, cfg):
-    """Prompt pass producing final SSM/conv states per layer."""
+    """Prompt pass producing final SSM/conv states per layer, written into
+    caches allocated once (``layers.write_layer``)."""
     h = constrain(L.embed(params["embed"], batch["tokens"], cfg, T._cdt(cfg)),
                   "dp", None, None)
-    fstates, tails = [], []
+    caches = L.prefill_caches(_ssm_cache_decls(cfg, *h.shape[:2]), cfg, h)
     for i in range(cfg.num_layers):
         h, fstate, tail = SSM.mamba2_residual_prefill(T._layer(params, i), h,
                                                       cfg)
-        fstates.append(fstate)
-        tails.append(tail)
-    return T._logits(params, h[:, -1], cfg), {"ssm": torch.stack(fstates),
-                                              "conv": torch.stack(tails)}
+        L.write_layer(caches["ssm"], i, fstate)
+        L.write_layer(caches["conv"], i, tail)
+        del fstate, tail
+    return T._logits(params, h[:, -1], cfg), caches
 
 
 def _ssm_decode(params, caches, batch, cfg):

@@ -144,22 +144,28 @@ def cache_decls(cfg, batch: int, cache_len: int):
 
 def prefill(params, batch, cfg):
     """Encode ``audio_embeds`` and run the decoder over ``tokens (B, S)``,
-    building every cache: the last token's logits and ``{"k", "v", "xk",
-    "xv"}``."""
+    building every cache (allocated once, written a layer at a time,
+    ``layers.write_layer``): the last token's logits and ``{"k", "v",
+    "xk", "xv"}``."""
     enc_out = encode(params, batch["audio_embeds"], cfg)
     h = _embed_dec(params, batch["tokens"], cfg)
-    caches = {"k": [], "v": [], "xk": [], "xv": []}
+    caches = L.prefill_caches(cache_decls(cfg, *h.shape[:2]), cfg, h)
     for i in range(cfg.num_layers):
         lp = _layer(params, i, "decoder")
         a, (k, v) = L.attention_prefill(lp["attn"], _ln(lp["ln1"], h, cfg),
                                         cfg, causal=True)
         xk, xv = L.cross_kv(lp["xattn"], enc_out, cfg)
-        h = _cross_residual(lp, h + a, (xk, xv), cfg)
+        L.write_layer(caches["k"], i, k)
+        L.write_layer(caches["v"], i, v)
+        # the cross attention reads the slots, placed as the projection's
+        # K and V, or those where the declarations place the cache apart
+        kv = (L.write_layer(caches["xk"], i, xk),
+              L.write_layer(caches["xv"], i, xv))
+        del k, v, xk, xv
+        h = _cross_residual(lp, h + a, kv, cfg)
+        del kv
         h = constrain(_mlp_residual(lp, h, cfg), "dp", None, None)
-        for name, t in zip(caches, (k, v, xk, xv)):
-            caches[name].append(t)
-    return (_logits(params, h[:, -1], cfg),
-            {name: torch.stack(ts) for name, ts in caches.items()})
+    return _logits(params, h[:, -1], cfg), caches
 
 
 def decode_step(params, caches, batch, cfg):

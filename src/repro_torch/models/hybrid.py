@@ -110,29 +110,33 @@ def loss_fn(params, batch, cfg):
 
 def prefill(params, batch, cfg):
     """Prompt pass filling the SSM states and the shared block's KV
-    caches; returns (last-token logits (B, V) f32, caches)."""
+    caches, each allocated once and written as its layer ends
+    (``layers.write_layer``); returns (last-token logits (B, V) f32,
+    caches)."""
     h = constrain(L.embed(params["embed"], batch["tokens"], cfg, _cdt(cfg)),
                   "dp", None, None)
     B, Ssz, _ = h.shape
     positions = torch.arange(Ssz, dtype=torch.int32,
                              device=h.device)[None].expand(B, Ssz)
-    ssms, convs, ks, vs = [], [], [], []
+    caches = L.prefill_caches(cache_decls(cfg, B, Ssz), cfg, h)
+    gi = 0
     for (start, size, has_attn) in _groups(cfg):
         for i in range(start, start + size):
             h, fstate, tail = S.mamba2_residual_prefill(
                 _layer(params, i, "mamba"), h, cfg)
-            ssms.append(fstate)
-            convs.append(tail)
+            L.write_layer(caches["ssm"], i, fstate)
+            L.write_layer(caches["conv"], i, tail)
+            del fstate, tail
         if has_attn:
             sp = params["shared"]
             a, (k, v) = L.attention_prefill(
                 sp["attn"], L.rmsnorm(sp["ln1"], h, cfg.norm_eps), cfg,
                 positions)
+            L.write_layer(caches["k"], gi, k)
+            L.write_layer(caches["v"], gi, v)
+            del k, v
             h = _shared_mlp(sp, h + a, cfg)
-            ks.append(k)
-            vs.append(v)
-    caches = {"ssm": torch.stack(ssms), "conv": torch.stack(convs),
-              "k": torch.stack(ks), "v": torch.stack(vs)}
+            gi += 1
     return _logits(params, h[:, -1], cfg), caches
 
 

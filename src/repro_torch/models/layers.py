@@ -389,6 +389,55 @@ def _write_sharded(cache, new, posb):
               device_mesh=mesh, redistribute_inputs=True)(cache, new, posb)
 
 
+def prefill_caches(decls, cfg, like):
+    """The caches a prefill fills, allocated once before its layer loop
+    (JAX's scan writes its stacked output in place): ``decls``' shapes
+    and dtypes (a dict of ``ParamDecl``, the model's ``cache_decls``),
+    empty, on the device of ``like`` (the hidden state).  Where ``like``
+    is a DTensor, DTensors on its mesh placed by the declarations' specs,
+    each rank allocating only its shard.  ``write_layer`` fills them."""
+    from repro_torch.distributed.sharding import physical_specs, placements
+    if not is_dtensor(like):
+        return {k: torch.empty(d.shape, dtype=d.dtype, device=like.device)
+                for k, d in decls.items()}
+    from torch.distributed.tensor import DTensor
+    mesh = like.device_mesh
+    out = {}
+    for (k, d), spec in zip(decls.items(),
+                            physical_specs(decls, cfg, mesh).values()):
+        pl = placements(spec, mesh)
+        local = list(d.shape)
+        for j, p in enumerate(pl):
+            if p.is_shard():          # the specs divide every sharded dim
+                local[p.dim] //= mesh.size(j)
+        out[k] = DTensor.from_local(
+            torch.empty(local, dtype=d.dtype, device=like.device), mesh, pl,
+            run_check=False)
+    return out
+
+
+def write_layer(cache, i, t):
+    """Slot ``i`` of a ``prefill_caches`` cache set to one layer's ``t``,
+    in place.  A DTensor cache is written per shard, as decode's
+    ``_write_sharded`` writes: ``t`` placed as the slot (a dim ``t``
+    holds whole and the cache shards is cut locally, no collective), then
+    each rank's local shard copied into its local cache.  Returns what
+    the rest of the layer reads in place of ``t``: the slot where it lies
+    as ``t`` does (so ``t`` itself can be freed), else ``t``."""
+    if not is_dtensor(cache):
+        cache[i].copy_(t)
+        return cache[i]
+    from torch.distributed.tensor import Shard
+    want = tuple(Shard(p.dim - 1) if p.is_shard() else p
+                 for p in cache.placements)
+    if tuple(t.placements) == want:
+        cache.to_local()[i].copy_(t.to_local())
+        return cache[i]
+    cache.to_local()[i].copy_(t.redistribute(cache.device_mesh,
+                                             want).to_local())
+    return t
+
+
 def _attend(q, k, v, cfg, mask=None):
     """Plain attention, q (B,Sq,H,Dh) against k/v (B,Skv,H,Dh): scores in
     q's dtype, scaled, then softmax in f32 (masked where ``mask``, which

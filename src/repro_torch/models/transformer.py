@@ -215,20 +215,21 @@ def cache_decls(cfg, batch: int, cache_len: int):
 def prefill(params, batch, cfg):
     """Forward over the prompt ``batch["tokens"] (B, S)`` (with
     ``vision_embeds`` and ``positions`` for the VLM), returning the last
-    token's logits and the KV caches ``(L, B, S, Hkv, Dh)``."""
+    token's logits and the KV caches ``(L, B, S, Hkv, Dh)``, allocated
+    once and written a layer at a time (``layers.write_layer``)."""
     h = _embed_input(params, batch, cfg)
     B, S, _ = h.shape
     positions = _positions(batch, cfg, B, S, h.device)
-    ks, vs = [], []
+    caches = L.prefill_caches(cache_decls(cfg, B, S), cfg, h)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         a, (k, v) = L.attention_prefill(
             lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg, positions)
+        L.write_layer(caches["k"], i, k)
+        L.write_layer(caches["v"], i, v)
+        del k, v
         h = constrain(_mlp_residual(lp, h + a, cfg), "dp", None, None)
-        ks.append(k)
-        vs.append(v)
-    return _logits(params, h[:, -1], cfg), {"k": torch.stack(ks),
-                                            "v": torch.stack(vs)}
+    return _logits(params, h[:, -1], cfg), caches
 
 
 def decode_step(params, caches, batch, cfg):

@@ -1806,3 +1806,47 @@ def test_traced_step_peak_matches_the_card(card):
     want = dryrun.trace_unsharded(cfg, ShapeConfig("t", "train", S, B))
     assert abs(want["peak_bytes"] - got) <= peak_tolerance(got), \
         (want, got)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-7b",
+                                  "whisper-medium"])
+def test_traced_prefill_peak_matches_the_card(card, arch):
+    """A bf16 prefill, which writes its caches into one buffer allocated
+    before its layer loop, against its memory trace on ``meta``
+    (``dryrun.trace_unsharded``, the weights in bf16): the card's window
+    of the call (``footprint.step_peak``) within
+    ``footprint.peak_tolerance``.  Full width, cut to 4 layers (the
+    hybrid to two shared-attention groups, the encoder-decoder to 2 + 2),
+    a (2, 1024) prompt (the encoder-decoder's beside 1,500 audio
+    frames)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.footprint import (peak_tolerance, step_peak,
+                                              window_start)
+    from repro_torch.launch.group import lm_batch
+    from repro_torch.models.api import build
+    from repro_torch.models.params import init_params
+    cfg = get_config(arch).replace(param_dtype="bfloat16",
+                                   compute_dtype="bfloat16")
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(num_layers=2 * cfg.shared_attn_every)
+    elif cfg.family == "encdec":
+        cfg = cfg.replace(num_layers=2, encoder_layers=2)
+    else:
+        cfg = cfg.replace(num_layers=4)
+    B, S = 2, 1024
+    model = build(cfg)
+    params = init_params(model.decls,
+                         torch.Generator(device="cuda").manual_seed(0), card,
+                         dtype_override=torch.bfloat16)
+    batch = lm_batch({"batch": B, "seq": S}, model, "prefill", card)
+    with torch.no_grad():
+        model.prefill(params, batch)
+        base = window_start()
+        out = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        got = step_peak(base, params, batch)
+        del out
+    want = dryrun.trace_unsharded(cfg, ShapeConfig("p", "prefill", S, B))
+    assert abs(want["peak_bytes"] - got) <= peak_tolerance(got), \
+        (want, got)

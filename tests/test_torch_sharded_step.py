@@ -21,6 +21,8 @@ collective count.
 """
 from __future__ import annotations
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -203,7 +205,12 @@ def test_when_written_waits_for_the_callers_file(tmp_path, case):
     from repro_torch.launch.group import when_written
     path = tmp_path / "ref0.pt"
     if case == "late":
-        threading.Timer(0.3, path.write_bytes, args=(b"x",)).start()
+        def write():
+            # as the callers write: a sibling file renamed into place whole
+            tmp = path.with_name(path.name + ".tmp")
+            tmp.write_bytes(b"x")
+            os.replace(tmp, path)
+        threading.Timer(0.3, write).start()
         assert when_written(path, timeout=30) == path
         assert path.read_bytes() == b"x"
     elif case == "failed":
